@@ -11,20 +11,27 @@ Phases (any failure exits non-zero and prints no result line):
             ``nvcc`` (all in parallel) and prints each build's ``ptxas``
             resource line;
 3. kernels — calls each kernel's wrapper on the card at the shapes the
-            slice's queries give it, holds the result against the kernel's
+            slice's queries give it (``intersect``: the very inputs of an
+            extra Q6 run, captured there), holds the result against the kernel's
             plain PyTorch version on the same inputs (tolerance: exact —
             every output is integral, and float64 outputs are compared bit
             for bit), and times kernel, plain version and one PyTorch
             library call with CUDA events;
-4. slice  — runs the five slice queries through ``CypherSession.cuda()``
+4. slice  — runs the slices' queries through ``CypherSession.cuda()``
             on the LDBC-SNB-shaped graphs (SF1: 10,000 persons, SF10:
-            100,000 persons, seed 42), checks every answer against numpy
-            ground truth computed from the generator's arrays, and checks
-            that each query ran on the device rung once with no kernel
-            fallback, and launched its kernels on the ``kernel`` tier.
-            Phase 4 runs on graphs generated anew after phase 3, so each
-            graph's first query builds its CSR inside its cold time; each
-            cold run's time is split by the query's own trace phases.
+            100,000 persons, seed 42): Q1-Q5 on the CSR expand path, Q6-Q8
+            (the triangle count, the triangle rows, the 4-clique count) on
+            the WCOJ multiway-intersect path, and a triangle count on a
+            small seeded graph with self-loops and parallel edges, whose
+            uniqueness pairs the operator enforces itself. It checks every
+            answer against numpy/scipy ground truth computed from the
+            generator's arrays, and checks that each query ran on the
+            device rung once with no kernel fallback, launched its kernels
+            on the ``kernel`` tier and (Q6-Q8) answered on the expected
+            WCOJ tier. Phase 4 runs on graphs generated anew after phase 3,
+            so each graph's first query builds its CSR inside its cold
+            time; each cold run's time is split by the query's own trace
+            phases.
 
 The kernel launch counts are zeroed just before phase 4 and read just after
 it; the comparisons of phase 3 do not count. The line before the last is
@@ -63,6 +70,16 @@ Q4 = (
 Q5 = (
     "MATCH (a:Person)-[:KNOWS]->(b:Person)-[:KNOWS]->(c:Person) "
     "RETURN min(c.birthday) AS lo, max(c.birthday) AS hi"
+)
+# the triangle close (bench.py TRIANGLE), its rows, and the 4-clique
+# (bench.py CLIQUE4)
+MATCH_TRI = "MATCH (a:Person)-[:KNOWS]->(b:Person)-[:KNOWS]->(c:Person)-[:KNOWS]->(a) "
+Q6 = MATCH_TRI + "RETURN count(*) AS triangles"
+Q7 = MATCH_TRI + "RETURN a.id AS a, b.id AS b, c.id AS c"
+Q8 = (
+    "MATCH (a:Person)-[:KNOWS]->(b:Person)-[:KNOWS]->(c:Person)-[:KNOWS]->(a), "
+    "(a)-[:KNOWS]->(d:Person), (b)-[:KNOWS]->(d), (c)-[:KNOWS]->(d) "
+    "RETURN count(*) AS cliques"
 )
 
 
@@ -368,17 +385,209 @@ def check_segment_agg(torch, q5_rows, report):
           f"{scatter_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
 
 
+def q6_range_count_calls(torch, g10, want):
+    """Run Q6 once more on ``g10`` with a hook on the count tier's
+    ``intersect_range_count`` and return the (keys, q, qvalid) of each of
+    its calls, in call order: the inputs the main path itself sends. The
+    run's launches are not the main path's (the counts are zeroed before
+    phase 4)."""
+    from tpu_cypher_torch.backend.cuda import hopper
+
+    calls = []
+    inner = hopper.intersect_range_count
+
+    def hook(keys, q, qvalid):
+        calls.append((keys, q, qvalid))
+        return inner(keys, q, qvalid)
+
+    hopper.intersect_range_count = hook
+    try:
+        rows = [dict(r) for r in g10.cypher(Q6).records.collect()]
+    finally:
+        hopper.intersect_range_count = inner
+    check(rows == [{"triangles": want}], f"Q6 (hooked) {rows} != {want}")
+    check(len(calls) == 2, f"Q6 made {len(calls)} range-count calls, expected 2")
+    return calls
+
+
+def check_intersect(torch, g10, tri10, report):
+    import numpy as np
+
+    from tpu_cypher_torch.backend.cuda.hopper import dispatch
+    from tpu_cypher_torch.backend.cuda.hopper import intersect as KI
+
+    dev = backend_device()
+    rng = np.random.default_rng(SEED)
+    err = 0.0
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def compare(label, keys, q, qvalid):
+        nonlocal err
+        lo, counts = KI.range_count_cuda(keys, q, qvalid)
+        got = (lo, counts, torch.sum(counts))
+        want = KI.range_count_plain(keys, q, qvalid)
+        torch.cuda.synchronize()
+        e = tuple_err(torch, got, want)
+        err = max(err, e)
+        print(f"  intersect {label}: keys={int(keys.shape[0])} queries="
+              f"{int(q.shape[0])} matches={int(want[2])} max_abs_err={e}")
+        check(e == 0.0, f"intersect {label} disagrees with its plain version")
+
+    calls = q6_range_count_calls(torch, g10, tri10)
+    for j, call in enumerate(calls):
+        compare(f"Q6 SF10 arm {j}", *call)
+    # a sentinel-free power-of-two key list, queries at and past its max:
+    # the case the TPU kernel's completion half-step exists for
+    keys = np.sort(rng.integers(0, 1 << 40, 1 << 20)).astype(np.int64)
+    top = int(keys[-1])
+    q = np.concatenate([
+        np.array([top, top + 1, top + (1 << 30), 1 << 61, 1 << 62], np.int64),
+        keys[rng.integers(0, keys.shape[0], 1 << 20)],
+        rng.integers(-5, top + 5, 1 << 20).astype(np.int64),
+    ])
+    compare("2^20 keys, queries past the max", t(keys), t(q),
+            t(rng.random(q.shape[0]) < 0.9))
+    # runs of duplicate keys (parallel edges), hit and missed
+    dup = np.sort(np.repeat(rng.integers(0, 5000, 20000), rng.integers(1, 40, 20000)))
+    q = rng.integers(-3, 5003, 3_000_000).astype(np.int64)
+    compare("duplicate runs", t(dup.astype(np.int64)), t(q),
+            t(rng.random(q.shape[0]) < 0.8))
+    # all lanes invalid: counts zero, insertion points still written
+    keys_r, q_r, _ = calls[0]
+    compare("all-invalid lanes", keys_r, q_r[:1_000_000],
+            torch.zeros(1_000_000, dtype=torch.bool, device=dev))
+    # an empty query list is no call for the kernel: the gate's fallback
+    before = dispatch.use_counts()["intersect"]
+    empty = torch.zeros(0, dtype=torch.int64, device=dev)
+    lo, counts, total = KI.intersect_range_count(keys_r, empty, empty.bool())
+    after = dispatch.use_counts()["intersect"]
+    check(lo.shape == (0,) and counts.shape == (0,) and int(total) == 0,
+          "intersect on an empty query list")
+    check(after["fallback"] == before["fallback"] + 1
+          and after["kernel"] == before["kernel"],
+          f"empty query list did not take the fallback tier: {before} -> {after}")
+    print("  intersect empty query list: fallback tier, no launch")
+
+    # timing at Q6's arm 0: the kernel, its plain version and the two
+    # torch.searchsorted calls alone
+    keys, q, qvalid = calls[0]
+    ms = time_ms(torch, lambda: KI.range_count_cuda(keys, q, qvalid), iters=10)
+    plain_ms = time_ms(torch, lambda: KI.range_count_plain(keys, q, qvalid), iters=10)
+    lib_ms = time_ms(torch, lambda: (
+        torch.searchsorted(keys, q, side="left"),
+        torch.searchsorted(keys, q, side="right"),
+    ), iters=10)
+    nk, nq = int(keys.shape[0]), int(q.shape[0])
+    nbytes = 8 * nk + 25 * nq
+    # int32 operations, counted from range_count.cu, of what the function
+    # needs: per lane one lower-bound search of ceil(log2(nk)) rounds at 7
+    # each (the halving shift, the index add, the int64 compare at 2, the
+    # select, the length update and the loop test), then 7 (the last
+    # step's compare and add, the validity, bounds and equality tests).
+    # A hit lane adds its run's search: about 2 * bit_length(run) rounds
+    # at 7 each (this run's data decides how many lanes hit)
+    _, want_counts, _ = KI.range_count_plain(keys, q, qvalid)
+    hit = want_counts[want_counts > 0]
+    run_bits = int(torch.sum(torch.floor(torch.log2(hit.double())) + 1)) if hit.numel() else 0
+    ops = nq * (7 * (nk - 1).bit_length() + 7) + 14 * run_bits
+    b_ms, b_by = bound(nbytes, ops)
+    report["intersect"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms,
+        library_call="torch.searchsorted (left and right)",
+        shape=f"Q6 arm 0 at SF10: {nq} queries over {nk} keys, {int(hit.numel())} hits",
+    )
+    print(f"  intersect timing at Q6 arm 0: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, two torch.searchsorted {lib_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the slice through CypherSession.cuda()
 # ---------------------------------------------------------------------------
 
 
-def run_query(torch, pg, query, kernels):
+def triangle_truth(ids, src, dst, rows_and_cliques):
+    """scipy ground truth over the generator's arrays, with edge
+    multiplicity: the directed triangle count trace(A^3) and the per-edge
+    sum of min(out(b), in(a)) (the count tier's expanded lanes); with
+    ``rows_and_cliques`` also the triangle rows (a, b, c, multiplicity) and
+    the 4-clique count. The graphs are loop-free (checked), so distinct
+    endpoints force distinct relationships."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    check(not (src == dst).any(), "generated graph has a self-loop")
+    n = len(ids)
+    s, d = np.searchsorted(ids, src), np.searchsorted(ids, dst)
+    A = sp.csr_matrix((np.ones(len(s), np.int64), (s, d)), shape=(n, n))
+    A.sum_duplicates()
+    AT = A.T.tocsr()
+    out_deg = np.bincount(s, minlength=n)
+    in_deg = np.bincount(d, minlength=n)
+    truth = {"min_lanes": int(np.minimum(out_deg[d], in_deg[s]).sum())}
+    tri = 0
+    step = 4096
+    for lo in range(0, n, step):  # trace(A^3) = sum(A^2 o A^T), by row block
+        tri += int((A[lo:lo + step] @ A).multiply(AT[lo:lo + step]).sum())
+    truth["triangles"] = tri
+    if rows_and_cliques:
+        pa, pb = A.nonzero()
+        M = A[pb].multiply(AT[pa]).tocoo()  # per (a, b) pair: c with b->c->a
+        w = M.data * np.asarray(A[pa[M.row], pb[M.row]]).ravel()
+        # scipy's indices are int32: widen before the row code (a*n+b)*n+c
+        ta, tb, tc = (x.astype(np.int64) for x in (pa[M.row], pb[M.row], M.col))
+        check(int(w.sum()) == tri, "the two triangle counts disagree")
+        truth["rows"] = np.sort(np.repeat((ta * n + tb) * n + tc, w))
+        closes = np.asarray(A[ta].multiply(A[tb]).multiply(A[tc]).sum(axis=1)).ravel()
+        truth["cliques"] = int((w * closes).sum())
+        # the 4-clique count tier's lanes over the triangle rows: per row
+        # the smallest of out(a), out(b), out(c)
+        m3 = np.minimum(np.minimum(out_deg[ta], out_deg[tb]), out_deg[tc])
+        truth["clique_min_lanes"] = int((w * m3).sum())
+        truth["pivot_lanes"] = int(out_deg[d].sum())
+    return truth
+
+
+def loopy_arrays(n=300, e=3000):
+    """A seeded Person/KNOWS graph with self-loops and parallel edges."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    ids = np.arange(n, dtype=np.int64) * 7 + 1
+    src, dst = ids[rng.integers(0, n, e)], ids[rng.integers(0, n, e)]
+    pairs = src * (1 << 32) + dst
+    check((src == dst).any() and len(np.unique(pairs)) < e,
+          "the loopy graph lacks self-loops or parallel edges")
+    return ids, src, dst
+
+
+def loopy_triangles(src, dst) -> int:
+    """Brute force: relationship triples r0: a->b, r1: b->c, r2: c->a with
+    pairwise distinct relationships (openCypher isomorphism)."""
+    out = {}
+    for i, (s, d) in enumerate(zip(src.tolist(), dst.tolist())):
+        out.setdefault(s, []).append((i, d))
+    count = 0
+    for r0, (a, b) in enumerate(zip(src.tolist(), dst.tolist())):
+        for r1, c in out.get(b, ()):
+            for r2, a2 in out.get(c, ()):
+                if a2 == a and r0 != r1 and r0 != r2 and r1 != r2:
+                    count += 1
+    return count
+
+
+def run_query(torch, pg, query, kernels, plan_op="CsrExpandOp", wcoj_tiers=()):
     """Run one query twice (cold, warm) and check the device-only contract
-    on both runs. Returns (records rows of the warm run, seconds list,
-    per-kernel kernel-tier launches, materialized lanes, the cold run's
-    result)."""
+    on both runs: one device attempt, ``plan_op`` in the plan, every kernel
+    of ``kernels`` launched and no kernel off its ``kernel`` tier, and each
+    WCOJ tier of ``wcoj_tiers`` hit once. Returns (records rows of the warm
+    run, seconds list, per-kernel kernel-tier launches, materialized lanes,
+    the cold run's result)."""
     from tpu_cypher_torch.backend.cuda import bucketing
+    from tpu_cypher_torch.backend.cuda import wcoj as W
     from tpu_cypher_torch.backend.cuda.hopper import dispatch
 
     secs = []
@@ -388,6 +597,7 @@ def run_query(torch, pg, query, kernels):
     results = []
     for attempt in ("cold", "warm"):
         before = dispatch.use_counts()
+        tiers0 = dict(W.WCOJ_TIER_COUNTS)
         rows0 = bucketing._ROWS_TRUE.value()
         t0 = time.perf_counter()
         result = pg.cypher(query)
@@ -403,7 +613,10 @@ def run_query(torch, pg, query, kernels):
         log = result.execution_log
         check(len(log) == 1 and log[0]["rung"] == "device" and log[0]["ok"],
               f"not one device rung: {log}")
-        check("CsrExpandOp" in result.plans, "plan has no CsrExpandOp")
+        check(plan_op in result.plans, f"plan has no {plan_op}")
+        tiers = {k: v - tiers0.get(k, 0) for k, v in dict(W.WCOJ_TIER_COUNTS).items()}
+        check(tiers == {k: int(k in wcoj_tiers) for k in tiers},
+              f"WCOJ tiers {tiers}, expected {wcoj_tiers}: {query}")
         for name in after:
             d = {t: after[name][t] - before[name][t] for t in after[name]}
             check(d["fallback"] == 0 and d["plain"] == 0,
@@ -437,7 +650,8 @@ def main() -> int:
         return 2
     import numpy as np
 
-    from tpu_cypher_torch import CypherSession
+    from tpu_cypher_torch import CypherSession, interop
+    from tpu_cypher_torch.api.types import CTInteger
     from tpu_cypher_torch.backend.cuda.hopper import _build, dispatch
     from tpu_cypher_torch.io.ldbc import generate_snb
     from tpu_cypher_torch.relational.session import PropertyGraph
@@ -496,6 +710,15 @@ def main() -> int:
     print(f"truth: SF1 {len(ids1)} persons / {len(src1)} KNOWS; SF10 "
           f"{len(ids10)} persons / {len(src10)} KNOWS; Q4 2-hop paths "
           f"{truth['Q4']}; Q5 second-hop rows {truth['Q5_rows']}")
+    t0 = time.perf_counter()
+    tri10 = triangle_truth(ids10, src10, dst10, rows_and_cliques=False)
+    tri1 = triangle_truth(ids1, src1, dst1, rows_and_cliques=True)
+    idsl, srcl, dstl = loopy_arrays()
+    loopy_truth = loopy_triangles(srcl, dstl)
+    print(f"truth: SF10 {tri10['triangles']} triangles, sum of min(out(b), "
+          f"in(a)) {tri10['min_lanes']}; SF1 {tri1['triangles']} triangles, "
+          f"{tri1['cliques']} 4-cliques; loopy {loopy_truth} triangles "
+          f"(scipy and brute force, {time.perf_counter() - t0:.1f} s)")
 
     # 3. kernels against their plain versions
     report = {}
@@ -503,6 +726,7 @@ def main() -> int:
     check_expand_rows(torch, session, g1, g10, report)
     check_frontier(torch, session, g10, report)
     check_segment_agg(torch, truth["Q5_rows"], report)
+    check_intersect(torch, g10, tri10["triangles"], report)
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # 4. the slice, on graphs phase 3 has not touched (no CSR built yet)
@@ -511,6 +735,9 @@ def main() -> int:
     del g1, g10
     torch.cuda.empty_cache()
     g1, g10 = graphs()
+    gl = interop.graph_from_arrays(
+        session, idsl, {}, {"id": CTInteger.nullable}, srcl, dstl
+    )
     check(all(np.array_equal(x, y)
               for old, new in zip(arrays3, (graph_arrays(g1), graph_arrays(g10)))
               for x, y in zip(old, new)),
@@ -519,8 +746,8 @@ def main() -> int:
     slice_launches = {}
     cold = {}
 
-    def run(label, pg, q, kernels):
-        rows, secs, launches, lanes, first = run_query(torch, pg, q, kernels)
+    def run(label, pg, q, kernels, **kw):
+        rows, secs, launches, lanes, first = run_query(torch, pg, q, kernels, **kw)
         for k, v in launches.items():
             slice_launches[k] = slice_launches.get(k, 0) + v
         phases = {k: round(v, 4) for k, v in first.profile().phase_seconds().items()}
@@ -554,6 +781,53 @@ def main() -> int:
     print("  Q4's cold run, its trace tree (wall ms per span):")
     for line in cold["Q4 (SF10)"].profile().render().splitlines():
         print(f"    {line}")
+
+    # the WCOJ triangle path: count tier at SF10, materialize tier at SF1,
+    # both inside the 4-clique, and in-op uniqueness on a loopy graph
+    wcoj = ("expand_rows", "intersect")
+    mwi = "MultiwayIntersectOp"
+    torch.cuda.reset_peak_memory_stats()
+    rows, secs, lanes = run("Q6 (SF10)", g10, Q6, wcoj, plan_op=mwi,
+                            wcoj_tiers=("count",))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"    Q6 peak device memory {peak:.2f} GiB")
+    check([dict(r) for r in rows] == [{"triangles": tri10["triangles"]}],
+          f"Q6 {rows} != {tri10['triangles']}")
+    check(lanes == len(src10) + tri10["min_lanes"],
+          f"Q6 expanded {lanes} lanes, expected {len(src10)} + {tri10['min_lanes']}")
+    print(f"    Q6 = {rows[0]['triangles']}; expanded lanes {len(src10)} + "
+          f"{tri10['min_lanes']} = {lanes} (the binary plan's 2-hop: "
+          f"{truth['Q4']}); {lanes / secs[1]:.1f} lanes/s warm")
+    rows, _, lanes = run("Q7 (SF1)", g1, Q7, wcoj, plan_op=mwi,
+                         wcoj_tiers=("materialize",))
+    n1 = len(ids1)
+    got = np.sort(np.array(
+        [(idx(ids1, r["a"]) * n1 + idx(ids1, r["b"])) * n1 + idx(ids1, r["c"])
+         for r in rows], np.int64))
+    check(np.array_equal(got, tri1["rows"]), "Q7 triangle row bag differs from scipy")
+    want_lanes = len(src1) + tri1["pivot_lanes"] + tri1["triangles"]
+    check(lanes == want_lanes, f"Q7 materialized {lanes} lanes, expected {want_lanes}")
+    print(f"    Q7 = {len(rows)} triangle rows, bag-identical to scipy "
+          f"(parallel-edge multiplicity included); pivot lanes {tri1['pivot_lanes']}")
+    rows, _, lanes = run("Q8 (SF1)", g1, Q8, wcoj, plan_op=mwi,
+                         wcoj_tiers=("materialize", "count"))
+    check([dict(r) for r in rows] == [{"cliques": tri1["cliques"]}],
+          f"Q8 {rows} != {tri1['cliques']}")
+    want_lanes = want_lanes + tri1["clique_min_lanes"]
+    check(lanes == want_lanes, f"Q8 expanded {lanes} lanes, expected {want_lanes}")
+    print(f"    Q8 = {rows[0]['cliques']}; the count tier expanded "
+          f"{tri1['clique_min_lanes']} lanes over {tri1['triangles']} triangle rows")
+    rows, _, _ = run("loopy triangles", gl, Q6, wcoj, plan_op=mwi,
+                     wcoj_tiers=("materialize",))
+    check([dict(r) for r in rows] == [{"triangles": loopy_truth}],
+          f"loopy {rows} != brute force {loopy_truth}")
+    check("uniq" in cold["loopy triangles"].plans, "loopy plan enforces no pair")
+    print(f"    loopy = {loopy_truth} triangles with distinct relationships "
+          f"({len(srcl)} KNOWS with self-loops and parallel edges), "
+          f"bag-identical to the brute-force count")
+    print("  Q6's cold run, its trace tree (wall ms per span):")
+    for line in cold["Q6 (SF10)"].profile().render().splitlines():
+        print(f"    {line}")
     counts = dispatch.use_counts()
     for name, c in counts.items():
         check(c["fallback"] == 0 and c["plain"] == 0, f"{name} fallbacks: {c}")
@@ -564,7 +838,7 @@ def main() -> int:
 
     specs = dispatch.registry()
     kernels = []
-    for name in ("expand_rows", "frontier_deg_sum", "segment_agg"):
+    for name in ("expand_rows", "frontier_deg_sum", "segment_agg", "intersect"):
         r = report[name]
         kernels.append({
             "name": name,

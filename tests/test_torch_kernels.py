@@ -1,6 +1,6 @@
 """The port's kernel modules held against the JAX package, on the CPU.
 
-For each of the three kernels on the CSR expand slice, the plain PyTorch
+For each of the port's four kernels, the plain PyTorch
 version (what a CPU tensor runs, and what the CUDA kernel is held to on the
 card by ``chip_smoke.py``) must be bit-identical — values AND dtypes — to
 the reference's jnp formulation and to its Pallas kernel run in interpret
@@ -25,6 +25,7 @@ from tpu_cypher.backend.tpu.pallas import aggregate as RPA
 from tpu_cypher.backend.tpu.pallas import dispatch as RD
 from tpu_cypher.backend.tpu.pallas import expand as RPE
 from tpu_cypher.backend.tpu.pallas import frontier as RPF
+from tpu_cypher.backend.tpu.pallas import intersect as RPI
 
 from tpu_cypher_torch import errors as PERR
 from tpu_cypher_torch.backend.cuda import device as PDEV
@@ -33,6 +34,7 @@ from tpu_cypher_torch.backend.cuda.hopper import aggregate as PA
 from tpu_cypher_torch.backend.cuda.hopper import dispatch as PD
 from tpu_cypher_torch.backend.cuda.hopper import expand as PE
 from tpu_cypher_torch.backend.cuda.hopper import frontier as PF
+from tpu_cypher_torch.backend.cuda.hopper import intersect as PI
 
 torch.set_num_threads(1)
 
@@ -265,6 +267,116 @@ def test_f64_order_keys_roundtrip_and_order():
 
 
 # ---------------------------------------------------------------------------
+# intersect
+# ---------------------------------------------------------------------------
+
+
+def _range_case(name):
+    """(keys, q, qvalid) for one shape class of the range-count contract."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    if name == "empty_q":
+        keys = np.sort(rng.integers(0, 100, 40)).astype(np.int64)
+        return keys, np.zeros(0, np.int64), np.zeros(0, bool)
+    if name == "all_invalid":
+        keys = np.sort(rng.integers(0, 100, 64)).astype(np.int64)
+        q = rng.integers(-5, 110, 200).astype(np.int64)
+        return keys, q, np.zeros(200, bool)
+    if name == "single_key":
+        return np.array([17], np.int64), np.array([-1, 16, 17, 18, 1 << 40], np.int64), \
+            np.array([True, True, True, False, True])
+    if name == "pow2_past_max":
+        # the case the TPU kernel's completion half-step exists for: a
+        # sentinel-free power-of-two key list, queries at and past the max
+        keys = np.sort(rng.integers(0, 500, 256)).astype(np.int64)
+        top = int(keys[-1])
+        q = np.concatenate([
+            np.array([top, top, top + 1, top + 10**9, 1 << 61], np.int64),
+            rng.integers(-3, top + 3, 300).astype(np.int64),
+        ])
+        return keys, q, rng.random(q.shape[0]) < 0.9
+    if name == "duplicate_runs":
+        keys = np.sort(np.repeat(rng.integers(0, 30, 40), rng.integers(1, 9, 40)))
+        q = rng.integers(-2, 33, 700).astype(np.int64)
+        return keys.astype(np.int64), q, rng.random(700) < 0.7
+    if name == "sentinel_padded":
+        real = np.sort(rng.integers(0, 50, 37)).astype(np.int64)
+        keys = np.concatenate([real, np.full(27, 1 << 62, np.int64)])
+        q = np.arange(-2, 55, dtype=np.int64)
+        return keys, q, np.ones(q.shape[0], bool)
+    # larger: edge-key-shaped (anchor*N + candidate) over a random graph
+    n = 2000
+    src, dst = rng.integers(0, n, 30000), rng.integers(0, n, 30000)
+    keys = np.sort(src.astype(np.int64) * n + dst)
+    q = rng.integers(0, n, 5000).astype(np.int64) * n + rng.integers(0, n, 5000)
+    q[:2000] = keys[rng.integers(0, keys.shape[0], 2000)]
+    return keys, q, rng.random(5000) < 0.8
+
+
+RANGE_SHAPES = [
+    "empty_q", "all_invalid", "single_key", "pow2_past_max",
+    "duplicate_runs", "sentinel_padded", "larger",
+]
+
+
+@pytest.mark.parametrize("shape_name", RANGE_SHAPES)
+def test_intersect_plain_matches_reference(interpret_mode, shape_name):
+    keys, q, qvalid = _range_case(shape_name)
+    args_r = (jnp.asarray(keys), jnp.asarray(q), jnp.asarray(qvalid))
+    args_p = (_t(keys), _t(q), _t(qvalid))
+    want = RPI._range_count_jnp(*args_r)
+    got = PI.range_count_plain(*args_p)
+    got_gate = PI.intersect_range_count(*args_p)
+    want_pallas = (
+        RPI._range_count_pallas(
+            *args_r, npow=RB.round_up_pow2(len(keys)), interpret=True
+        )
+        if len(q) else want
+    )
+    for nm, w, wp, g, gg in zip(("lo", "counts", "total"), want, want_pallas, got, got_gate):
+        _same(w, g, (shape_name, nm, "jnp"))
+        _same(wp, g, (shape_name, nm, "pallas-interpret"))
+        _same(w, gg, (shape_name, nm, "gate"))
+    assert PD.use_counts()["intersect"] == {"kernel": 0, "plain": 1, "fallback": 0}
+
+
+def test_intersect_launch_error_raises_typed_and_is_not_memoized(monkeypatch):
+    """A nonzero cudaError from the launch raises typed at the
+    ``kernel_intersect`` site, every time: no broken-once memo, no answer
+    from the plain version."""
+    from tpu_cypher_torch.backend.cuda.hopper import _build
+
+    calls = []
+
+    def refused(*a):
+        calls.append(1)
+        _build.check(719, "intersect")
+
+    monkeypatch.setattr(PI, "_range_count_kernel_tier", refused)
+    monkeypatch.setattr(PI.dispatch, "launch", _as_cuda(PD.launch))
+    keys, q, qvalid = _range_case("larger")
+    for _ in range(2):
+        with pytest.raises(PERR.DeviceError, match="cudaError 719") as info:
+            PI.intersect_range_count(_t(keys), _t(q), _t(qvalid))
+        assert info.value.site == "kernel_intersect"
+    assert len(calls) == 2
+    assert PD.use_counts()["intersect"] == {"kernel": 0, "plain": 0, "fallback": 0}
+
+
+@pytest.mark.parametrize("case", ["no_keys", "empty_q"])
+def test_intersect_ineligible_cuda_call_takes_fallback_tier(monkeypatch, case):
+    """An empty key list or an empty query list is no call for the kernel:
+    on a CUDA tensor it runs the plain version on the ``fallback`` tier."""
+    monkeypatch.setattr(PI, "_range_count_kernel_tier", lambda *a: pytest.fail("kernel ran"))
+    monkeypatch.setattr(PI.dispatch, "launch", _as_cuda(PD.launch))
+    keys, q, qvalid = _range_case("empty_q" if case == "empty_q" else "all_invalid")
+    if case == "no_keys":
+        keys = keys[:0]
+    lo, counts, total = PI.intersect_range_count(_t(keys), _t(q), _t(qvalid))
+    assert lo.shape == counts.shape == (len(q),) and int(total) == 0
+    assert PD.use_counts()["intersect"] == {"kernel": 0, "plain": 0, "fallback": 1}
+
+
+# ---------------------------------------------------------------------------
 # the gate
 # ---------------------------------------------------------------------------
 
@@ -341,7 +453,7 @@ def test_gate_cuda_ineligible_takes_fallback_tier():
 
 def test_gate_registry_names_the_tpu_kernels():
     reg = PD.registry()
-    assert set(reg) == {"expand_rows", "frontier_deg_sum", "segment_agg"}
+    assert set(reg) == {"expand_rows", "frontier_deg_sum", "segment_agg", "intersect"}
     for spec in reg.values():
         path, line = spec.replaces.rsplit(":", 1)
         assert path.startswith("tpu_cypher/backend/tpu/pallas/") and line.isdigit()

@@ -94,7 +94,18 @@ def round_size(n: int) -> int:
     n = int(n)
     if n <= 0:
         return 0
-    out = predict_padded(n, mode())
+    return _note_rows(n, predict_padded(n, mode()))
+
+
+def exact_size(n: int) -> int:
+    """``round_size`` without the lattice, for a materialize that sizes
+    its lanes exactly in every mode (``wcoj.MultiwayIntersectOp``): the
+    same records, with padded == true."""
+    n = int(n)
+    return _note_rows(n, n) if n > 0 else 0
+
+
+def _note_rows(n: int, out: int) -> int:
     _ROWS_TRUE.inc(n)
     _ROWS_PADDED.inc(out)
     _obs_trace.note_rows(n, out)

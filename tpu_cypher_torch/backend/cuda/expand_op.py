@@ -1,9 +1,11 @@
 """Fused CSR expand operator: the CUDA backend's physical Expand.
 
-The port of the slice's part of ``tpu_cypher/backend/tpu/expand_op.py``:
-``_FusedExpandBase``, ``CsrExpandOp`` (its materialize half and its
-count chain) and the planner hooks ``plan_expand_fastpath`` and
-``plan_filter_fastpath`` (the relationship-uniqueness redundancy proof).
+The port of the slices' part of ``tpu_cypher/backend/tpu/expand_op.py``:
+``_FusedExpandBase`` (with ``_with_pair``), ``CsrExpandOp`` (its
+materialize half and its count chain) and the planner hooks
+``plan_expand_fastpath`` and ``plan_filter_fastpath`` (the
+relationship-uniqueness redundancy proof, and in-op enforcement for
+``wcoj.MultiwayIntersectOp``).
 
 The reference plans every ``Expand`` as relationship-scan + 2 hash joins;
 when the backend is CSR-capable the physical planner swaps in
@@ -23,7 +25,8 @@ single unrestricted hop's count(*) through ``frontier_deg_sum``.
 
 Later slices port ``CsrExpandIntoOp``, ``CsrOptionalExpandOp``,
 ``CsrVarExpandOp``, the DISTINCT-endpoint counts, the MXU/native tiers and
-in-op uniqueness enforcement (ROADMAP.md queue 1).
+in-op uniqueness enforcement over ``CsrExpandOp`` chains (ROADMAP.md
+queue 1).
 """
 
 from __future__ import annotations
@@ -79,6 +82,22 @@ class _FusedExpandBase(RelationalOperator):
     @property
     def graph(self):
         return self._graph_obj
+
+    def _with_pair(self, pair, predicate) -> RelationalOperator:
+        """Clone with one relationship-uniqueness pair enforced INSIDE the
+        operator (``plan_filter_fastpath`` drops the filter). The classic
+        child gets the dropped predicate as a real FilterOp, so its header
+        stays the generic plan's."""
+        from ...relational.ops import FilterOp
+
+        kw = self._ctor_kwargs()
+        kw["enforced_pairs"] = self.enforced_pairs + (tuple(sorted(pair)),)
+        return type(self)(
+            self.children[0],
+            FilterOp(self.children[1], predicate),
+            self._graph_obj,
+            **kw,
+        )
 
     def _compute_table(self):
         # the reference answers from the classic child when the fused path
@@ -542,18 +561,47 @@ def _rel_uniqueness_redundant(rel_ends, ra, rb, graph_obj, ctx) -> bool:
 
 
 def plan_filter_fastpath(planner, op, child) -> Optional[RelationalOperator]:
-    """Drop a relationship-uniqueness filter over a fused expand chain when
-    ``_rel_uniqueness_redundant`` proves it can never remove a row, so a
-    count(*) chain keeps its whole-plan fusion. Otherwise keep the generic
-    FilterOp plan (in-op enforcement is a later slice)."""
+    """Resolve a relationship-uniqueness filter over a fused subtree, so a
+    count(*) keeps its whole-plan fusion:
+
+    1. PROOF: ``_rel_uniqueness_redundant`` — equality would force a
+       self-loop of a loop-free type set: drop the filter outright;
+    2. ENFORCEMENT (``MultiwayIntersectOp`` only): drop the filter and
+       clone the op with the pair in ``enforced_pairs``; its materializing
+       path compares global element ids;
+    3. otherwise keep the generic FilterOp plan (in-op enforcement over a
+       ``CsrExpandOp`` chain is a later slice)."""
     from ...relational.ops import CacheOp
+    from .wcoj import MultiwayIntersectOp
 
     pair = _rel_neq_pair(op.predicate)
     if pair is None:
         return None
+    wraps = 0
     node = child
     while isinstance(node, CacheOp):
         node = node.children[0]
+        wraps += 1
+    if isinstance(node, MultiwayIntersectOp):
+        # the multiway op enforces pairs by comparing GLOBAL element ids
+        # (canonical rel scans / input id columns), so it needs no
+        # same-type-set restriction
+        rel_ends = node._rel_ends()
+        if rel_ends is None:
+            return None
+        key = tuple(sorted(pair))
+        if not set(key) <= set(rel_ends):
+            return None
+        if key in node.enforced_pairs:
+            return child  # duplicate predicate: already enforced below
+        if _rel_uniqueness_redundant(
+            rel_ends, key[0], key[1], node._graph_obj, node.context
+        ):
+            return child
+        out: RelationalOperator = node._with_pair(key, op.predicate)
+        for _ in range(wraps):
+            out = CacheOp(out)
+        return out
     if not isinstance(node, CsrExpandOp):
         return None
     rel_ends = _chain_rel_ends(node._chain_hops())

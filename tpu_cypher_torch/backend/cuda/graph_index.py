@@ -8,12 +8,13 @@ query (``GraphIndex.of(graph)`` hangs the cache off the graph object):
 * ``node_ids``  — sorted unique int64 element ids; position = compact id
 * per (types, orientation): ``row_ptr``/``col_idx`` int32 CSR plus
   ``edge_orig`` mapping CSR edge position -> row of the canonical
-  relationship scan
+  relationship scan, and the sorted int64 ``edge_keys`` ``a*N + b`` (key
+  position i is CSR position i)
 * per label set: the canonical node scan plus ``row_map`` taking a compact
   id to its row in that scan (-1 = node lacks the labels)
 
-Edge keys, bitmaps, dense forms and the undirected var-length CSR belong
-to operators that later slices port (ROADMAP.md queue 1).
+Keys by canonical row, bitmaps, dense forms and the undirected var-length
+CSR belong to operators that later slices port (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 
 from ...api import types as T
 from ...ir import expr as E
+from ...obs import trace as _obs_trace
 from . import device as _device
 from .column import Column, TpuBackendError, to_device
 
@@ -89,6 +91,8 @@ class GraphIndex:
         self._rel_sizes: Dict[Tuple[str, ...], int] = {}
         # (types_key, reverse) -> (row_ptr, col_idx, edge_orig) device tensors
         self._csr: Dict[Tuple[Tuple[str, ...], bool], Tuple[Any, Any, Any]] = {}
+        # (types_key, reverse) -> sorted int64 edge keys
+        self._edge_keys: Dict[Tuple[Tuple[str, ...], bool], Any] = {}
         # types_key -> device int64[num_nodes] self-loop counts
         self._loop_count: Dict[Tuple[str, ...], Any] = {}
         # labels_key -> device bool[num_nodes] or None (unrestricted)
@@ -181,7 +185,12 @@ class GraphIndex:
     def _edge_endpoints(self, types_key: Tuple[str, ...], ctx):
         """Resolve one type set's relationships to compact endpoint
         positions: (src_pos int64, dst_pos int64, num_nodes) — validates
-        that every endpoint is a graph node."""
+        that every endpoint is a graph node. Host work over every edge,
+        traced as an ``index`` span."""
+        with _obs_trace.span("edge_endpoints", kind="index"):
+            return self._map_endpoints(types_key, ctx)
+
+    def _map_endpoints(self, types_key: Tuple[str, ...], ctx):
         cols, header = self.rel_scan(types_key, ctx)
         nrel = self._rel_sizes[types_key]
         rel = E.Var(CANON_REL)
@@ -224,17 +233,29 @@ class GraphIndex:
         got = self._csr.get((types_key, reverse))
         if got is not None:
             return got
+        with _obs_trace.span("csr_build", kind="index", reverse=reverse):
+            return self._build_csr(types_key, reverse, ctx)
+
+    def _build_csr(self, types_key: Tuple[str, ...], reverse: bool, ctx):
         s, d, n = self._edge_endpoints(types_key, ctx)
         if len(s) >= 2**31:
             raise GraphIndexError("edge count exceeds the int32 CSR")
         a, b = (d, s) if reverse else (s, d)
-        row_ptr, order, _ = self._sorted_csr(a, b, n)
+        row_ptr, order, a_sorted = self._sorted_csr(a, b, n)
+        b_sorted = b[order]
         out = (
             to_device(row_ptr),
-            to_device(b[order].astype(np.int32)),
+            to_device(b_sorted.astype(np.int32)),
             to_device(order.astype(np.int64)),
         )
         self._csr[(types_key, reverse)] = out
+        # this orientation is lexsorted by (a, b), so the a*N + b keys come
+        # out sorted from the same order as col_idx/edge_orig: key position
+        # i is CSR position i (the WCOJ materialize reads eo[lo + k]). The
+        # CSR is unpadded, so the keys are too (no 1 << 62 sentinel lanes)
+        self._edge_keys[(types_key, reverse)] = to_device(
+            a_sorted.astype(np.int64) * n + b_sorted.astype(np.int64)
+        )
         if not reverse and types_key not in self._loop_count:
             loops = s[s == d]
             self._loop_count[types_key] = to_device(
@@ -247,6 +268,13 @@ class GraphIndex:
         if types_key not in self._loop_count:
             self.csr(types_key, False, ctx)
         return self._loop_count[types_key]
+
+    def edge_keys(self, types_key: Tuple[str, ...], ctx, reverse: bool = False):
+        """Sorted int64 device keys for the WCOJ range probes: (src*N + dst)
+        forward, (dst*N + src) with ``reverse=True``."""
+        if (types_key, reverse) not in self._edge_keys:
+            self.csr(types_key, reverse, ctx)
+        return self._edge_keys[(types_key, reverse)]
 
     # -- id -> compact mapping --------------------------------------------
 

@@ -10,9 +10,11 @@ Kernels:
 * ``expand.expand_materialize_counted`` — CSR expand row-search materialize
 * ``frontier.csr_frontier_degree_sum``  — frontier degree-sum reduction
 * ``aggregate.segment_aggregate``       — masked grouped segment reduce
+* ``intersect.intersect_range_count``   — WCOJ sorted-key range count
 """
 
 from . import dispatch  # noqa: F401
 from .aggregate import segment_aggregate  # noqa: F401
 from .expand import expand_materialize_counted  # noqa: F401
 from .frontier import csr_frontier_degree_sum  # noqa: F401
+from .intersect import intersect_range_count  # noqa: F401

@@ -194,6 +194,19 @@ def expand_materialize_counted(rp, ci, eo, pos, deg, nvalid, size: int):
     return finish_expand_counted(ci, eo, row, edge, nvalid, size)
 
 
+def into_materialize_counted(eo, lo, counts, nvalid, size: int):
+    """Emit ``counts[i]`` lanes for query i at sorted key positions
+    ``lo[i] + k``, at a (possibly bucketed) ``size`` >= the true total
+    ``nvalid``: (query row, ``eo`` at the key position, live). Pad lanes
+    are sanitized to row/edge 0 and come out dead."""
+    row, edge = _expand_rows(lo, counts, size)
+    live = _live_lanes(size, nvalid, row)
+    zero = torch.zeros((), dtype=torch.int64, device=row.device)
+    row = torch.where(live, row, zero)
+    edge = torch.where(live, edge, zero)
+    return row, eo[edge], live
+
+
 def drop_loops_mask(nbr, pos, row):
     return nbr != pos[row]
 

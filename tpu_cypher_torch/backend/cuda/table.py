@@ -2,14 +2,14 @@
 
 The port of the slice's part of ``tpu_cypher/backend/tpu/table.py``
 (``TpuTable``): columns are tensors on the backend's device
-(``column.Column``) with validity masks. This slice carries the Table SPI
-methods the CSR expand path's plans call — construction (``from_arrays``,
-``from_numpy``, ``from_columns``), ``select``/``rename``/``drop``/
-``project``, ``with_columns``, ``group`` (global aggregates on device
-through the ``segment_agg`` kernel), ``rows``/``column_values`` and
-``cache`` — plus the planner's fused-expand hooks. Every other SPI method
-raises ``NotImplementedError`` naming the ROADMAP.md item that ports it;
-``join`` is the next slice.
+(``column.Column``) with validity masks. The port carries the Table SPI
+methods that the CSR expand and WCOJ triangle plans call — construction
+(``from_arrays``, ``from_numpy``, ``from_columns``), ``select``/
+``rename``/``drop``/``project``, ``with_columns``, ``group`` (global
+aggregates on device through the ``segment_agg`` kernel),
+``rows``/``column_values`` and ``cache`` — plus the planner's fused-expand
+and multiway-intersect hooks. Every other SPI method raises
+``NotImplementedError`` naming the ROADMAP.md item that ports it.
 
 The reference answers an expression or aggregate it cannot compile with a
 host island on its local oracle. The port keeps no host island: such a
@@ -255,13 +255,19 @@ class CudaTable(Table):
     def __repr__(self) -> str:
         return f"CudaTable({self._nrows} rows, cols={self.physical_columns})"
 
-    # -- planner capability hooks (fused CSR expand path) -------------------
+    # -- planner capability hooks (fused CSR expand and WCOJ paths) ---------
 
     @staticmethod
     def plan_expand_fastpath(planner, op, lhs, rhs, classic):
         from .expand_op import plan_expand_fastpath
 
         return plan_expand_fastpath(planner, op, lhs, rhs, classic)
+
+    @staticmethod
+    def plan_multiway_intersect_fastpath(planner, op, in_plan, classic):
+        from .wcoj import plan_multiway_intersect_fastpath
+
+        return plan_multiway_intersect_fastpath(planner, op, in_plan, classic)
 
     @staticmethod
     def plan_filter_fastpath(planner, op, child):

@@ -1,0 +1,593 @@
+"""Worst-case-optimal multiway join: leapfrog intersection on sorted CSR.
+
+The port of ``tpu_cypher/backend/tpu/wcoj.py``. Closing a cycle over a
+k-hop chain with binary joins first materializes the whole k-hop row set
+(at SF10 the triangle's 2-hop intermediate alone is ~2*10^8 rows). The
+multiway intersection bounds the work by the smallest adjacency list
+instead: the candidate ``c`` must lie in the intersection of K adjacency
+lists, each anchored at a variable already bound per input row —
+
+* the PIVOT list: the peeled top expand ``(b)-[r]->(c)`` — candidates are
+  ``N(b)`` with pivot-edge multiplicity;
+* one CLOSE list per cycle-closing relationship ``(a)-[q]->(c)`` (or
+  ``(c)-[q]->(a)``): membership and multiplicity by range counts over the
+  sorted ``anchor*N + candidate`` edge keys (``GraphIndex.edge_keys``).
+
+Each input row iterates its MINIMUM-degree list and range-counts the
+others, so the expanded lanes total sum(min_k deg_k). The lanes come from
+the ``expand_rows`` kernel and the range counts from the ``intersect``
+kernel (``hopper/``). Bag semantics match the classic cascade by
+construction: one output row per (input row, pivot edge, close-edge
+combination), candidate label masks applied once. Relationship uniqueness
+rides ``enforced_pairs``: provably redundant pairs are dropped by
+``plan_filter_fastpath``; the rest are enforced on the materializing path
+by comparing global element ids.
+
+Differences by design from the reference (ROADMAP.md queue 3):
+
+* no sharded range-count tier (``_mesh_range_counter`` waits for
+  ``parallel/``);
+* no factorized output: the single-close materialize always takes the flat
+  path, and a multi-close materialize raises ``NotImplementedError``
+  (queue 1, ``factorized.py``);
+* a pure count is never handed back to a binary counting tier (the port
+  has no native or MXU tier), and for the same reason ``auto`` routes
+  every structural fit as ``force`` does: with no binary plan to choose,
+  the reference's blowup estimate (``_est_binary_blowup`` against
+  ``TPU_CYPHER_WCOJ_MIN_ROWS``) could only choose an error;
+* no bucket lattice: the lanes are sized exactly whatever
+  ``TPU_CYPHER_BUCKET`` says (eager PyTorch compiles no program per
+  shape for the lattice to save);
+* no shadow: ``_compute_table`` catches nothing, so a ``GraphIndexError``
+  reaches the caller. A shape the planner hook declines keeps the classic
+  ``JoinOp`` plan, which raises ``NotImplementedError`` until ``join`` is
+  ported.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from ...ir import expr as E
+from ...obs import trace as _obs_trace
+from ...obs.metrics import REGISTRY as _OBS_REGISTRY
+from ...obs.metrics import CounterView
+from ...relational.ops import RelationalOperator
+from ...runtime.faults import fault_point
+from . import bucketing
+from . import jit_ops as J
+from .column import Column, TpuBackendError
+from .expand_op import (
+    CsrExpandOp,
+    _chain_rel_ends,
+    _empty_i64,
+    _FusedExpandBase,
+    _owner_name,
+)
+from .graph_index import (
+    CANON_NODE,
+    CANON_REL,
+    GraphIndex,
+    GraphIndexError,
+    rekey_element_expr,
+)
+
+# which tier answered each multiway-intersect execution
+WCOJ_TIER_COUNTS = CounterView(
+    _OBS_REGISTRY.counter(
+        "tpu_cypher_wcoj_tier_total",
+        "multiway-intersect executions per resolved tier",
+        labels=("tier",),
+    ),
+    "tier",
+    ("count", "materialize"),
+)
+
+_MULTI_CLOSE_ITEM = (
+    "ROADMAP.md queue 1, item 5 (factorized.py: the multi-close WCOJ "
+    "materialize)"
+)
+
+
+class PivotSpec(NamedTuple):
+    """The peeled top expand supplying candidate+multiplicity by CSR row."""
+
+    frontier_fld: str
+    rel_fld: str
+    far_fld: str  # the candidate variable
+    types_key: Tuple[str, ...]
+    backwards: bool
+    far_labels: Tuple[str, ...]
+
+
+class CloseSpec(NamedTuple):
+    """One cycle-closing relationship tested by sorted-key range count.
+    ``rev=True`` means the closing edge runs candidate -> anchor (the
+    membership probe uses the reverse-orientation edge keys)."""
+
+    anchor_fld: str
+    rel_fld: str
+    types_key: Tuple[str, ...]
+    rev: bool
+
+
+class _ListSpec(NamedTuple):
+    """One intersection list, fully resolved against the GraphIndex."""
+
+    rp: Any
+    ci: Any
+    eo: Any
+    keys: Any
+    pos: Any
+    ok: Any
+    rel_fld: str
+
+
+def _argmin_arm(degs: List[torch.Tensor], valid: torch.Tensor) -> torch.Tensor:
+    """Per-row index of the minimum-degree list (ties -> first, i.e. the
+    pivot); rows with an absent anchor have degree 0 everywhere and never
+    expand."""
+    d = torch.stack(degs)
+    big = torch.full((), 1 << 62, dtype=torch.int64, device=d.device)
+    return torch.argmin(torch.where(valid[None, :], d, big), dim=0)
+
+
+def _arm_degrees(deg, arm, a: int, valid):
+    """Degrees restricted to rows whose minimum list is ``a``, and their
+    total."""
+    deg_a = torch.where((arm == a) & valid, deg, torch.zeros_like(deg))
+    return deg_a, torch.sum(deg_a)
+
+
+def _probe_queries(a_pos, a_ok, row, cand, live, n: int):
+    """Sorted-key probes ``anchor*N + candidate`` for one searched list.
+    Pad lanes (``live`` False, row/cand sanitized to 0) come out invalid, so
+    their range counts are zeroed inside the range-count contract."""
+    q = a_pos[row] * n + cand
+    return q, a_ok[row] & live
+
+
+def _apply_label_mask(m, mask, cand):
+    return m * mask[cand].to(torch.int64)
+
+
+class MultiwayIntersectOp(_FusedExpandBase):
+    """Relational operator: candidate = intersection of K adjacency lists.
+
+    ``children = (in_plan, classic)`` like every fused op: ``in_plan`` is
+    the PIVOT's input (it binds the pivot frontier and every close anchor),
+    ``classic`` the ExpandInto join cascade with identical header."""
+
+    def __init__(
+        self,
+        in_plan: RelationalOperator,
+        classic: RelationalOperator,
+        graph_obj,
+        *,
+        pivot: PivotSpec,
+        closes: Tuple[CloseSpec, ...],
+        enforced_pairs: Tuple[Tuple[str, str], ...] = (),
+    ):
+        super().__init__(in_plan, classic, graph_obj)
+        self.pivot = pivot
+        self.closes = closes
+        self.enforced_pairs = enforced_pairs
+
+    @property
+    def candidate_fld(self) -> str:
+        return self.pivot.far_fld
+
+    def _ctor_kwargs(self) -> Dict[str, Any]:
+        return dict(pivot=self.pivot, closes=self.closes)
+
+    def _show_inner(self) -> str:
+        p = self.pivot
+        arrow = "<-" if p.backwards else "->"
+        t = "|".join(p.types_key) or "*"
+        parts = [f"({p.frontier_fld}){arrow}[{p.rel_fld}:{t}]({p.far_fld})"]
+        for c in self.closes:
+            ct = "|".join(c.types_key) or "*"
+            ca = "<-" if c.rev else "->"
+            parts.append(f"({c.anchor_fld}){ca}[{c.rel_fld}:{ct}](.)")
+        uniq = (
+            " uniq" + ",".join(f"({a}<>{b})" for a, b in self.enforced_pairs)
+            if self.enforced_pairs
+            else ""
+        )
+        return "wcoj " + " x ".join(parts) + uniq
+
+    # -- uniqueness-proof support -----------------------------------------
+
+    def _rel_ends(self) -> Optional[Dict[str, Tuple[str, str, Tuple[str, ...]]]]:
+        """Per-rel GRAPH-direction endpoints over this op's whole fused
+        subtree (input chain + pivot + closes) for the redundancy proof in
+        ``plan_filter_fastpath``; None when orientation-ambiguous or a rel
+        repeats. An unrecognized input contributes nothing — pairs naming
+        its rels simply stay unproven."""
+        from ...relational.ops import CacheOp
+
+        in_op = self.children[0]
+        while isinstance(in_op, CacheOp):
+            in_op = in_op.children[0]
+        if (
+            isinstance(in_op, MultiwayIntersectOp)
+            and in_op._graph_obj is self._graph_obj
+        ):
+            out = in_op._rel_ends()
+        elif isinstance(in_op, CsrExpandOp) and in_op._graph_obj is self._graph_obj:
+            out = _chain_rel_ends(in_op._chain_hops())
+        else:
+            out = {}
+        if out is None:
+            return None
+        p = self.pivot
+        ends = [
+            (
+                p.rel_fld,
+                (p.far_fld, p.frontier_fld, p.types_key)
+                if p.backwards
+                else (p.frontier_fld, p.far_fld, p.types_key),
+            )
+        ]
+        for c in self.closes:
+            ends.append(
+                (
+                    c.rel_fld,
+                    (p.far_fld, c.anchor_fld, c.types_key)
+                    if c.rev
+                    else (c.anchor_fld, p.far_fld, c.types_key),
+                )
+            )
+        for r, v in ends:
+            if r in out:
+                return None
+            out[r] = v
+        return out
+
+    # -- execution ---------------------------------------------------------
+
+    def _anchor_flds(self) -> Tuple[str, ...]:
+        return (self.pivot.frontier_fld,) + tuple(c.anchor_fld for c in self.closes)
+
+    def _id_positions(self, gi: GraphIndex, ctx):
+        """Compact positions + presence per anchor variable; ``valid`` is
+        the all-anchors-present row mask (an absent anchor matches no edge,
+        exactly the classic join's null semantics)."""
+        in_op = self.children[0]
+        in_t = in_op.table
+        h = in_op.header
+        out = []
+        valid = None
+        for f in self._anchor_flds():
+            try:
+                col = in_t._cols[h.column(h.id_expr(h.var(f)))]
+            except (KeyError, ValueError) as exc:
+                raise GraphIndexError(f"intersect anchor {f!r} unmapped") from exc
+            pos, ok = gi.compact_of(col, ctx)
+            out.append((pos, ok))
+            valid = ok if valid is None else valid & ok
+        return out, valid
+
+    def _lists(self, gi: GraphIndex, ctx, positions) -> List[_ListSpec]:
+        """The unified intersection lists: [0] = pivot, [1:] = closes. Each
+        list's CSR orientation puts its ANCHOR on the row axis, and its edge
+        keys sort by (anchor*N + candidate) in the same order — the one
+        orientation serves both iteration and range counting."""
+        p = self.pivot
+        specs = [(p.types_key, p.backwards, p.rel_fld)] + [
+            (c.types_key, c.rev, c.rel_fld) for c in self.closes
+        ]
+        out = []
+        for (types_key, rev, rel_fld), (pos, ok) in zip(specs, positions):
+            rp, ci, eo = gi.csr(types_key, rev, ctx)
+            keys = gi.edge_keys(types_key, ctx, reverse=rev)
+            out.append(_ListSpec(rp, ci, eo, keys, pos, ok, rel_fld))
+        return out
+
+    def _count(self, gi: GraphIndex, ctx, lists, valid) -> int:
+        """Pure count tier — the WCOJ hot path. Per arm: expand the rows
+        whose minimum-degree list is that arm, range-count every other
+        list, multiply, sum. No output materialize, no acyclic
+        intermediate; expanded lanes total sum(min_k deg_k)."""
+        from .hopper import expand_materialize_counted, intersect_range_count
+
+        fault_point("expand")  # the per-arm count-tier syncs below
+
+        mask = gi.label_mask(self.pivot.far_labels, ctx)
+        degs = [J.expand_degrees_total(lst.rp, lst.pos, valid)[0] for lst in lists]
+        arm = _argmin_arm(degs, valid)
+        n = gi.num_nodes
+        total = 0
+        for a, lst in enumerate(lists):
+            deg_a, t_dev = _arm_degrees(degs[a], arm, a, valid)
+            n_a = int(t_dev)
+            if n_a == 0:
+                continue
+            # lanes: row + cand + orig (24B) plus one 8B count per probe
+            bucketing.admit(n_a, 24 + 8 * (len(lists) - 1), "intersect")
+            row, cand, _, live = expand_materialize_counted(
+                lst.rp, lst.ci, lst.eo, lst.pos, deg_a, n_a,
+                size=bucketing.exact_size(n_a),
+            )
+            m = None
+            for b, other in enumerate(lists):
+                if b == a:
+                    continue
+                q, qok = _probe_queries(other.pos, other.ok, row, cand, live, n)
+                _, cnt, _ = intersect_range_count(other.keys, q, qok)
+                m = cnt if m is None else m * cnt
+            if mask is not None:
+                m = _apply_label_mask(m, mask, cand)
+            total += int(torch.sum(m))
+        return total
+
+    def _materialize(self, gi: GraphIndex, ctx, lists, valid):
+        """Materializing tier (row-producing headers and/or uniqueness
+        enforcement), single close, flat: iterate the pivot, expand each
+        lane by its close range count so close-edge origs are recoverable
+        as ``eo[lo + k]``."""
+        from .hopper import expand_materialize_counted, intersect_range_count
+        from .table import CudaTable
+
+        pivot, close = lists
+        n = gi.num_nodes
+        mask = gi.label_mask(self.pivot.far_labels, ctx)
+        nexprs = max(len(self.header.expressions), 1)
+        deg, t_dev = J.expand_degrees_total(pivot.rp, pivot.pos, valid)
+        total = int(t_dev)
+        bucketing.admit(total, 40, "intersect")
+        if total == 0:
+            # nothing to probe: an empty query list would leave the kernel
+            # tier for the fallback one
+            in_row = cand2 = orig_p2 = orig_c = _empty_i64()
+            n_out = 0
+        else:
+            row, cand, orig_p, live = expand_materialize_counted(
+                pivot.rp, pivot.ci, pivot.eo, pivot.pos, deg, total,
+                size=bucketing.exact_size(total),
+            )
+            q, qok = _probe_queries(close.pos, close.ok, row, cand, live, n)
+            lo, m, out_dev = intersect_range_count(close.keys, q, qok)
+            if mask is not None:
+                m = _apply_label_mask(m, mask, cand)
+                out_dev = torch.sum(m)
+            n_out = int(out_dev)
+            bucketing.admit(n_out, 32 + 9 * nexprs, "intersect")
+            # exact sizes: every lane is live
+            lane, orig_c, _ = J.into_materialize_counted(
+                close.eo, lo, m, out_dev, size=bucketing.exact_size(n_out)
+            )
+            in_row, cand2, orig_p2 = J.tree_take((row, cand, orig_p), lane)
+        if self.enforced_pairs and n_out:
+            fault_point("compact")
+            keep = self._wcoj_pair_keep(
+                gi, ctx, in_row, orig_p2, {self.closes[0].rel_fld: orig_c}
+            )
+            n2 = int(J.mask_sum(keep))
+            if n2 != n_out:
+                idx = J.mask_nonzero(keep, size=n2)
+                in_row, cand2, orig_p2, orig_c = J.tree_take(
+                    (in_row, cand2, orig_p2, orig_c), idx
+                )
+                n_out = n2
+        if not self.header.expressions:
+            return CudaTable({}, n_out)
+        _, _, row_map = gi.node_scan(self.pivot.far_labels, ctx)
+        far_rows, _ = J.far_lookup(row_map, cand2)
+        return self._assemble_multi(
+            gi, ctx, in_row, orig_p2, {self.closes[0].rel_fld: orig_c},
+            far_rows, n_out,
+        )
+
+    def _wcoj_pair_keep(self, gi: GraphIndex, ctx, row, orig_p, orig_cs):
+        """Row-keep mask for enforced uniqueness pairs: the pivot rel reads
+        its canonical rel-scan id at ``orig_p``, a close rel its scan at
+        ``orig_cs[rel]``, any other rel its input-table id column at
+        ``row`` — element ids are global, so cross-type comparisons stay
+        sound."""
+        in_op = self.children[0]
+        in_t = in_op.table
+        p = self.pivot
+        close_types = {c.rel_fld: c.types_key for c in self.closes}
+        cache: Dict[str, Any] = {}
+
+        def ids_of(r):
+            if r in cache:
+                return cache[r]
+            if r == p.rel_fld or r in orig_cs:
+                types_key = p.types_key if r == p.rel_fld else close_types[r]
+                orig = orig_p if r == p.rel_fld else orig_cs[r]
+                cols, hh = gi.rel_scan(types_key, ctx)
+                cid = hh.id_expr(hh.var(CANON_REL))
+                out = cols[hh.column(cid)].data[orig]
+            else:
+                h = in_op.header
+                try:
+                    col = in_t._cols[h.column(h.id_expr(h.var(r)))]
+                except (KeyError, ValueError) as exc:
+                    raise GraphIndexError(f"uniqueness rel {r!r} unmapped") from exc
+                out = col.data[row]
+            cache[r] = out
+            return out
+
+        keep = None
+        for ra, rb in self.enforced_pairs:
+            k = ids_of(ra) != ids_of(rb)
+            keep = k if keep is None else keep & k
+        return keep
+
+    def _assemble_multi(self, gi: GraphIndex, ctx, row, orig_p, orig_cs,
+                        far_rows, n_out: int):
+        """Column assembly with one rel source per fused rel: input
+        pass-through at ``row``, pivot rel at ``orig_p``, close rel ``r`` at
+        ``orig_cs[r]``, candidate node columns at ``far_rows``."""
+        from .table import CudaTable
+
+        in_op = self.children[0]
+        in_t = in_op.table
+        p = self.pivot
+        relp_cols, relp_header = gi.rel_scan(p.types_key, ctx)
+        close_scans = {
+            c.rel_fld: gi.rel_scan(c.types_key, ctx)
+            for c in self.closes
+            if c.rel_fld in orig_cs
+        }
+        node_cols, node_header, _ = gi.node_scan(p.far_labels, ctx)
+        canon_rel = E.Var(CANON_REL)
+        canon_node = E.Var(CANON_NODE)
+        tags = {r: f"origc{j}" for j, r in enumerate(orig_cs)}
+        plan: Dict[str, Tuple[Column, str]] = {}
+        for e in self.header.expressions:
+            col = self.header.column(e)
+            if col in plan:
+                continue
+            if e in in_op.header:
+                plan[col] = (in_t._cols[in_op.header.column(e)], "row")
+                continue
+            owner = _owner_name(e)
+            if owner == p.rel_fld or owner in close_scans:
+                key = rekey_element_expr(e, canon_rel)
+                if owner == p.rel_fld:
+                    cc, hh, tag = relp_cols, relp_header, "origp"
+                else:
+                    cc, hh = close_scans[owner]
+                    tag = tags[owner]
+                if key is None or key not in hh:
+                    raise GraphIndexError(f"unmapped rel expr {e!r}")
+                plan[col] = (cc[hh.column(key)], tag)
+                continue
+            if owner == p.far_fld:
+                key = rekey_element_expr(e, canon_node)
+                if key is None or key not in node_header:
+                    raise GraphIndexError(f"unmapped node expr {e!r}")
+                plan[col] = (node_cols[node_header.column(key)], "far")
+                continue
+            raise GraphIndexError(f"unmapped expr {e!r}")
+        idx_by_tag = {"row": row, "origp": orig_p, "far": far_rows}
+        for r, tag in tags.items():
+            idx_by_tag[tag] = orig_cs[r]
+        return CudaTable(self._gather_plan(plan, idx_by_tag), n_out)
+
+    def _fused_table(self):
+        from .table import CudaTable
+
+        fault_point("expand")
+        gi = GraphIndex.of(self.graph)
+        ctx = self.context
+        gi.node_ids(ctx)
+        if gi.num_nodes == 0:
+            raise GraphIndexError("empty node space")
+        if gi.num_nodes >= (1 << 30):
+            raise GraphIndexError("intersect keys need pos*N+cand in int64")
+        positions, valid = self._id_positions(gi, ctx)
+        lists = self._lists(gi, ctx, positions)
+        if not self.header.expressions and not self.enforced_pairs:
+            WCOJ_TIER_COUNTS.inc("count")
+            _obs_trace.note("wcoj_tier", "count")
+            return CudaTable({}, self._count(gi, ctx, lists, valid))
+        if len(self.closes) != 1:
+            raise NotImplementedError(
+                f"multi-close WCOJ materialize is not ported yet: {_MULTI_CLOSE_ITEM}"
+            )
+        out = self._materialize(gi, ctx, lists, valid)
+        WCOJ_TIER_COUNTS.inc("materialize")
+        _obs_trace.note("wcoj_tier", "materialize")
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Planner hook (installed via CudaTable.plan_multiway_intersect_fastpath)
+# ---------------------------------------------------------------------------
+
+
+def plan_multiway_intersect_fastpath(
+    planner, op, in_plan, classic
+) -> Optional[RelationalOperator]:
+    """Route a cycle-closing ExpandInto to ``MultiwayIntersectOp``.
+
+    The planner only calls this when its cycle detection fired; this hook
+    adds the backend half of the rule: structural fit (a directed fused
+    expand to peel as the pivot, or an existing multiway op to extend with
+    one more close). ``TPU_CYPHER_WCOJ=auto`` and ``force`` route every
+    structural fit, ``off`` disables routing. A declined shape keeps
+    ``classic``."""
+    from ...relational.ops import CacheOp
+    from ...utils.config import WCOJ_MODE
+
+    mode = WCOJ_MODE.get().strip().lower()
+    if mode not in ("auto", "force"):
+        return None
+    if op.direction != ">":
+        return None
+    in_vars = {v.name for v in in_plan.header.vars}
+    if op.rel in in_vars or op.source not in in_vars or op.target not in in_vars:
+        return None
+    if op.source == op.target:
+        return None
+    node = in_plan
+    while isinstance(node, CacheOp):
+        node = node.children[0]
+    types = getattr(op.rel_type.material, "types", frozenset()) or frozenset()
+    types_key = GraphIndex.types_key(types)
+
+    if isinstance(node, MultiwayIntersectOp):
+        # extend: one more close constraint on the same candidate
+        # (4-cliques and denser); eligibility was decided when the base op
+        # routed
+        cand = node.candidate_fld
+        if cand not in (op.source, op.target):
+            return None
+        anchor = op.target if cand == op.source else op.source
+        rel_names = {node.pivot.rel_fld} | {c.rel_fld for c in node.closes}
+        if op.rel in rel_names or anchor == cand:
+            return None
+        if anchor not in {v.name for v in node.children[0].header.vars}:
+            return None
+        close = CloseSpec(anchor, op.rel, types_key, rev=cand == op.source)
+        return MultiwayIntersectOp(
+            node.children[0],
+            classic,
+            node._graph_obj,
+            pivot=node.pivot,
+            closes=node.closes + (close,),
+            enforced_pairs=node.enforced_pairs,
+        )
+
+    if not isinstance(node, CsrExpandOp) or node.undirected:
+        return None
+    cand = node.far_fld
+    if cand not in (op.source, op.target):
+        return None
+    anchor = op.target if cand == op.source else op.source
+    if anchor == cand or op.rel == node.rel_fld:
+        return None
+    if anchor not in {v.name for v in node.children[0].header.vars}:
+        return None
+    graph_obj = node._graph_obj
+    try:
+        gi = GraphIndex.of(graph_obj)
+        ctx = in_plan.context
+        gi.node_ids(ctx)
+        if gi.num_nodes == 0 or gi.num_nodes >= (1 << 30):
+            return None
+    except (GraphIndexError, TpuBackendError):
+        return None
+    pivot = PivotSpec(
+        node.frontier_fld,
+        node.rel_fld,
+        node.far_fld,
+        node.types_key,
+        node.backwards,
+        node.far_labels,
+    )
+    close = CloseSpec(anchor, op.rel, types_key, rev=cand == op.source)
+    return MultiwayIntersectOp(
+        node.children[0],
+        classic,
+        graph_obj,
+        pivot=pivot,
+        closes=(close,),
+        enforced_pairs=node.enforced_pairs,
+    )

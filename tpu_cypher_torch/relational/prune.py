@@ -91,11 +91,11 @@ def _mention_enforced_pairs(m: Set[E.Expr], op, h) -> None:
 def _local_mentions(op: O.RelationalOperator) -> Set[E.Expr]:
     """What this operator itself reads from its children's tables."""
     from ..backend.cuda.expand_op import CsrExpandOp
+    from ..backend.cuda.wcoj import MultiwayIntersectOp
 
     # not ported yet (ROADMAP.md queue 1): no plan holds these operators,
     # and an empty class tuple never matches an isinstance check
     CsrExpandIntoOp = CsrOptionalExpandOp = CsrVarExpandOp = ()
-    MultiwayIntersectOp = ()
 
     m: Set[E.Expr] = set()
     if isinstance(op, O.FilterOp):
