@@ -11,8 +11,9 @@ Phases (any failure exits non-zero and prints no result line):
             ``nvcc`` (all in parallel) and prints each build's ``ptxas``
             resource line;
 3. kernels — calls each kernel's wrapper on the card at the shapes the
-            slice's queries give it (``intersect``: the very inputs of an
-            extra Q6 run, captured there), holds the result against the kernel's
+            slice's queries give it (``intersect`` and ``join_probe``: the
+            very inputs of an extra Q6 and Q11 run, captured there), holds
+            the result against the kernel's
             plain PyTorch version on the same inputs (tolerance: exact —
             every output is integral, and float64 outputs are compared bit
             for bit), and times kernel, plain version and one PyTorch
@@ -23,7 +24,11 @@ Phases (any failure exits non-zero and prints no result line):
             (the triangle count, the triangle rows, the 4-clique count) on
             the WCOJ multiway-intersect path, and a triangle count on a
             small seeded graph with self-loops and parallel edges, whose
-            uniqueness pairs the operator enforces itself. It checks every
+            uniqueness pairs the operator enforces itself, and Q9-Q12 on
+            the classic filter and equi-join path (a property-property
+            WHERE, an IS3-shaped point lookup, a value join and an
+            OPTIONAL MATCH with WHERE; ``join_probe`` on the last two). It
+            checks every
             answer against numpy/scipy ground truth computed from the
             generator's arrays, and checks that each query ran on the
             device rung once with no kernel fallback, launched its kernels
@@ -31,14 +36,21 @@ Phases (any failure exits non-zero and prints no result line):
             WCOJ tier. Phase 4 runs on graphs generated anew after phase 3,
             so each graph's first query builds its CSR inside its cold
             time; each cold run's time is split by the query's own trace
-            phases.
+            phases;
+5. measurements off the main path, after phase 4's counts are read —
+            Q11 and Q12 warm on the ``join_probe`` kernel tier against the
+            plain version called in the gate's place, and the triangle
+            count on the WCOJ tier (``force``) against the binary plan
+            (``off``) on three graphs, ABBA-interleaved, every answer
+            checked.
 
 The kernel launch counts are zeroed just before phase 4 and read just after
-it; the comparisons of phase 3 do not count. The line before the last is
+it; the comparisons of phase 3 and the runs of phase 5 do not count. The line before the last is
 the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -80,6 +92,30 @@ Q8 = (
     "MATCH (a:Person)-[:KNOWS]->(b:Person)-[:KNOWS]->(c:Person)-[:KNOWS]->(a), "
     "(a)-[:KNOWS]->(d:Person), (b)-[:KNOWS]->(d), (c)-[:KNOWS]->(d) "
     "RETURN count(*) AS cliques"
+)
+
+# the classic filter and equi-join path
+Q9 = (
+    "MATCH (a:Person)-[:KNOWS]->(b:Person) WHERE a.birthday < b.birthday "
+    "RETURN count(*) AS n"
+)
+# LDBC SNB Interactive Short Query 3 (IS3, friends of a person) without
+# three parts: the ORDER BY (not ported yet: ROADMAP.md queue 1, item 1.2),
+# r.creationDate (this generator's KNOWS edges carry no properties) and
+# lastName (the generator makes none)
+Q10 = (
+    "MATCH (n:Person {id: $personId})-[:KNOWS]-(friend:Person) "
+    "RETURN friend.id AS friendId, friend.firstname AS firstName"
+)
+Q10_PERSON = 7001
+Q11 = (
+    "MATCH (a:Person)-[:KNOWS]->(b:Person), (c:Person) "
+    "WHERE b.birthday = c.birthday RETURN count(*) AS n"
+)
+Q12 = (
+    "MATCH (a:Person) WHERE a.birthday < 1000 "
+    "OPTIONAL MATCH (a)-[:KNOWS]->(b:Person) WHERE b.birthday > 9000 "
+    "RETURN a.id AS a, b.id AS b"
 )
 
 
@@ -504,6 +540,204 @@ def check_intersect(torch, g10, tri10, report):
           f"{b_ms:.4f} ms ({b_by})")
 
 
+def q11_join_probe_calls(g10, want):
+    """Run Q11 once more on ``g10`` with a hook on the ``join_probe`` gate
+    and return the (rd, r_order, ld, lvalids, nvalid, is_f64, is_bool) of
+    each of its calls: the inputs the main path itself sends. The run's
+    launches are not the main path's (the counts are zeroed before phase
+    4)."""
+    from tpu_cypher_torch.backend.cuda import hopper
+
+    calls = []
+    inner = hopper.join_probe
+
+    def hook(rd, r_order, ld, lvalids, nvalid, *, is_f64, is_bool):
+        calls.append((rd, r_order, ld, lvalids, nvalid, is_f64, is_bool))
+        return inner(rd, r_order, ld, lvalids, nvalid, is_f64=is_f64, is_bool=is_bool)
+
+    hopper.join_probe = hook
+    try:
+        rows = [dict(r) for r in g10.cypher(Q11).records.collect()]
+    finally:
+        hopper.join_probe = inner
+    check(rows == [{"n": want}], f"Q11 (hooked) {rows} != {want}")
+    check(len(calls) == 1, f"Q11 made {len(calls)} join_probe calls, expected 1")
+    return calls[0]
+
+
+def probe_steps(torch, table, max_off, q, qvalid):
+    """Table slots that ``hash_probe.cu`` reads for these probe lanes: each
+    valid lane walks from its hash slot until it finds its key or an empty
+    slot, or passes the build's bound."""
+    from tpu_cypher_torch.backend.cuda.hopper import join as KJ
+
+    size = int(table.shape[0])
+    keys = table.view(torch.int64)[:, 0]
+    h = KJ.slot_hash(q, size)
+    live = qvalid.clone() if qvalid is not None else torch.ones_like(q, dtype=torch.bool)
+    steps = 0
+    for t in range(max_off + 1):
+        s = (h + t) & (size - 1)
+        steps += int(live.sum())
+        live = live & (table[s, 3] != 0) & (keys[s] != q)
+    return steps
+
+
+def check_join_probe(torch, g10, q11_truth, report):
+    import numpy as np
+
+    from tpu_cypher_torch.backend.cuda import jit_ops as J
+    from tpu_cypher_torch.backend.cuda.hopper import dispatch
+    from tpu_cypher_torch.backend.cuda.hopper import join as KJ
+
+    dev = backend_device()
+    rng = np.random.default_rng(SEED)
+    err = 0.0
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def compare(label, rd_s, order, ld, lvalids, nvalid, is_bool=False,
+                is_f64=False):
+        """The kernel tier (build and probe kernels) against the plain
+        version, and the build kernel's table against its plain version
+        ``hash_build``, slot for slot."""
+        nonlocal err
+        got = KJ._join_probe_kernel_tier(rd_s, order, ld, lvalids, nvalid, is_f64)
+        want = J.join_probe(rd_s, order, ld, lvalids, nvalid, is_f64=is_f64,
+                            is_bool=is_bool)
+        torch.cuda.synchronize()
+        e = tuple_err(torch, got, want)
+        keys = KJ._probe_keys(rd_s, order, nvalid, ld, lvalids, is_f64)[0]
+        table, max_off = KJ.hash_build_cuda(keys, KJ.table_size(nvalid))
+        p_table, p_max_off = KJ.hash_build(keys)
+        same = torch.equal(table, p_table) and int(max_off[0]) == p_max_off
+        err = max(err, e, 0.0 if same else 1.0)
+        uniq = int((table[:, 3] > 0).sum())
+        print(f"  join_probe {label}: build {nvalid} valid rows, {uniq} unique "
+              f"keys in {int(table.shape[0])} slots, probe bound {p_max_off}, "
+              f"build kernel {'equal to' if same else 'DIFFERS from'} hash_build "
+              f"slot for slot; probe {int(ld.shape[0])} lanes, matches "
+              f"{int(want[3])}; max_abs_err={e}")
+        check(e == 0.0, f"join_probe {label} disagrees with its plain version")
+        check(same, f"join_probe {label}: the build kernel's table differs")
+
+    def build(rd, rvalid=None, is_bool=False, is_f64=False):
+        rvalids = (rvalid,) if rvalid is not None else ()
+        rd_s, order, nv = J.join_build(rd, rvalids, is_f64=is_f64, is_bool=is_bool)
+        return rd_s, order, int(nv)
+
+    q11 = q11_join_probe_calls(g10, q11_truth)
+    rd_s, order, ld, lvalids, nvalid, is_f64, is_bool = q11
+    check(not is_f64 and not is_bool, "Q11 joins on an I64 key")
+    compare("Q11 SF10", rd_s, order, ld, lvalids, nvalid)
+    compare("all-invalid probe", rd_s, order, ld,
+            (torch.zeros(ld.shape[0], dtype=torch.bool, device=dev),), nvalid)
+    # one key repeated nvalid times: one slot, one run
+    rep = t(np.full(100_000, 5 << 54, np.int64))
+    q = t(np.where(rng.random(1_000_000) < 0.5, 5 << 54, 6 << 54).astype(np.int64))
+    rd_s1, order1, nv1 = build(rep)
+    compare("single key repeated", rd_s1, order1, q, (), nv1)
+    # graph-tagged keys at bit 54 and up, negative keys (sign in hi32), nulls
+    tagged = rng.integers(0, 1 << 20, 500_000) | (3 << 54)
+    tagged[:50_000] = -tagged[:50_000]
+    qk = np.concatenate([tagged[rng.integers(0, 500_000, 1_000_000)],
+                         rng.integers(0, 1 << 20, 1_000_000) | (3 << 54)])
+    rd_s2, order2, nv2 = build(t(tagged), t(rng.random(500_000) < 0.9))
+    compare("keys tagged at 2^54", rd_s2, order2, t(qk),
+            (t(rng.random(qk.shape[0]) < 0.9),), nv2)
+    # STR dictionary codes (int32, nulls as -1 with a validity mask)
+    codes = rng.integers(-1, 50_000, 200_000).astype(np.int32)
+    qc = rng.integers(-1, 60_000, 2_000_000).astype(np.int32)
+    rd_s3, order3, nv3 = build(t(codes), t(codes >= 0))
+    compare("STR codes", rd_s3, order3, t(qc), (t(qc >= 0),), nv3)
+    # bool keys: the build side sorts as int8
+    rd_s4, order4, nv4 = build(t(rng.random(50_000) < 0.3), None, is_bool=True)
+    compare("bool keys", rd_s4, order4, t(rng.random(1_000_000) < 0.5), (), nv4,
+            is_bool=True)
+    # more than 2^20 unique build keys: no build cap remains
+    big = rng.permutation(1 << 22)[: (1 << 20) + 300_000].astype(np.int64) * 977
+    qb = np.concatenate([big[rng.integers(0, big.shape[0], 2_000_000)],
+                         rng.integers(0, 1 << 32, 2_000_000)])
+    rd_s5, order5, nv5 = build(t(big))
+    compare("2^20 + 300,000 unique keys", rd_s5, order5, t(qb), (), nv5)
+    # float keys: -0.0 and 0.0 one key, NaN keys invalid on both sides,
+    # nulls, infinities
+    fv = np.array([-0.0, 0.0, 1.5, -2.25, np.inf, -np.inf, np.nan, 1e300, 5e-324])
+    base = fv[rng.integers(0, fv.shape[0], 300_000)]
+    fr = np.where(rng.random(300_000) < 0.5, base,
+                  base + rng.integers(1, 50_000, 300_000))
+    fq = np.concatenate([fr[rng.integers(0, fr.shape[0], 1_500_000)],
+                         fv[rng.integers(0, fv.shape[0], 500_000)]])
+    rd_s6, order6, nv6 = build(t(fr), t(rng.random(fr.shape[0]) < 0.9), is_f64=True)
+    compare("F64 keys with -0.0, NaN, nulls", rd_s6, order6, t(fq),
+            (t(rng.random(fq.shape[0]) < 0.9),), nv6, is_f64=True)
+    # a build with no valid key: a table of empty slots, probed all the same
+    rd_s7, order7, nv7 = build(t(tagged), t(np.zeros(tagged.shape[0], bool)))
+    check(nv7 == 0, "the all-null build has valid keys")
+    compare("no valid build key", rd_s7, order7, t(qk), (), nv7)
+    # an empty probe is no call for the kernel: the gate's fallback
+    before = dispatch.use_counts()["join_probe"]
+    empty = torch.zeros(0, dtype=torch.int64, device=dev)
+    _, lo, counts, total = KJ.join_probe(rd_s, order, empty, (), nvalid,
+                                         is_f64=False, is_bool=False)
+    after = dispatch.use_counts()["join_probe"]
+    check(lo.shape == (0,) and counts.shape == (0,) and int(total) == 0,
+          "join_probe on an empty probe")
+    check(after["fallback"] == before["fallback"] + 1
+          and after["kernel"] == before["kernel"],
+          f"empty probe did not take the fallback tier: {before} -> {after}")
+    print("  join_probe empty probe: fallback tier, no launch")
+
+    # timing at Q11's probe: the build and probe kernels apart, the kernel
+    # tier as the gate runs it (key preparation, both kernels, the total),
+    # the build's plain version, the plain version, and two
+    # torch.searchsorted over the sorted build keys
+    keys, q64, lvalid = KJ._probe_keys(rd_s, order, nvalid, ld, lvalids, False)
+    size = KJ.table_size(nvalid)
+    table, max_off = KJ.hash_build_cuda(keys, size)
+    bound_off = int(max_off[0])
+    build_ms = time_ms(torch, lambda: KJ.hash_build_cuda(keys, size))
+    ms = time_ms(torch, lambda: KJ.hash_probe_cuda(table, max_off, q64, lvalid))
+    tier_ms = time_ms(torch, lambda: KJ._join_probe_kernel_tier(
+        rd_s, order, ld, lvalids, nvalid, False))
+    plain_build_ms = time_ms(torch, lambda: KJ.hash_build(keys), iters=10)
+    plain_ms = time_ms(torch, lambda: J.join_probe(
+        rd_s, order, ld, lvalids, nvalid, is_f64=False, is_bool=False))
+    r_sorted = rd_s[order[:nvalid]]
+    lib_ms = time_ms(torch, lambda: (
+        torch.searchsorted(r_sorted, ld, side="left"),
+        torch.searchsorted(r_sorted, ld, side="right"),
+    ))
+    nq = int(ld.shape[0])
+    # bytes: per lane the 8 B key, the 1 B validity where there is a mask,
+    # the 8 B lo and the 8 B count; the 16 B slots once
+    nbytes = nq * (24 + (1 if lvalid is not None else 0)) + 16 * size
+    # int32 operations, counted from hash_probe.cu: per lane 10 (the
+    # grid-stride compare and step, the validity test, the hash's shift,
+    # two multiplies, xor and shift, the two stores' addresses); per slot
+    # read 10 (the index add and mask, the address, the empty test, the key
+    # assembly's shift and or, the 64-bit compare at 2, the loop step and
+    # test). This run's data decides the slot reads (probe_steps)
+    steps = probe_steps(torch, table, bound_off, q64, lvalid)
+    ops = 10 * nq + 10 * steps
+    b_ms, b_by = bound(nbytes, ops)
+    report["join_probe"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms,
+        library_call="torch.searchsorted (left and right) over the sorted build keys",
+        build_ms=build_ms, tier_ms=tier_ms, plain_build_ms=plain_build_ms,
+        shape=(f"Q11 at SF10: {nq} probe lanes, {nvalid}-row build, "
+               f"{int((table[:, 3] > 0).sum())} unique keys in {size} slots, "
+               f"probe bound {bound_off}, {steps} slot reads"),
+    )
+    print(f"  join_probe timing at Q11: probe kernel {ms:.4f} ms, build kernel "
+          f"{build_ms:.4f} ms, kernel tier as the gate runs it {tier_ms:.4f} ms; "
+          f"build's plain version (torch ops) {plain_build_ms:.4f} ms, plain "
+          f"version {plain_ms:.4f} ms, two torch.searchsorted {lib_ms:.4f} ms; "
+          f"bound {b_ms:.4f} ms ({b_by}); {steps} slot reads over {nq} lanes")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the slice through CypherSession.cuda()
 # ---------------------------------------------------------------------------
@@ -579,7 +813,8 @@ def loopy_triangles(src, dst) -> int:
     return count
 
 
-def run_query(torch, pg, query, kernels, plan_op="CsrExpandOp", wcoj_tiers=()):
+def run_query(torch, pg, query, kernels, plan_op="CsrExpandOp", wcoj_tiers=(),
+              params=None):
     """Run one query twice (cold, warm) and check the device-only contract
     on both runs: one device attempt, ``plan_op`` in the plan, every kernel
     of ``kernels`` launched and no kernel off its ``kernel`` tier, and each
@@ -600,7 +835,7 @@ def run_query(torch, pg, query, kernels, plan_op="CsrExpandOp", wcoj_tiers=()):
         tiers0 = dict(W.WCOJ_TIER_COUNTS)
         rows0 = bucketing._ROWS_TRUE.value()
         t0 = time.perf_counter()
-        result = pg.cypher(query)
+        result = pg.cypher(query, params)
         recs = result.records
         table = recs.table
         for col in table._cols.values():
@@ -629,6 +864,82 @@ def run_query(torch, pg, query, kernels, plan_op="CsrExpandOp", wcoj_tiers=()):
         out_rows = rows
         results.append(result)
     return out_rows, secs, launches, lanes, results[0]
+
+
+# ---------------------------------------------------------------------------
+# phase 5: measurements off the main path, after its counts are read
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def plain_join_probe():
+    """``jit_ops.join_probe`` called in the ``join_probe`` gate's place:
+    the plain version on the card, for a timing only (the port itself
+    never routes an eligible probe so)."""
+    from tpu_cypher_torch.backend.cuda import hopper
+    from tpu_cypher_torch.backend.cuda import jit_ops as J
+
+    inner = hopper.join_probe
+
+    def plain(rd, r_order, ld, lvalids, nvalid, *, is_f64, is_bool):
+        return J.join_probe(rd, r_order, ld, lvalids, nvalid, is_f64=is_f64,
+                            is_bool=is_bool)
+
+    hopper.join_probe = plain
+    try:
+        yield
+    finally:
+        hopper.join_probe = inner
+
+
+@contextlib.contextmanager
+def wcoj_mode(mode):
+    """``TPU_CYPHER_WCOJ`` pinned for a block; the plan cache keys on it."""
+    from tpu_cypher_torch.utils import config as C
+
+    C.WCOJ_MODE.set(mode)
+    try:
+        yield
+    finally:
+        C.WCOJ_MODE.reset()
+
+
+def warm_times(torch, pg, query, variants, rows_ok, rounds=3):
+    """Warm seconds of ``query`` under each variant ({label: (context
+    factory, plan operator its plan must show, one it must not show or
+    None)}): one untimed run of each, then ``rounds`` ABBA-interleaved
+    passes, so each label gets 2 x ``rounds`` timed runs. Every run's rows
+    must pass ``rows_ok``. Returns {label: (median seconds, median seconds
+    of the ``execute`` phase, all seconds)}."""
+    import statistics
+
+    labels = list(variants)
+    timed = {label: [] for label in labels}
+    for i, order in enumerate([labels] + [labels + labels[::-1]] * rounds):
+        for label in order:
+            ctx, must, must_not = variants[label]
+            with ctx():
+                t0 = time.perf_counter()
+                res = pg.cypher(query)
+                rows = [dict(r) for r in res.records.collect()]
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            check(rows_ok(rows), f"{label} run of {query!r} gave other rows")
+            check(must in res.plans and (must_not is None or must_not not in res.plans),
+                  f"{label} plan of {query!r} lacks {must} or shows {must_not}")
+            if i:
+                timed[label].append((secs, res.profile().phase_seconds()["execute"]))
+    return {
+        label: (statistics.median(s for s, _ in v), statistics.median(e for _, e in v),
+                [round(s, 6) for s, _ in v])
+        for label, v in timed.items()
+    }
+
+
+def print_times(name, times):
+    for label, (secs, execute, all_secs) in times.items():
+        print(f"    {name} {label}: warm median {secs * 1e3:.3f} ms (execute phase "
+              f"{execute * 1e3:.3f} ms); runs (s) {all_secs}")
 
 
 def main() -> int:
@@ -707,9 +1018,29 @@ def main() -> int:
         "Q5_rows": int(out1[d1].sum()),
         "Q5": (int(bday1[d1[in1[s1] > 0]].min()), int(bday1[d1[in1[s1] > 0]].max())),
     }
+    # Q9-Q12 at SF10
+    truth["Q9"] = int((bday10[s10] < bday10[d10]).sum())
+    me = int(idx(ids10, Q10_PERSON))
+    check(ids10[me] == Q10_PERSON, f"person {Q10_PERSON} is not in the SF10 graph")
+    friends = np.concatenate([d10[s10 == me], s10[d10 == me]])
+    truth["Q10"] = sorted((int(ids10[f]), f"p{f}") for f in friends)
+    truth["Q11"] = int(np.bincount(bday10, minlength=18_000)[bday10[d10]].sum())
+    young = bday10 < 1000
+    hit = young[s10] & (bday10[d10] > 9000)
+    n10 = len(ids10)
+    unmatched = np.flatnonzero(young & (np.bincount(s10[hit], minlength=n10) == 0))
+    truth["Q12"] = np.sort(np.concatenate([
+        s10[hit].astype(np.int64) * (n10 + 1) + d10[hit] + 1,
+        unmatched.astype(np.int64) * (n10 + 1),
+    ]))
+    truth["Q12_left"] = int(young.sum())
+    truth["Q12_matched"] = int(hit.sum())
     print(f"truth: SF1 {len(ids1)} persons / {len(src1)} KNOWS; SF10 "
           f"{len(ids10)} persons / {len(src10)} KNOWS; Q4 2-hop paths "
-          f"{truth['Q4']}; Q5 second-hop rows {truth['Q5_rows']}")
+          f"{truth['Q4']}; Q5 second-hop rows {truth['Q5_rows']}; Q9 "
+          f"{truth['Q9']}; Q10 {len(truth['Q10'])} friends of {Q10_PERSON}; "
+          f"Q11 {truth['Q11']} pairs; Q12 {truth['Q12_left']} left rows, "
+          f"{truth['Q12_matched']} matched, {len(unmatched)} padded")
     t0 = time.perf_counter()
     tri10 = triangle_truth(ids10, src10, dst10, rows_and_cliques=False)
     tri1 = triangle_truth(ids1, src1, dst1, rows_and_cliques=True)
@@ -727,6 +1058,7 @@ def main() -> int:
     check_frontier(torch, session, g10, report)
     check_segment_agg(torch, truth["Q5_rows"], report)
     check_intersect(torch, g10, tri10["triangles"], report)
+    check_join_probe(torch, g10, truth["Q11"], report)
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # 4. the slice, on graphs phase 3 has not touched (no CSR built yet)
@@ -828,6 +1160,34 @@ def main() -> int:
     print("  Q6's cold run, its trace tree (wall ms per span):")
     for line in cold["Q6 (SF10)"].profile().render().splitlines():
         print(f"    {line}")
+
+    # the classic filter and equi-join path at SF10
+    rows, _, _ = run("Q9 (SF10)", g10, Q9, ("expand_rows",), plan_op="FilterOp")
+    check([dict(r) for r in rows] == [{"n": truth["Q9"]}], f"Q9 {rows} != {truth['Q9']}")
+    print(f"    Q9 = {rows[0]['n']} of {len(src10)} KNOWS kept")
+    rows, _, _ = run("Q10 (SF10)", g10, Q10, ("expand_rows",), plan_op="FilterOp",
+                     params={"personId": Q10_PERSON})
+    got = sorted((r["friendId"], r["firstName"]) for r in rows)
+    check(got == truth["Q10"], f"Q10 rows differ from numpy: {got[:5]} ...")
+    print(f"    Q10 = {len(rows)} friends of person {Q10_PERSON}, bag-identical to numpy")
+    join_kernels = ("expand_rows", "join_probe")
+    rows, _, _ = run("Q11 (SF10)", g10, Q11, join_kernels, plan_op="JoinOp(inner")
+    check([dict(r) for r in rows] == [{"n": truth["Q11"]}], f"Q11 {rows} != {truth['Q11']}")
+    print(f"    Q11 = {rows[0]['n']} (b, c) pairs")
+
+    def q12_ok(rows):
+        got = np.sort(np.array(
+            [idx(ids10, r["a"]) * (n10 + 1) + (idx(ids10, r["b"]) + 1 if r["b"] is not None else 0)
+             for r in rows], np.int64))
+        return np.array_equal(got, truth["Q12"])
+
+    rows, _, _ = run("Q12 (SF10)", g10, Q12, join_kernels, plan_op="JoinOp(left_outer")
+    check(q12_ok(rows), "Q12 row bag differs from numpy")
+    print(f"    Q12 = {len(rows)} rows: {truth['Q12_matched']} matched, "
+          f"{len(rows) - truth['Q12_matched']} null-padded, bag-identical to numpy")
+    print("  Q11's cold run, its trace tree (wall ms per span):")
+    for line in cold["Q11 (SF10)"].profile().render().splitlines():
+        print(f"    {line}")
     counts = dispatch.use_counts()
     for name, c in counts.items():
         check(c["fallback"] == 0 and c["plain"] == 0, f"{name} fallbacks: {c}")
@@ -836,9 +1196,42 @@ def main() -> int:
     print(f"slice launches (kernel tier, cold + warm runs): "
           f"{ {n: c['kernel'] for n, c in counts.items()} }")
 
+    # 5. off the main path: Q11 and Q12 warm on the kernel tier against the
+    # plain version in the gate's place, and the triangle count on the WCOJ
+    # tier against the binary plan (which the reference's ``auto`` keeps
+    # under TPU_CYPHER_WCOJ_MIN_ROWS) at three graph sizes
+    print("measurements off the main path (warm, ABBA-interleaved):")
+    tiers = {"kernel tier": (contextlib.nullcontext, "JoinOp", None),
+             "plain version": (plain_join_probe, "JoinOp", None)}
+    print_times("Q11 (SF10)", warm_times(
+        torch, g10, Q11, tiers, lambda rows: rows == [{"n": truth["Q11"]}], rounds=10))
+    print_times("Q12 (SF10)", warm_times(torch, g10, Q12, tiers, q12_ok, rounds=4))
+    plans = {"WCOJ (force)": (lambda: wcoj_mode("force"), "MultiwayIntersectOp", None),
+             "binary plan (off)": (lambda: wcoj_mode("off"), "JoinOp",
+                                   "MultiwayIntersectOp")}
+    ids_s, src_s, dst_s = loopy_arrays(100, 300)
+    g01 = PropertyGraph(session, generate_snb(0.1, session, seed=SEED))
+    ids01, _, src01, dst01 = graph_arrays(g01)
+    for name, pg, ids, src, dst, want in (
+        ("loopy 100 nodes", interop.graph_from_arrays(
+            session, ids_s, {}, {"id": CTInteger.nullable}, src_s, dst_s),
+         ids_s, src_s, dst_s, loopy_triangles(src_s, dst_s)),
+        ("loopy 300 nodes", gl, idsl, srcl, dstl, loopy_truth),
+        ("SNB SF0.1", g01, ids01, src01, dst01,
+         triangle_truth(ids01, src01, dst01, rows_and_cliques=False)["triangles"]),
+    ):
+        s_i, d_i = idx(ids, src), idx(ids, dst)
+        out_max = int(np.bincount(s_i, minlength=len(ids)).max())
+        in_max = int(np.bincount(d_i, minlength=len(ids)).max())
+        print(f"  triangle count on {name}: {len(src)} KNOWS, max out-degree "
+              f"{out_max}, max in-degree {in_max}, {want} triangles")
+        print_times(name, warm_times(
+            torch, pg, Q6, plans, lambda rows: rows == [{"triangles": want}]))
+
     specs = dispatch.registry()
     kernels = []
-    for name in ("expand_rows", "frontier_deg_sum", "segment_agg", "intersect"):
+    for name in ("expand_rows", "frontier_deg_sum", "segment_agg", "intersect",
+                 "join_probe"):
         r = report[name]
         kernels.append({
             "name": name,
@@ -854,6 +1247,7 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "library_call": r["library_call"],
             "shape": r["shape"],
+            **{k: r[k] for k in ("build_ms", "tier_ms", "plain_build_ms") if k in r},
         })
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)  # the nvidia-smi line as it came: name, power limit

@@ -453,7 +453,9 @@ def test_gate_cuda_ineligible_takes_fallback_tier():
 
 def test_gate_registry_names_the_tpu_kernels():
     reg = PD.registry()
-    assert set(reg) == {"expand_rows", "frontier_deg_sum", "segment_agg", "intersect"}
+    assert set(reg) == {
+        "expand_rows", "frontier_deg_sum", "segment_agg", "intersect", "join_probe",
+    }
     for spec in reg.values():
         path, line = spec.replaces.rsplit(":", 1)
         assert path.startswith("tpu_cypher/backend/tpu/pallas/") and line.isdigit()

@@ -158,8 +158,8 @@ def test_unported_spi_names_its_roadmap_item():
     from tpu_cypher_torch.backend.cuda.table import CudaTable
 
     t = CudaTable.from_columns({"x": [1, 2]})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        t.join(t, "inner", [("x", "x")])
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md queue 1, item 1\.2"):
+        t.distinct()
 
 
 @pytest.mark.parametrize(

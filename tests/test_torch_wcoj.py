@@ -20,7 +20,10 @@ carried across as numpy arrays:
 Rows must be bag-identical (exact: integers), the port's plan must hold
 ``MultiwayIntersectOp`` and its WCOJ tier counter must show the tier that
 answered; ``expand_rows`` and ``intersect`` run on their CPU (``plain``)
-tier with no fallback. Every shape the port declines raises the typed
+tier with no fallback. A shape the planner hook declines (``off``,
+``auto`` under its threshold, an empty graph, an undirected close) runs the
+classic ``JoinOp`` plan and must be bag-identical to the reference with the
+same setting; a multi-close materialize raises the typed
 ``NotImplementedError`` naming the ROADMAP.md item that ports it.
 """
 
@@ -58,7 +61,6 @@ CLIQUE4 = (  # bench.py CLIQUE4
     "RETURN count(*) AS cliques"
 )
 QUERIES = {"triangle": TRIANGLE, "rows": TRIANGLE_ROWS, "clique4": CLIQUE4}
-JOIN_ITEM = "ROADMAP.md queue 1, item 1"
 FACTORIZED_ITEM = "ROADMAP.md queue 1, item 5"
 
 
@@ -270,55 +272,72 @@ def test_device_fault_in_wcoj_reaches_caller_typed(snb):
 
 
 # ---------------------------------------------------------------------------
-# declined shapes: each raises the typed error naming its ROADMAP.md item
+# declined shapes: the classic JoinOp plan answers, or the typed error
+# names the ROADMAP.md item that ports the shape
 # ---------------------------------------------------------------------------
 
 
-def test_declined_off_mode(snb):
-    _, _, port, _ = snb
-    PCFG.WCOJ_MODE.set("off")
-    result = port.cypher(TRIANGLE)
+def _check_classic_answer(result, ref_result, want=None):
+    """The declined shape ran the classic plan on the device rung, with
+    ``join_probe`` on its CPU tier, bag-identical to the reference."""
     assert "MultiwayIntersectOp" not in result.plans
-    with pytest.raises(NotImplementedError, match=JOIN_ITEM):
-        result.records.collect()
+    assert "JoinOp" in result.plans
+    got = _bag(result.records)
+    assert got == _bag(ref_result.records)
+    if want is not None:
+        assert got == want
+    log = result.execution_log
+    assert len(log) == 1 and log[0]["rung"] == "device" and log[0]["ok"], log
+    counts = PD.use_counts()
+    assert counts["join_probe"]["plain"] > 0, counts
+    for name, c in counts.items():
+        assert c["fallback"] == 0 and c["kernel"] == 0, (name, c)
+    return got
+
+
+def test_declined_off_mode(snb):
+    ref, _, port, arrays = snb
+    PCFG.WCOJ_MODE.set("off")
+    RCFG.WCOJ_MODE.set("off")
+    rows, _ = _truth(*arrays)
+    want = Counter({(("triangles", sum(rows.values())),): 1})
+    _check_classic_answer(port.cypher(TRIANGLE), ref.cypher(TRIANGLE), want)
 
 
 def test_auto_under_threshold_routes_like_force(loopy):
     """The loopy graph's binary blowup (150 edges x its max degree) is far
     under ``TPU_CYPHER_WCOJ_MIN_ROWS``, where the reference's ``auto``
-    keeps its binary plan. The port has no binary plan to keep, so
-    ``auto`` routes it to WCOJ as ``force`` does, and answers exactly."""
-    _, _, port, arrays = loopy
-    PCFG.WCOJ_MODE.set("auto")
-    PCFG.WCOJ_MIN_ROWS.set(1 << 40)
+    keeps its binary plan. The port's ``auto`` routes it to WCOJ as
+    ``force`` does (the WCOJ count beat the binary plan on the H100 at
+    every size measured), and answers as the reference's binary plan
+    does."""
+    ref, _, port, arrays = loopy
+    for cfg in (PCFG, RCFG):
+        cfg.WCOJ_MODE.set("auto")
+        cfg.WCOJ_MIN_ROWS.set(1 << 40)
     result = port.cypher(TRIANGLE)
     assert "MultiwayIntersectOp" in result.plans
-    want = sum(_loopy_brute_force(*arrays).values())
-    assert list(result.records.collect())[0]["triangles"] == want
+    want = Counter({(("triangles", sum(_loopy_brute_force(*arrays).values())),): 1})
+    assert _bag(result.records) == _bag(ref.cypher(TRIANGLE).records) == want
 
 
 def test_declined_empty_node_space():
-    port = CypherSession.cuda(device="cpu")
     empty = np.zeros(0, np.int64)
-    g = interop.graph_from_arrays(
-        port, empty, {}, {"id": PT.CTInteger.nullable}, empty, empty
-    )
-    result = g.cypher(TRIANGLE)
-    assert "MultiwayIntersectOp" not in result.plans
-    with pytest.raises(NotImplementedError, match=JOIN_ITEM):
-        result.records.collect()
+    ref, local, port, _ = _engines(empty, empty, empty)
+    got = _check_classic_answer(port.cypher(TRIANGLE), ref.cypher(TRIANGLE))
+    assert got == _bag(local.cypher(TRIANGLE).records)
+    assert got == Counter({(("triangles", 0),): 1})
 
 
 def test_declined_undirected_close(snb):
-    _, _, port, _ = snb
+    """The classic plan scans the undirected close as the union of both
+    orientations (``union_all``)."""
+    ref, _, port, _ = snb
     query = (
         "MATCH (a:Person)-[:KNOWS]->(b:Person)-[:KNOWS]->(c:Person)-[:KNOWS]-(a) "
         "RETURN count(*) AS t"
     )
-    result = port.cypher(query)
-    assert "MultiwayIntersectOp" not in result.plans
-    with pytest.raises(NotImplementedError, match=JOIN_ITEM):
-        result.records.collect()
+    _check_classic_answer(port.cypher(query), ref.cypher(query))
 
 
 @pytest.mark.parametrize("graph,query", [

@@ -269,6 +269,79 @@ class Column:
         d, v, i = cols_take({"c": (self.data, self.valid, self.int_flag)}, idx)["c"]
         return Column(self.kind, d, v, self.vocab, int_flag=i)
 
+    def take_or_null(self, idx, in_bounds) -> "Column":
+        """Gather; rows where ``in_bounds`` is False become null (outer joins)."""
+        n = int(idx.shape[0])
+        if len(self) == 0:
+            # empty build side: every row is an outer-join null
+            if self.kind == OBJ:
+                return Column(OBJ, np.empty(n, dtype=object), None)
+            dev = self.data.device
+            return Column(
+                self.kind,
+                torch.zeros(n, dtype=self.data.dtype, device=dev),
+                torch.zeros(n, dtype=torch.bool, device=dev),
+                self.vocab,
+            )
+        if self.kind == OBJ:
+            out = np.empty(n, dtype=object)
+            idx_np = to_host(idx)
+            ib = to_host(in_bounds)
+            for i in range(n):
+                out[i] = self.data[idx_np[i]] if ib[i] else None
+            return Column(OBJ, out, None)
+        from .jit_ops import cols_take_or_null
+
+        d, v, i = cols_take_or_null(
+            {"c": (self.data, self.valid, self.int_flag)}, idx, in_bounds
+        )["c"]
+        return Column(self.kind, d, v, self.vocab, int_flag=i)
+
+    def concat(self, other: "Column") -> "Column":
+        """Rows of ``self`` then ``other``, for two columns of one kind (STR
+        sides re-coded onto one vocab). Unioning two kinds (the reference
+        promotes numerics and adopts an all-null side's kind) is not ported
+        yet and raises ``NotImplementedError``."""
+        a, b = self, other
+        if a.kind != b.kind:
+            raise NotImplementedError(
+                f"concat of {a.kind} and {b.kind} columns is not ported yet: "
+                "ROADMAP.md queue 1, item 1.2"
+            )
+        if a.kind == OBJ:
+            return Column(OBJ, np.concatenate([a.data, b.data]), None)
+        if a.kind == STR:
+            a, b = _unify_vocab(a, b)
+
+        def cat(x, y, fill: bool):
+            if x is None and y is None:
+                return None
+            dev = a.data.device
+            if x is None:
+                x = torch.full((len(a),), fill, dtype=torch.bool, device=dev)
+            if y is None:
+                y = torch.full((len(b),), fill, dtype=torch.bool, device=dev)
+            return torch.cat([x, y])
+
+        return Column(
+            a.kind,
+            torch.cat([a.data, b.data]),
+            cat(a.valid, b.valid, True),
+            a.vocab,
+            int_flag=cat(a.int_flag, b.int_flag, False),
+        )
+
+    def cast_f64(self) -> "Column":
+        """Pure float cast (comparison contexts: intness deliberately
+        dropped)."""
+        if self.kind == F64:
+            if self.int_flag is not None:
+                return Column(F64, self.data, self.valid)
+            return self
+        if self.kind == I64:
+            return Column(F64, self.data.to(torch.float64), self.valid)
+        raise TpuBackendError(f"Cannot cast {self.kind} to f64")
+
     def valid_mask(self) -> Any:
         if self.kind == OBJ:
             return to_device(np.array([v is not None for v in self.data], bool))
@@ -299,6 +372,29 @@ class Column:
             self.valid is not None and not self.pad_synth
         ) or self.kind == OBJ
         return base.nullable if has_null else base
+
+
+def _unify_vocab(a: Column, b: Column) -> Tuple[Column, Column]:
+    """Two STR columns re-coded onto one sorted vocab (their union), so
+    codes compare and join as the strings do."""
+    if a.vocab == b.vocab:
+        return a, b
+    merged = sorted(set(a.vocab or []) | set(b.vocab or []))
+    return _remap(a, merged), _remap(b, merged)
+
+
+def _remap(c: Column, merged: List[str]) -> Column:
+    """Re-code ``c`` onto ``merged`` (a sorted superset of its vocab) by one
+    device gather through a code lookup table; null codes stay -1."""
+    old = c.vocab or []
+    index = {s: i for i, s in enumerate(merged)}
+    lut = torch.tensor(
+        [index[s] for s in old] + [0], dtype=torch.int32, device=c.data.device
+    )  # extra slot so an empty vocab still has a row to index
+    codes = c.data.to(torch.int64)
+    mapped = lut[torch.clamp(codes, 0, max(len(old) - 1, 0))]
+    new_codes = torch.where(codes >= 0, mapped, torch.full_like(mapped, int(_NULL_CODE)))
+    return Column(STR, new_codes, c.valid, merged)
 
 
 def mask_to_idx_bucketed(mask) -> Tuple[Any, int]:

@@ -11,6 +11,7 @@ Kernels:
 * ``frontier.csr_frontier_degree_sum``  — frontier degree-sum reduction
 * ``aggregate.segment_aggregate``       — masked grouped segment reduce
 * ``intersect.intersect_range_count``   — WCOJ sorted-key range count
+* ``join.join_probe``                    — equi-join hash-table probe
 """
 
 from . import dispatch  # noqa: F401
@@ -18,3 +19,4 @@ from .aggregate import segment_aggregate  # noqa: F401
 from .expand import expand_materialize_counted  # noqa: F401
 from .frontier import csr_frontier_degree_sum  # noqa: F401
 from .intersect import intersect_range_count  # noqa: F401
+from .join import join_probe  # noqa: F401

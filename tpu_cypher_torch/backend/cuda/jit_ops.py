@@ -107,6 +107,11 @@ def mask_to_idx(mask) -> Tuple[Any, int]:
     return idx, int(idx.shape[0])
 
 
+def and_valid_mask(data, valid):
+    """filter mask = data & valid (valid=None: every row valid)."""
+    return data & valid if valid is not None else data
+
+
 # ---------------------------------------------------------------------------
 # batched column gathers
 # ---------------------------------------------------------------------------
@@ -121,6 +126,19 @@ def cols_take(cols: Dict[str, Tuple[Any, Any, Any]], idx):
             valid[idx] if valid is not None else None,
             iflag[idx] if iflag is not None else None,
         )
+    return out
+
+
+def cols_take_or_null(cols: Dict[str, Tuple[Any, Any, Any]], idx, in_bounds):
+    """``cols_take`` where lanes with ``in_bounds`` False come out null
+    (their index is clamped to row 0 before the gather)."""
+    safe = torch.where(in_bounds, idx.to(torch.int64), torch.zeros((), dtype=torch.int64, device=idx.device))
+    out = {}
+    for c, (data, valid, iflag) in cols.items():
+        d = data[safe]
+        v = valid[safe] if valid is not None else torch.ones_like(in_bounds)
+        i = iflag[safe] & in_bounds if iflag is not None else None
+        out[c] = (d, v & in_bounds, i)
     return out
 
 
@@ -144,6 +162,118 @@ def cols_take_counted(cols: Dict[str, Tuple[Any, Any, Any]], idx, count):
         i = iflag[idx] if iflag is not None else None
         out[c] = (d, v, i)
     return out
+
+
+# ---------------------------------------------------------------------------
+# sort-probe join phases
+# ---------------------------------------------------------------------------
+
+
+def _fold_valid(n: int, masks, like: torch.Tensor) -> torch.Tensor:
+    valid = torch.ones(n, dtype=torch.bool, device=like.device)
+    for m in masks:
+        valid = valid & m
+    return valid
+
+
+def join_build(rd, rvalids, is_f64: bool, is_bool: bool):
+    """Build-side prep: fold validity masks, NaN-exclude float keys, sort
+    valid-first by key. Returns (key data, order, valid count).
+
+    ``jnp.lexsort((rd, ~rvalid))`` is two stable sorts here: by key, then
+    by invalidity, so equal keys keep their row order as in the reference
+    (-0.0 and 0.0 are equal keys in both sorts; NaN keys are invalid)."""
+    rvalid = _fold_valid(rd.shape[0], rvalids, rd)
+    if is_f64:
+        rvalid = rvalid & ~torch.isnan(rd)
+    if is_bool:
+        rd = rd.to(torch.int8)
+    by_key = torch.sort(rd, stable=True).indices
+    r_order = by_key[torch.sort((~rvalid)[by_key].to(torch.int8), stable=True).indices]
+    return rd, r_order, torch.sum(rvalid, dtype=torch.int64)
+
+
+def join_probe(rd, r_order, ld, lvalids, nvalid: int, is_f64: bool, is_bool: bool):
+    """Probe side: binary-search the sorted build keys. Returns (valid
+    build row indices, lo, match counts, total), all int64. The plain
+    version of the ``join_probe`` kernel, whose contract it states: ``lo``
+    is the first sorted build position of the probe key where the count is
+    positive, and 0 wherever the count is 0 (the reference leaves the
+    insertion point there, which nothing downstream reads)."""
+    lvalid = _fold_valid(ld.shape[0], lvalids, ld)
+    if is_f64:
+        lvalid = lvalid & ~torch.isnan(ld)
+    if is_bool:
+        ld = ld.to(torch.int8)
+    r_idx_valid = r_order[:nvalid]
+    r_sorted = rd[r_idx_valid]
+    lo = torch.searchsorted(r_sorted, ld, side="left")
+    hi = torch.searchsorted(r_sorted, ld, side="right")
+    zero = torch.zeros((), dtype=torch.int64, device=ld.device)
+    counts = torch.where(lvalid, hi - lo, zero)
+    lo = torch.where(counts > 0, lo, zero)
+    return r_idx_valid, lo, counts, torch.sum(counts)
+
+
+def join_materialize(r_idx_valid, lo, counts, total: int):
+    """Match pairs: ``counts[i]`` rows for probe row i, at sorted build
+    positions ``lo[i] + k``; returns (left rows, right rows)."""
+    left_rows, flat = _expand_rows(lo, counts, total)
+    if not total:
+        return left_rows, torch.zeros(0, dtype=torch.int64, device=lo.device)
+    return left_rows, r_idx_valid[flat]
+
+
+def unmatched_mask(hit_rows, n: int):
+    """Bool mask of the rows of an ``n``-row side never matched (outer-join
+    padding)."""
+    hit = torch.zeros(n, dtype=torch.bool, device=hit_rows.device)
+    hit[hit_rows] = True
+    return ~hit
+
+
+def outer_pad_left(left_rows, right_rows, miss_idx, nmiss: int, nmatched: int):
+    """Append one all-null-right row per unmatched probe row."""
+    dev = left_rows.device
+    left = torch.cat([left_rows, miss_idx])
+    right = torch.cat([right_rows, torch.zeros(nmiss, dtype=torch.int64, device=dev)])
+    matched = torch.cat([
+        torch.ones(nmatched, dtype=torch.bool, device=dev),
+        torch.zeros(nmiss, dtype=torch.bool, device=dev),
+    ])
+    return left, right, matched
+
+
+def outer_pad_right(left_rows, right_rows, right_matched, rmiss_idx, nmiss: int, ncur: int):
+    """Append one all-null-left row per unmatched build row (full outer)."""
+    dev = left_rows.device
+    left = torch.cat([left_rows, torch.zeros(nmiss, dtype=torch.int64, device=dev)])
+    right = torch.cat([right_rows, rmiss_idx])
+    left_matched = torch.cat([
+        torch.ones(ncur, dtype=torch.bool, device=dev),
+        torch.zeros(nmiss, dtype=torch.bool, device=dev),
+    ])
+    right_matched = torch.cat([
+        right_matched, torch.ones(nmiss, dtype=torch.bool, device=dev)
+    ])
+    return left, right, left_matched, right_matched
+
+
+def extra_keys_keep(l_datas, l_valids, r_datas, r_valids, left_rows, right_rows, kinds):
+    """Multi-key equi-join post-filter: AND of per-pair ``=`` equality
+    (NaN never matches; validity masks carry match eligibility)."""
+    keep = torch.ones(left_rows.shape[0], dtype=torch.bool, device=left_rows.device)
+    for ld, lv, rd, rv, k in zip(l_datas, l_valids, r_datas, r_valids, kinds):
+        lvals = ld[left_rows]
+        eq = lvals == rd[right_rows]
+        if k == F64:
+            eq = eq & ~torch.isnan(lvals)
+        if lv is not None:
+            eq = eq & lv[left_rows]
+        if rv is not None:
+            eq = eq & rv[right_rows]
+        keep = keep & eq
+    return keep
 
 
 # ---------------------------------------------------------------------------

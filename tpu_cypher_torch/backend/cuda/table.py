@@ -3,12 +3,14 @@
 The port of the slice's part of ``tpu_cypher/backend/tpu/table.py``
 (``TpuTable``): columns are tensors on the backend's device
 (``column.Column``) with validity masks. The port carries the Table SPI
-methods that the CSR expand and WCOJ triangle plans call — construction
-(``from_arrays``, ``from_numpy``, ``from_columns``), ``select``/
-``rename``/``drop``/``project``, ``with_columns``, ``group`` (global
-aggregates on device through the ``segment_agg`` kernel),
-``rows``/``column_values`` and ``cache`` — plus the planner's fused-expand
-and multiway-intersect hooks. Every other SPI method raises
+methods that the CSR expand, WCOJ triangle and classic filter/join plans
+call — construction (``from_arrays``, ``from_numpy``, ``from_columns``),
+``select``/``rename``/``drop``/``project``, ``with_columns``, ``filter``,
+``join`` (every kind; the probe goes through the ``join_probe`` kernel),
+``union_all`` (of columns that share their kind),
+``group`` (global aggregates on device through the ``segment_agg``
+kernel), ``rows``/``column_values`` and ``cache`` — plus the planner's
+fused-expand and multiway-intersect hooks. Every other SPI method raises
 ``NotImplementedError`` naming the ROADMAP.md item that ports it.
 
 The reference answers an expression or aggregate it cannot compile with a
@@ -27,12 +29,14 @@ from ...api import types as T
 from ...api.table import Table
 from ...api.types import CypherType
 from ...runtime.faults import fault_point
+from . import bucketing
 from . import device as _device
-from .column import F64, I64, OBJ, Column
+from . import jit_ops as J
+from .column import BOOL, F64, I64, OBJ, STR, Column, TpuBackendError, _unify_vocab
 from .compiler import CudaEvaluator, TpuUnsupportedExpr
 
 # ROADMAP.md queue 1 items that port the SPI methods this slice leaves out
-_NEXT_SLICE = "queue 1, item 1 (classic Table SPI with the join_probe kernel)"
+_NEXT_SLICE = "queue 1, item 1.2 (the remaining Table SPI methods and compiler.py)"
 
 
 def _not_ported(method: str, item: str = _NEXT_SLICE):
@@ -153,6 +157,24 @@ class CudaTable(Table):
     def project(self, pairs) -> "CudaTable":
         return CudaTable({new: self._cols[old] for old, new in pairs}, self._nrows)
 
+    def _take(self, idx) -> "CudaTable":
+        """Gather every column by one index tensor."""
+        n = int(idx.shape[0])
+        dev = {
+            c: (col.data, col.valid, col.int_flag)
+            for c, col in self._cols.items()
+            if col.kind != OBJ
+        }
+        taken = J.cols_take(dev, idx) if dev else {}
+        out: Dict[str, Column] = {}
+        for c, col in self._cols.items():
+            if col.kind == OBJ:
+                out[c] = col.take(idx)
+            else:
+                d, v, i = taken[c]
+                out[c] = Column(col.kind, d, v, col.vocab, int_flag=i)
+        return CudaTable(out, n)
+
     def cache(self) -> "CudaTable":
         """Wait for every device column of this table to be computed."""
         for col in self._cols.values():
@@ -170,6 +192,235 @@ class CudaTable(Table):
         for expr, col in items:
             out[col] = ev.eval(expr)
         return CudaTable(out, t._nrows)
+
+    # -- filter ------------------------------------------------------------
+
+    def filter(self, expr, header, parameters) -> "CudaTable":
+        fault_point("filter")
+        t = self._depad()
+        c = CudaEvaluator(t, header, parameters).eval(expr)
+        if c.kind == OBJ:
+            raise TpuUnsupportedExpr("object-valued filter predicate")
+        idx, _ = J.mask_to_idx(J.and_valid_mask(c.data, c.valid))
+        return t._take(idx)
+
+    # -- join --------------------------------------------------------------
+
+    def join(self, other: "CudaTable", kind, join_cols) -> "CudaTable":
+        t, o = self._depad(), other._depad()
+        if t is not self or o is not other:
+            return t.join(o, kind, join_cols)
+        if kind == "cross":
+            n, m = self._nrows, other._nrows
+            bucketing.admit(
+                n * m, 9 * max(len(self._cols) + len(other._cols), 1), "join"
+            )
+            dev = _device.get()
+            li = torch.arange(n, dtype=torch.int64, device=dev).repeat_interleave(m)
+            ri = torch.arange(m, dtype=torch.int64, device=dev).repeat(n)
+            return self._combine(other, li, ri)
+        if not join_cols:
+            # keyless equi-join (uncorrelated OPTIONAL MATCH and friends):
+            # every row matches every row; outer kinds pad when a side is empty
+            if kind == "inner" or (self._nrows and other._nrows):
+                return self.join(other, "cross", [])
+            if kind == "left_outer":
+                return self._join_empty_result(other, "left_outer")
+            if kind == "right_outer" and other._nrows == 0:
+                return self.join(other, "cross", [])
+            return self._join_empty_result(other, "full_outer")
+        if kind == "right_outer":
+            # mirror of left_outer; the flipped _combine emits right-table
+            # columns first, so restore canonical (left-first) column order
+            flipped = [(r, l) for l, r in join_cols]
+            res = other._join_keys_on_device(self, "left_outer", flipped)
+            ordered = {c: res._cols[c] for c in (*self._cols, *other._cols)}
+            return CudaTable(ordered, res._nrows)
+        return self._join_keys_on_device(other, kind, join_cols)
+
+    def _join_keys_on_device(self, other, kind, join_cols) -> "CudaTable":
+        """The reference answers object-valued keys on its host oracle; the
+        port keeps no host path, so they raise."""
+        for l, r in join_cols:
+            if OBJ in (self._cols[l].kind, other._cols[r].kind):
+                raise TpuUnsupportedExpr("join on object-valued keys")
+        return self._join_device(other, kind, join_cols)
+
+    @staticmethod
+    def _exact_key_pair(lc: Column, rc: Column):
+        """One key pair on a common device encoding, or None when the kinds
+        can never be equal: STR sides share one vocab; mixed I64/F64 joins
+        as exact int64 (casting the int side to f64 would collapse ints
+        above 2**53, where graph-tagged ids live)."""
+        if lc.kind == STR or rc.kind == STR:
+            if lc.kind != STR or rc.kind != STR:
+                return None
+            return _unify_vocab(lc, rc)
+        if lc.kind != rc.kind:
+            if {lc.kind, rc.kind} != {I64, F64}:
+                return None
+            if lc.kind == F64:
+                return _float_as_exact_int(lc), rc
+            return lc, _float_as_exact_int(rc)
+        return lc, rc
+
+    def _join_device(self, other, kind, join_cols) -> "CudaTable":
+        """Device sort-probe equi-join: the build (right) side is sorted
+        valid-first by key once, the probe side looks its keys up through
+        the ``join_probe`` kernel gate, and the matches materialize as
+        (left row, right row) pairs. Multi-key joins probe on the first key
+        and post-filter the rest on device."""
+        from .hopper import join_probe
+
+        fault_point("join")
+        # the admission estimate per output row: the two int64 index lanes
+        # plus 8 B data and 1 B mask per gathered column
+        join_row_bytes = 16 + 9 * max(len(self._cols) + len(other._cols), 1)
+        pair = self._exact_key_pair(
+            self._cols[join_cols[0][0]], other._cols[join_cols[0][1]]
+        )
+        if pair is None:  # cross-kind keys never match
+            return self._join_empty_result(other, kind)
+        lk, rk = pair
+        # validity beyond the probe key's own: extra key columns must be
+        # non-null to match
+        l_extra = tuple(
+            c.valid for c in (self._cols[l] for l, _ in join_cols[1:])
+            if c.valid is not None
+        )
+        r_extra = tuple(
+            c.valid for c in (other._cols[r] for _, r in join_cols[1:])
+            if c.valid is not None
+        )
+        lvalids = l_extra + ((lk.valid,) if lk.valid is not None else ())
+        rvalids = r_extra + ((rk.valid,) if rk.valid is not None else ())
+        is_f64, is_bool = lk.kind == F64, lk.kind == BOOL
+        rd_s, r_order, nvalid_dev = J.join_build(
+            rk.data, rvalids, is_f64=is_f64, is_bool=is_bool
+        )
+        r_idx_valid, lo, counts, total_dev = join_probe(
+            rd_s, r_order, lk.data, lvalids, int(nvalid_dev),
+            is_f64=is_f64, is_bool=is_bool,
+        )
+        total = int(total_dev)
+        bucketing.admit(total, join_row_bytes, "join")
+        left_rows, right_rows = J.join_materialize(r_idx_valid, lo, counts, total)
+        if len(join_cols) > 1 and total:
+            left_rows, right_rows = self._extra_keys_filter(
+                other, join_cols[1:], left_rows, right_rows
+            )
+        nmatched = int(left_rows.shape[0])
+        left_matched = right_matched = None
+        matched_right = right_rows
+        if kind in ("left_outer", "full_outer"):
+            miss_idx, nmiss = J.mask_to_idx(J.unmatched_mask(left_rows, self._nrows))
+            left_rows, right_rows, right_matched = J.outer_pad_left(
+                left_rows, right_rows, miss_idx, nmiss=nmiss, nmatched=nmatched
+            )
+        if kind == "full_outer":
+            rmiss_idx, rnmiss = J.mask_to_idx(
+                J.unmatched_mask(matched_right, other._nrows)
+            )
+            left_rows, right_rows, left_matched, right_matched = J.outer_pad_right(
+                left_rows, right_rows, right_matched, rmiss_idx,
+                nmiss=rnmiss, ncur=int(left_rows.shape[0]),
+            )
+        return self._combine(other, left_rows, right_rows, right_matched, left_matched)
+
+    def _extra_keys_filter(self, other, extra_cols, left_rows, right_rows):
+        """Keep the match pairs whose every extra key pair is equal."""
+        l_datas, l_valids, r_datas, r_valids, kinds = [], [], [], [], []
+        for lcn, rcn in extra_cols:
+            pair = self._exact_key_pair(self._cols[lcn], other._cols[rcn])
+            if pair is None:  # a cross-kind key pair never matches
+                empty = left_rows[:0]
+                return empty, empty
+            lc, rc = pair
+            l_datas.append(lc.data)
+            l_valids.append(lc.valid)
+            r_datas.append(rc.data)
+            r_valids.append(rc.valid)
+            kinds.append(lc.kind)
+        keep = J.extra_keys_keep(
+            l_datas, l_valids, r_datas, r_valids, left_rows, right_rows, kinds
+        )
+        idx, _ = J.mask_to_idx(keep)
+        return J.tree_take((left_rows, right_rows), idx)
+
+    def _join_empty_result(self, other: "CudaTable", kind) -> "CudaTable":
+        """Key kinds can never be equal: inner = empty, outer = all-null."""
+        dev = _device.get()
+
+        def ar(n):
+            return torch.arange(n, dtype=torch.int64, device=dev)
+
+        def zeros(n, dtype=torch.int64):
+            return torch.zeros(n, dtype=dtype, device=dev)
+
+        def ones(n):
+            return torch.ones(n, dtype=torch.bool, device=dev)
+
+        if kind == "inner":
+            return self._combine(other, zeros(0), zeros(0))
+        nl, nr = self._nrows, other._nrows
+        if kind == "left_outer":
+            return self._combine(other, ar(nl), zeros(nl), zeros(nl, torch.bool), None)
+        # full_outer: left rows with null right, then right rows with null left
+        li = torch.cat([ar(nl), zeros(nr)])
+        ri = torch.cat([zeros(nl), ar(nr)])
+        rm = torch.cat([zeros(nl, torch.bool), ones(nr)])
+        lm = torch.cat([ones(nl), zeros(nr, torch.bool)])
+        return self._combine(other, li, ri, rm, lm)
+
+    def _combine(
+        self, other: "CudaTable", li, ri, right_in_bounds=None, left_in_bounds=None
+    ) -> "CudaTable":
+        """The joined table: left columns gathered by ``li``, right columns
+        by ``ri``; lanes where an ``*_in_bounds`` mask is False come out
+        null on that side (outer-join padding)."""
+        for c in other._cols:
+            if c in self._cols:
+                raise TpuBackendError(f"Join column collision: {c}")
+        out: Dict[str, Column] = {}
+        for cols, idx, in_bounds in (
+            (self._cols, li, left_in_bounds),
+            (other._cols, ri, right_in_bounds),
+        ):
+            dev = {
+                c: (col.data, col.valid, col.int_flag)
+                for c, col in cols.items()
+                if col.kind != OBJ and (in_bounds is None or len(col) > 0)
+            }
+            if not dev:
+                taken = {}
+            elif in_bounds is None:
+                taken = J.cols_take(dev, idx)
+            else:
+                taken = J.cols_take_or_null(dev, idx, in_bounds)
+            for c, col in cols.items():
+                if c in taken:
+                    d, v, i = taken[c]
+                    out[c] = Column(col.kind, d, v, col.vocab, int_flag=i)
+                elif in_bounds is None:
+                    out[c] = col.take(idx)
+                else:
+                    out[c] = col.take_or_null(idx, in_bounds)
+        return CudaTable(out, int(li.shape[0]))
+
+    # -- union -------------------------------------------------------------
+
+    def union_all(self, other: "CudaTable") -> "CudaTable":
+        """Rows of ``self`` then ``other`` (the classic plan's undirected
+        relationship scan). Each column pair must share its kind; kind
+        promotion raises ``NotImplementedError`` (ROADMAP.md queue 1, item
+        1.2)."""
+        if set(self._cols) != set(other._cols):
+            raise TpuBackendError("unionAll column mismatch")
+        t, o = self._depad(), other._depad()
+        return CudaTable(
+            {c: col.concat(o._cols[c]) for c, col in t._cols.items()},
+            t._nrows + o._nrows,
+        )
 
     # -- grouped aggregation ------------------------------------------------
 
@@ -242,9 +493,6 @@ class CudaTable(Table):
 
     # -- not ported yet ----------------------------------------------------
 
-    filter = _not_ported("filter")
-    join = _not_ported("join")
-    union_all = _not_ported("union_all")
     order_by = _not_ported("order_by")
     skip = _not_ported("skip")
     limit = _not_ported("limit")
@@ -274,3 +522,16 @@ class CudaTable(Table):
         from .expand_op import plan_filter_fastpath
 
         return plan_filter_fastpath(planner, op, child)
+
+
+def _float_as_exact_int(c: Column) -> Column:
+    """An F64 key column recast for EXACT equality against int64 keys:
+    rows where the float is integral and inside the int64 range become that
+    integer; all other rows (fractional, NaN, inf, out of range) become
+    invalid and so never match."""
+    f = c.data
+    integral = (
+        (f == torch.floor(f)) & (f >= -(2.0**63)) & (f < 2.0**63) & ~torch.isnan(f)
+    )
+    data = torch.where(integral, f, torch.zeros_like(f)).to(torch.int64)
+    return Column(I64, data, c.valid_mask() & integral)

@@ -31,17 +31,19 @@ Differences by design from the reference (ROADMAP.md queue 3):
   path, and a multi-close materialize raises ``NotImplementedError``
   (queue 1, ``factorized.py``);
 * a pure count is never handed back to a binary counting tier (the port
-  has no native or MXU tier), and for the same reason ``auto`` routes
-  every structural fit as ``force`` does: with no binary plan to choose,
-  the reference's blowup estimate (``_est_binary_blowup`` against
-  ``TPU_CYPHER_WCOJ_MIN_ROWS``) could only choose an error;
+  has no native or MXU tier);
+* ``auto`` routes every structural fit, as ``force`` does: the
+  reference's blowup estimate (``_est_binary_blowup`` against
+  ``TPU_CYPHER_WCOJ_MIN_ROWS``) keeps the binary plan on small graphs,
+  but on the H100 the WCOJ count beat the binary plan at every size
+  measured, from a 300-edge graph (under the threshold) up (PERF.md);
 * no bucket lattice: the lanes are sized exactly whatever
   ``TPU_CYPHER_BUCKET`` says (eager PyTorch compiles no program per
   shape for the lattice to save);
 * no shadow: ``_compute_table`` catches nothing, so a ``GraphIndexError``
-  reaches the caller. A shape the planner hook declines keeps the classic
-  ``JoinOp`` plan, which raises ``NotImplementedError`` until ``join`` is
-  ported.
+  reaches the caller. A shape the planner hook declines (``off`` mode,
+  an empty graph, an undirected close) keeps the classic ``JoinOp`` plan,
+  which answers through ``CudaTable.join``.
 """
 
 from __future__ import annotations
