@@ -293,6 +293,25 @@ def check_expand_rows(torch, session, g1, g10, report):
           f"{b_ms:.4f} ms ({b_by})")
 
 
+def device_ms(torch, fn, iters=100, warmup=3):
+    """Mean device time per call: the summed durations of the CUDA kernels
+    in a ``torch.profiler`` trace of ``iters`` back-to-back calls, over
+    ``iters``. None when the trace shows no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA]
+    return sum(us) / 1e3 / iters if us else None
+
+
 def check_frontier(torch, session, g10, report):
     from tpu_cypher_torch.backend.cuda.graph_index import GraphIndex
     from tpu_cypher_torch.backend.cuda.hopper import frontier as KF
@@ -310,6 +329,8 @@ def check_frontier(torch, session, g10, report):
         ("F=100,000 (Q2)", pos, present),
         ("all masked", pos, torch.zeros(v, dtype=torch.bool, device=dev)),
         ("single row", pos[v // 2: v // 2 + 1], present[:1]),
+        ("odd length, unaligned", pos[1:], present[1:]),
+        ("strided", pos[::3], present[::3]),
     ):
         got = KF.deg_sum_cuda(rp, p, pr)
         want = KF.deg_sum_plain(rp, p, pr)
@@ -319,7 +340,12 @@ def check_frontier(torch, session, g10, report):
               f"max_abs_err={e}")
         check(e == 0.0, f"frontier_deg_sum {label} disagrees with its plain version")
     deg_node = (rp[1:] - rp[:-1]).to(torch.int64)
-    ms = time_ms(torch, lambda: KF.deg_sum_cuda(rp, pos, present), iters=100)
+
+    def kernel():
+        return KF.deg_sum_cuda(rp, pos, present)
+
+    ms = time_ms(torch, kernel, iters=100)
+    dev_ms = device_ms(torch, kernel, iters=100)
     plain_ms = time_ms(torch, lambda: KF.deg_sum_plain(rp, pos, present), iters=100)
     lib_ms = time_ms(torch, lambda: torch.sum(deg_node[pos]), iters=100)
     f = int(pos.shape[0])
@@ -329,14 +355,50 @@ def check_frontier(torch, session, g10, report):
     report["frontier_deg_sum"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms, library_call="torch.sum over a gather",
-        shape=f"Q2 at SF10: F={f}",
+        device_ms=dev_ms, shape=f"Q2 at SF10: F={f}",
     )
-    print(f"  frontier_deg_sum timing at F={f}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, torch.sum over a gather {lib_ms:.4f} ms, "
-          f"bound {b_ms:.6f} ms ({b_by}; two launches dominate)")
+    dev_txt = "not measured (no device events)" if dev_ms is None else f"{dev_ms:.4f} ms"
+    print(f"  frontier_deg_sum timing at F={f}: kernel {ms:.4f} ms a call in a "
+          f"host loop, device time {dev_txt} (torch.profiler, kernel durations); "
+          f"plain {plain_ms:.4f} ms, torch.sum over a gather {lib_ms:.4f} ms, "
+          f"bound {b_ms:.6f} ms ({b_by})")
 
 
-def check_segment_agg(torch, q5_rows, report):
+def q5_segment_agg_calls(g1, want):
+    """Run Q5 once more on ``g1`` with a hook on the ``segment_agg`` gate and
+    return the (data, valid, seg_j, name, kind, k) of each of its calls: the
+    arguments the query itself hands the kernel tier. The run's launches
+    are not the main path's (the counts are zeroed before phase 4)."""
+    from tpu_cypher_torch.backend.cuda import hopper
+
+    calls = []
+    inner = hopper.segment_aggregate
+
+    def hook(data, valid, iflag, seg_j, *, name, kind, k):
+        check(iflag is None, "Q5 aggregates carry no int_flag")
+        calls.append((data, valid, seg_j, name, kind, k))
+        return inner(data, valid, iflag, seg_j, name=name, kind=kind, k=k)
+
+    hopper.segment_aggregate = hook
+    try:
+        rows = [dict(r) for r in g1.cypher(Q5).records.collect()]
+    finally:
+        hopper.segment_aggregate = inner
+    check([(rows[0]["lo"], rows[0]["hi"])] == [want], f"Q5 (hooked) {rows} != {want}")
+    check([c[3] for c in calls] == ["min", "max"], f"Q5 made calls {[c[3] for c in calls]}")
+    return calls
+
+
+def agg_bytes(data, valid, seg_j) -> int:
+    """Bytes the fused kernel must read: each row's value, validity byte
+    and segment id once."""
+    per_row = data.element_size()
+    per_row += 1 if valid is not None else 0
+    per_row += seg_j.element_size() if seg_j is not None else 0
+    return per_row * int(data.shape[0])
+
+
+def check_segment_agg(torch, g1, q5_truth, q5_rows, report):
     import numpy as np
 
     from tpu_cypher_torch.backend.cuda import jit_ops as J
@@ -348,6 +410,15 @@ def check_segment_agg(torch, q5_rows, report):
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def compare(label, data, vmask, seg, name, kind, k):
+        nonlocal err
+        got = KA._segment_aggregate_cuda(data, vmask, seg, name, kind, k)
+        want = J.segment_aggregate(data, vmask, None, seg, name, kind, k)
+        e = tuple_err(torch, got, want)
+        err = max(err, e)
+        check(e == 0.0, f"segment_agg {label} {name}({kind}) k={k} "
+              f"valid={vmask is not None} disagrees: {got} vs {want}")
 
     for n, k in ((q5_rows, 1), (1_000_000, 256)):
         seg = t(rng.integers(0, k, size=n, dtype=np.int64))
@@ -361,64 +432,108 @@ def check_segment_agg(torch, q5_rows, report):
         f64[:4] = [np.inf, -np.inf, -0.0, 0.0]
         columns = {
             "i64": (t(i64), ("count", "sum", "min", "max")),
-            "bool": (t(rng.random(n) < 0.5), ("min", "max")),
+            "bool": (t(rng.random(n) < 0.5), ("min", "max")),  # read as bytes
             "str": (t(rng.integers(0, 5000, size=n).astype(np.int32)), ("min", "max")),
             "f64": (t(f64), ("min", "max")),
         }
         # at the slice's size the plain version's scatter atomics all hit
-        # one slot, so only the masked variant runs there
+        # one slot, so only the masked variant runs there; k = 1 runs with
+        # int64 ids and without ids (the global form), k = 256 with int64
+        # and int32 ids
         masks = (valid,) if k == 1 else (None, valid)
+        segs = (("int64 ids", seg), ("no ids", None)) if k == 1 else (
+            ("int64 ids", seg), ("int32 ids", seg.to(torch.int32)))
         for kind, (data, names) in columns.items():
             for name in names:
                 for vmask in masks:
-                    got = KA._segment_aggregate_cuda(data, vmask, seg, name, kind, k)
-                    want = J.segment_aggregate(data, vmask, None, seg, name, kind, k)
-                    e = tuple_err(torch, got, want)
-                    err = max(err, e)
-                    check(e == 0.0, f"segment_agg {name}({kind}) n={n} k={k} "
-                          f"valid={vmask is not None} disagrees: {got} vs {want}")
-        print(f"  segment_agg n={n} k={k}: count/sum/min/max over int64, BOOL, "
-              f"string codes, float64 with NaN and +-0: max_abs_err={err}")
+                    for label, sg in segs:
+                        compare(f"n={n} {label}", data, vmask, sg, name, kind, k)
+        print(f"  segment_agg n={n} k={k} ({', '.join(l for l, _ in segs)}): "
+              f"count/sum/min/max over int64, BOOL bytes, string codes, float64 "
+              f"with NaN and +-0: max_abs_err={err}")
+    # rows that start off the 16-byte boundary: the kernel's scalar path
+    compare("unaligned rows", columns["f64"][0][1:], valid[1:], None, "max", "f64", 1)
+    compare("unaligned rows", columns["i64"][0][1:], valid[1:], seg[1:].to(torch.int32),
+            "min", "i64", 256)
+    # every row masked, and no row at all
+    data = t(i64[:1000])
+    for name in ("count", "sum", "min", "max"):
+        compare("all masked", data, torch.zeros(1000, dtype=torch.bool, device=dev),
+                None, name, "i64", 1)
+        compare("empty", data[:0], None, None, name, "i64", 1)
     # the -0.0 vs 0.0 tie on its own: min -> -0.0, max -> 0.0
     for order in ([0.0, -0.0], [-0.0, 0.0]):
         vals = torch.tensor(order * 1000, dtype=torch.float64, device=dev)
-        seg = torch.zeros(vals.shape[0], dtype=torch.int64, device=dev)
         for name, sign in (("min", True), ("max", False)):
-            got = KA._segment_aggregate_cuda(vals, None, seg, name, "f64", 1)[0]
-            want = J.segment_aggregate(vals, None, None, seg, name, "f64", 1)[0]
+            got = KA._segment_aggregate_cuda(vals, None, None, name, "f64", 1)[0]
+            want = J.segment_aggregate(vals, None, None, None, name, "f64", 1)[0]
             check(bool(torch.signbit(got)[0]) == sign
                   and max_abs_err(torch, got, want) == 0.0,
                   f"segment_agg {name} breaks the -0.0/0.0 tie wrongly")
-    print("  segment_agg -0.0 vs 0.0 tie: min -> -0.0, max -> 0.0 (kernel == plain)")
-    # timing at Q5's aggregate: one min pass over int64 values, k = 1
+    print("  segment_agg all masked, empty, and the -0.0 vs 0.0 tie (min -> -0.0, "
+          "max -> 0.0): kernel == plain")
+
+    # timing at the row's shape: an int64 min over Q5's row count, k = 1,
+    # int32 segment ids given, no mask
     vals = t(rng.integers(0, 18_000, size=q5_rows, dtype=np.int64))
     seg64 = torch.zeros(q5_rows, dtype=torch.int64, device=dev)
     seg32 = seg64.to(torch.int32)
     big = torch.iinfo(torch.int64).max
-    ms = time_ms(torch, lambda: KA.seg_reduce_cuda(vals, seg32, big, "min", 1))
-    plain_ms = time_ms(torch, lambda: J._segment_reduce(vals, seg32, 1, "min", big),
+    ms = time_ms(torch, lambda: KA._segment_aggregate_cuda(vals, None, seg32, "min", "i64", 1))
+    plain_ms = time_ms(torch, lambda: J.segment_aggregate(vals, None, None, seg32, "min", "i64", 1),
                        iters=3, warmup=1)
     # at k = 1 with no dead lane one torch.amin computes the same function;
     # scatter_reduce, the general segment call, is timed beside it
     lib_ms = time_ms(torch, lambda: torch.amin(vals).reshape(1))
-    check(int(torch.amin(vals)) == int(KA.seg_reduce_cuda(vals, seg32, big, "min", 1)[0]),
+    check(int(torch.amin(vals)) == int(KA._segment_aggregate_cuda(
+        vals, None, seg32, "min", "i64", 1)[0][0]),
           "segment_agg disagrees with torch.amin at k=1")
     scatter_ms = time_ms(
         torch, lambda: torch.full((1,), big, dtype=torch.int64, device=dev)
         .scatter_reduce(0, seg64, vals, "amin", include_self=True),
         iters=3, warmup=1)
-    nbytes = 12 * q5_rows + 8
-    # per row: the min and the segment-id check
-    b_ms, b_by = bound(nbytes, 2 * q5_rows)
+    nbytes = agg_bytes(vals, None, seg32) + 8 + 1
+    # per row: the min, the count's add and the segment-id check
+    b_ms, b_by = bound(nbytes, 3 * q5_rows)
+
+    # the kernel tier as Q5 calls it: min(c.birthday), captured by a hook
+    calls = q5_segment_agg_calls(g1, q5_truth)
+    data, valid, seg_j, name, kind, k = calls[0]
+    for call in calls:
+        compare("Q5's own call", *call)
+    tier_ms = time_ms(torch, lambda: KA._segment_aggregate_cuda(*calls[0]))
+    tier_plain_ms = time_ms(torch, lambda: J.segment_aggregate(
+        data, valid, None, seg_j, name, kind, k), iters=3, warmup=1)
+    tier_lib_ms = time_ms(torch, lambda: torch.amin(data).reshape(1))
+    tier_b_ms, _ = bound(agg_bytes(data, valid, seg_j) + 9, 2 * int(data.shape[0]))
+    tier_shape = (f"{name}({kind}) over {int(data.shape[0])} rows, k={k}, "
+                  f"mask {'yes' if valid is not None else 'none'}, segment ids "
+                  f"{'none' if seg_j is None else seg_j.dtype}")
+
+    # k = 256, 1,000,000 rows, random int64 ids, a mask: one extra line
+    n256 = 1_000_000
+    v256 = t(rng.integers(0, 18_000, size=n256, dtype=np.int64))
+    s256 = t(rng.integers(0, 256, size=n256, dtype=np.int64))
+    m256 = t(rng.random(n256) < 0.9)
+    compare("k=256 timing input", v256, m256, s256, "min", "i64", 256)
+    k256_ms = time_ms(torch, lambda: KA._segment_aggregate_cuda(v256, m256, s256, "min", "i64", 256))
     report["segment_agg"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms, library_call="torch.amin",
         scatter_reduce_ms=scatter_ms,
-        shape=f"Q5 aggregate at SF1: n={q5_rows}, k=1, int64 min",
+        shape=f"Q5 aggregate at SF1: n={q5_rows}, k=1, int64 min, int32 ids, no mask",
+        tier_ms=tier_ms, tier_plain_ms=tier_plain_ms, tier_library_ms=tier_lib_ms,
+        tier_bound_ms=tier_b_ms, tier_shape=f"Q5's {tier_shape}",
+        k256_tier_ms=k256_ms,
     )
-    print(f"  segment_agg timing at n={q5_rows}, k=1: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, torch.amin {lib_ms:.4f} ms, Tensor.scatter_reduce "
+    print(f"  segment_agg timing at n={q5_rows}, k=1, int32 ids: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, torch.amin {lib_ms:.4f} ms, Tensor.scatter_reduce "
           f"{scatter_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    print(f"  segment_agg kernel tier at Q5's {tier_shape}: {tier_ms:.4f} ms, plain "
+          f"{tier_plain_ms:.4f} ms, torch.amin {tier_lib_ms:.4f} ms, bound "
+          f"{tier_b_ms:.4f} ms")
+    print(f"  segment_agg kernel tier at k=256, n={n256}, int64 ids, a mask: "
+          f"{k256_ms:.4f} ms")
 
 
 def q6_range_count_calls(torch, g10, want):
@@ -1056,7 +1171,7 @@ def main() -> int:
     print("kernels vs plain (exact):")
     check_expand_rows(torch, session, g1, g10, report)
     check_frontier(torch, session, g10, report)
-    check_segment_agg(torch, truth["Q5_rows"], report)
+    check_segment_agg(torch, g1, truth["Q5"], truth["Q5_rows"], report)
     check_intersect(torch, g10, tri10["triangles"], report)
     check_join_probe(torch, g10, truth["Q11"], report)
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
@@ -1247,7 +1362,9 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "library_call": r["library_call"],
             "shape": r["shape"],
-            **{k: r[k] for k in ("build_ms", "tier_ms", "plain_build_ms") if k in r},
+            **{k: v for k, v in r.items() if k.endswith("_ms") and k not in (
+                "ms", "plain_ms", "bound_ms", "library_ms")},
+            **{k: r[k] for k in ("tier_shape",) if k in r},
         })
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)  # the nvidia-smi line as it came: name, power limit

@@ -1,10 +1,11 @@
-"""The port stands alone: ``tpu_cypher_torch`` (and ``chip_smoke.py``, which
-drives it on the card) import neither ``jax`` nor the JAX package.
+"""The port stands alone: ``tpu_cypher_torch`` (and ``chip_smoke.py`` and
+``scripts/kernel_ab.py``, which drive it on the card) import neither
+``jax`` nor the JAX package.
 
 Two checks: a subprocess that blocks ``jax``, ``jaxlib`` and ``tpu_cypher``
 on ``sys.meta_path`` and still imports the port and answers the single-hop
 count on the CPU; and an AST scan that fails on any import of those
-modules anywhere in the port's sources or the smoke script.
+modules anywhere in the port's sources or those scripts.
 """
 
 import ast
@@ -63,6 +64,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(base, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "scripts", "kernel_ab.py")
 
 
 def _blocked(name: str) -> bool:

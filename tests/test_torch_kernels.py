@@ -11,6 +11,7 @@ monkeypatched) and is never memoized, and the ``fallback`` tier for an
 ineligible call.
 """
 
+import ctypes
 import zlib
 
 import numpy as np
@@ -187,6 +188,83 @@ def test_frontier_single_row():
     assert got.dtype == torch.int64 and int(got) == 4
 
 
+def _raw(ptr, ctype, n):
+    """``n`` values of ``ctype`` at a host address, as a kernel reads them."""
+    if n == 0:
+        return torch.from_numpy(np.zeros(0, np.dtype(ctype)))
+    return torch.from_numpy(np.ctypeslib.as_array((ctype * n).from_address(ptr)).copy())
+
+
+def _store(ptr, t):
+    ctypes.memmove(ptr, t.contiguous().data_ptr(), t.numel() * t.element_size())
+
+
+class _FrontierKernelEmulation:
+    """``frontier_deg_sum.cu`` in torch, reading the wrapper's raw ctypes
+    arguments as the kernel reads them (dense rows at the pointers)."""
+
+    def frontier_deg_sum_scratch_bytes(self, device):
+        return 16
+
+    def frontier_deg_sum_launch(self, rp, nrp, pos, present, frontier, scratch, out, stream):
+        r = _raw(rp, ctypes.c_int32, nrp).to(torch.int64)
+        p = torch.clamp(_raw(pos, ctypes.c_int64, frontier), 0, max(nrp - 2, 0))
+        m = _raw(present, ctypes.c_uint8, frontier) != 0
+        deg = r[p + 1] - r[p] if nrp >= 2 else torch.zeros(frontier, dtype=torch.int64)
+        _store(out, torch.sum(torch.where(m, deg, torch.zeros_like(deg))).reshape(1))
+        return 0
+
+
+def _strided_frontier(rng, rp, n, density):
+    """A frontier whose pos and present are every other row of longer
+    arrays: not contiguous."""
+    n_nodes = len(rp) - 1
+    pos = _t(rng.integers(0, n_nodes, 2 * n).astype(np.int64))[::2]
+    present = _t(rng.random(2 * n) < density)[::2]
+    assert not pos.is_contiguous() and not present.is_contiguous()
+    return pos, present
+
+
+@pytest.mark.parametrize("case", ["non_contiguous", "empty_mask"])
+def test_frontier_plain_noncontiguous_and_empty_mask_match_reference(case):
+    rng = np.random.default_rng(zlib.crc32(case.encode()))
+    rp, _, _, pos, present = _csr_case("dense", 1000, 0.85)
+    if case == "non_contiguous":
+        pos_p, present_p = _strided_frontier(rng, rp, 700, 0.7)
+    else:
+        pos_p, present_p = _t(pos), _t(np.zeros_like(present))
+    args_r = (jnp.asarray(rp), jnp.asarray(pos_p.numpy()), jnp.asarray(present_p.numpy()))
+    want = RPF._csr_deg_sum_jnp(*args_r)
+    _same(want, PF.deg_sum_plain(_t(rp), pos_p, present_p), (case, "plain"))
+    _same(want, PF.csr_frontier_degree_sum(_t(rp), pos_p, present_p), (case, "gate"))
+    if case == "empty_mask":
+        assert int(want) == 0
+
+
+@pytest.mark.parametrize(
+    "shape_name,n,density", SHAPES + [("non_contiguous", 700, 0.7)]
+)
+def test_frontier_kernel_arguments_emulated_match_reference(
+    monkeypatch, shape_name, n, density
+):
+    """The wrapper's ctypes arguments, read by a torch emulation of the
+    kernel as the kernel reads them, give the reference's sum: pointers,
+    lengths, and a dense copy of a strided input."""
+    monkeypatch.setattr(PF, "_lib", lambda: _FrontierKernelEmulation())
+    monkeypatch.setattr(PF._build, "stream", lambda dev: 0)
+    monkeypatch.setattr(PF._build, "scratch_ptr", lambda kernel, dev, nbytes: 0)
+    rp, _, _, pos, present = _csr_case(shape_name, n, density)
+    pos_p, present_p = _t(pos), _t(present)
+    if shape_name == "non_contiguous":
+        pos_p, present_p = _strided_frontier(np.random.default_rng(7), rp, n, density)
+    want = RPF._csr_deg_sum_jnp(
+        jnp.asarray(rp), jnp.asarray(pos_p.numpy()), jnp.asarray(present_p.numpy())
+    )
+    got = PF._launch(_t(rp), pos_p, present_p)
+    assert got.shape == ()
+    _same(want, got, shape_name)
+
+
 # ---------------------------------------------------------------------------
 # segment_agg
 # ---------------------------------------------------------------------------
@@ -264,6 +342,165 @@ def test_f64_order_keys_roundtrip_and_order():
     keys = PJ.f64_order_keys(_t(x))
     assert (keys[1:] > keys[:-1]).all()
     _same(x, PJ.f64_from_order_keys(keys), "roundtrip")
+
+
+# count, sum and min/max over every kind the kernel reduces
+GLOBAL_CASES = [("count", kind) for kind in ("i64", "bool", "str", "f64")] + [
+    ("sum", "i64")
+] + [(name, kind) for name in ("min", "max") for kind in ("i64", "bool", "str", "f64")]
+
+# (name, rows, mask density or None for no mask)
+GLOBAL_SHAPES = [
+    ("empty", 0, None),
+    ("all_masked", 40, 0.0),
+    ("mixed", 200, 0.8),
+    ("no_mask", 200, None),
+]
+
+
+def _special_data(rng, kind, n):
+    """Values with the edge cases of each kind: int64 extremes; NaN, +-0.0
+    and +-inf; both bools; string codes."""
+    data = _agg_data(rng, kind, n)
+    if n >= 8 and kind == "i64":
+        data[:4] = [np.iinfo(np.int64).max, np.iinfo(np.int64).min, 0, -1]
+    if n >= 8 and kind == "f64":
+        data[:6] = [np.inf, -np.inf, -0.0, 0.0, np.nan, -np.nan]
+    return data
+
+
+@pytest.mark.parametrize("name,kind", GLOBAL_CASES)
+@pytest.mark.parametrize("shape_name,n,density", GLOBAL_SHAPES)
+def test_segment_global_form_matches_reference(
+    interpret_mode, name, kind, shape_name, n, density
+):
+    """A global aggregate passes no segment ids (None, k = 1): the plain
+    version and the gate equal the reference's jnp and Pallas (interpret)
+    formulations fed with ``jnp.zeros(n)`` ids, bit for bit."""
+    rng = np.random.default_rng(zlib.crc32(f"global/{name}/{kind}/{shape_name}".encode()))
+    data = _special_data(rng, kind, n)
+    valid = None if density is None else rng.random(n) < density
+    args_r = (jnp.asarray(data), None if valid is None else jnp.asarray(valid),
+              None, jnp.zeros(n, jnp.int64))
+    args_p = (_t(data), None if valid is None else _t(valid), None, None)
+    want = RJ.segment_aggregate(*args_r, name=name, kind=kind, k=1)
+    want_pallas = RPA.segment_aggregate(*args_r, name=name, kind=kind, k=1)
+    got = PJ.segment_aggregate(*args_p, name=name, kind=kind, k=1)
+    got_gate = PA.segment_aggregate(*args_p, name=name, kind=kind, k=1)
+    for i, (w, wp, g, gg) in enumerate(zip(want, want_pallas, got, got_gate)):
+        if w is None:
+            assert g is None and gg is None, i
+            continue
+        _same(w, g, (name, kind, shape_name, i, "jnp"))
+        _same(wp, g, (name, kind, shape_name, i, "pallas-interpret"))
+        _same(w, gg, (name, kind, shape_name, i, "gate"))
+    assert PD.use_counts()["segment_agg"]["plain"] == 1
+
+
+class _SegmentKernelEmulation:
+    """The row rule and the finalize of ``segment_reduce.cu`` in torch,
+    reading the wrapper's raw ctypes arguments as the kernel reads them:
+    values by the value-type code, validity bytes, segment ids by the
+    segment-type code (a row outside [0, k) takes no part), a null or NaN
+    row takes ``fill``, an untouched group keeps ``ident``, float64 min/max
+    on order keys, then the NaN rules and each output in its own type."""
+
+    CTYPES = {1: ctypes.c_int32, 2: ctypes.c_int64, 3: ctypes.c_double, 4: ctypes.c_uint8}
+
+    def segment_reduce_scratch_bytes(self, device):
+        return 16
+
+    def segment_reduce_launch(self, vals, vtype, valid, seg, stype, n, k, op, ident,
+                              fill, out, out_valid, scratch, stream):
+        assert (seg is None) == (stype == 0) and (vals is None) == (vtype == 0)
+        i64 = torch.int64
+        g = _raw(seg, self.CTYPES[stype], n).to(i64) if seg else torch.zeros(n, dtype=i64)
+        rows = (g >= 0) & (g < k)
+        live = rows & (_raw(valid, ctypes.c_uint8, n) != 0) if valid else rows
+        nan = torch.zeros(n, dtype=torch.bool)
+        if vtype == 0:
+            x = torch.zeros(n, dtype=i64)
+        elif vtype == 3:
+            d = _raw(vals, ctypes.c_double, n)
+            nan = live & torch.isnan(d)
+            x = PJ.f64_order_keys(d)
+        elif vtype == 4:
+            x = (_raw(vals, ctypes.c_uint8, n) != 0).to(i64)
+        else:
+            x = _raw(vals, self.CTYPES[vtype], n).to(i64)
+        x = torch.where(live & ~nan, x, torch.full_like(x, fill))
+        gr = g[rows]
+        cnt = torch.zeros(k, dtype=i64).index_add_(0, gr, live[rows].to(i64))
+        nan_cnt = torch.zeros(k, dtype=i64).index_add_(0, gr, nan[rows].to(i64))
+        acc = torch.full((k,), ident, dtype=i64)
+        if op == 1:
+            acc = acc.index_add_(0, gr, x[rows])
+        elif op in (2, 3):
+            acc = acc.scatter_reduce(0, gr, x[rows], "amin" if op == 2 else "amax",
+                                     include_self=True)
+        if op == 0:
+            _store(out, cnt)
+            return 0
+        if op == 1:
+            _store(out, acc)
+            return 0
+        _store(out_valid, cnt > 0)
+        if vtype == 1:
+            acc = acc.to(torch.int32)
+        elif vtype == 4:
+            acc = acc != 0
+        elif vtype == 3:
+            nan_out = (nan_cnt > 0) & (cnt == nan_cnt) if op == 2 else nan_cnt > 0
+            bits = torch.where(acc < 0, acc ^ 0x7FFFFFFFFFFFFFFF, acc)
+            acc = torch.where(nan_out, torch.full_like(acc, 0x7FF8000000000000), bits)
+        _store(out, acc)
+        return 0
+
+
+@pytest.mark.parametrize("name,kind", GLOBAL_CASES)
+@pytest.mark.parametrize("seg_form", ["none", "int32_k1", "int32_k7", "int64_k256"])
+def test_segment_kernel_arguments_emulated_match_plain(monkeypatch, name, kind, seg_form):
+    """The wrapper's ctypes arguments (op and value-type codes, identity and
+    fill bits, segment-type code, null pointers), read by a torch emulation
+    of the fused kernel's row rule and finalize, give the plain version's
+    4-tuple bit for bit. The kernel itself runs only on the card
+    (``chip_smoke.py`` holds it to the plain version there)."""
+    monkeypatch.setattr(PA, "_lib", lambda: _SegmentKernelEmulation())
+    monkeypatch.setattr(PA._build, "stream", lambda dev: 0)
+    monkeypatch.setattr(PA._build, "scratch_ptr", lambda kernel, dev, nbytes: 0)
+    rng = np.random.default_rng(zlib.crc32(f"emul/{name}/{kind}/{seg_form}".encode()))
+    k = {"none": 1, "int32_k1": 1, "int32_k7": 7, "int64_k256": 256}[seg_form]
+    for n, density in ((0, None), (300, 0.8), (300, None), (60, 0.0)):
+        data = _special_data(rng, kind, n)
+        valid = None if density is None else rng.random(n) < density
+        seg = rng.integers(0, min(k, 6), n)  # group 6 of k = 7 stays empty
+        if k == 7 and valid is not None:
+            valid[seg == 5] = False  # a group whose rows are all null
+        seg_t = {"none": None, "int64_k256": _t(seg.astype(np.int64))}.get(
+            seg_form, _t(seg.astype(np.int32))
+        )
+        args = (_t(data), None if valid is None else _t(valid))
+        got = PA._launch(*args, seg_t, name, kind, k)
+        want = PJ.segment_aggregate(*args, None, seg_t, name, kind, k)
+        for i, (w, g) in enumerate(zip(want, got)):
+            if w is None:
+                assert g is None, i
+                continue
+            _same(w, g, (name, kind, seg_form, n, density, i))
+
+
+def test_segment_kernel_plan_mirrors_plain_fills():
+    """Spot values of the identities and fills the wrapper hands the kernel."""
+    i64 = np.iinfo(np.int64)
+    assert PA.kernel_plan("max", "i64", torch.int64)[3:] == (i64.min, -i64.max)
+    assert PA.kernel_plan("min", "i64", torch.int64)[3:] == (i64.max, i64.max)
+    assert PA.kernel_plan("max", "str", torch.int32)[3:] == (np.iinfo(np.int32).min, -1)
+    assert PA.kernel_plan("max", "bool", torch.bool)[3:] == (-128, -127)
+    inf_key = int(PJ.f64_order_keys(torch.tensor([np.inf], dtype=torch.float64))[0])
+    assert PA.kernel_plan("min", "f64", torch.float64)[3:] == (inf_key, inf_key)
+    assert PA.kernel_plan("count", "f64", torch.float64) == (0, 0, torch.int64, 0, 0)
+    with pytest.raises(TypeError):
+        PA.kernel_plan("sum", "f64", torch.float64)
 
 
 # ---------------------------------------------------------------------------

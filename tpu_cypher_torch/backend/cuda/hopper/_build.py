@@ -144,6 +144,34 @@ def lib(name: str) -> ctypes.CDLL:
     return got
 
 
+def stream(dev) -> int:
+    """The raw handle of ``dev``'s current CUDA stream, the one a kernel
+    launches on."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+_SCRATCH: Dict[tuple, tuple] = {}
+
+
+def scratch_ptr(kernel: str, dev, nbytes) -> int:
+    """The address of ``kernel``'s scratch buffer on ``dev``: ``nbytes(device
+    index)`` zeroed bytes, allocated at first use and kept for the process.
+    A kernel that uses one leaves it ready for its next launch (its ticket
+    back at zero), so launches in stream order share it."""
+    got = _SCRATCH.get((kernel, dev.index))
+    if got is None:
+        import torch
+
+        size = int(nbytes(dev.index))
+        if size <= 0:
+            raise KernelLaunchError(f"{kernel}: no scratch size for device {dev}")
+        buf = torch.zeros(size, dtype=torch.uint8, device=dev)
+        got = _SCRATCH[(kernel, dev.index)] = (buf, buf.data_ptr())
+    return got[1]
+
+
 class KernelLaunchError(RuntimeError):
     """A launch function returned a nonzero ``cudaError_t``; the gate
     raises it as a typed ``DeviceError`` (``errors.classify``)."""

@@ -1,32 +1,41 @@
-"""The ``segment_agg`` kernel: the masked grouped segment reduce.
+"""The ``segment_agg`` kernel: the masked grouped segment aggregate.
 
 Replaces ``tpu_cypher/backend/tpu/pallas/aggregate.py``
 (``_seg_reduce_kernel_for`` / ``_seg_reduce_pallas``, driven by
 ``_segment_aggregate_pallas``; entry ``segment_aggregate``). The CUDA source
 is ``csrc/segment_reduce.cu``; its note states the bound on the H100
-(memory: 12 bytes read per row for int64 values), the design (k <= 256
-shared-memory partials per block updated by shared atomics, then a second
-pass over the blocks) and how a -0.0 vs 0.0 tie breaks (min -> -0.0,
-max -> 0.0, as in the JAX reference).
+(memory: each row's value, validity byte and segment id read once, 8 bytes
+a row for a global int64 min), the design (one launch per aggregate: 16-byte
+loads, register or per-warp shared partials, and the last block to finish
+folds the blocks' partials and writes the outputs) and how a -0.0 vs 0.0
+tie breaks (min -> -0.0, max -> 0.0, as in the JAX reference).
 
-``_segment_aggregate_cuda`` is the torch driver around the kernel and
-mirrors ``_segment_aggregate_pallas`` rule for rule: a count pass, NaN
-counted apart and replaced by +-inf before the kernel, BOOL reduced as
-int32, identities as the scatter formulation's. The plain PyTorch version
-is ``jit_ops.segment_aggregate`` (the counterpart of ``jax.ops.segment_*``
-in the reference's ``jit_ops.segment_aggregate``).
+``_segment_aggregate_cuda`` is the kernel tier: one launch computes the
+count, the NaN count and the sum, min or max, applies the plain version's
+NaN rules and writes the 4-tuple's outputs in their own dtypes. What it
+hands the kernel — the op and value-type codes, the identity of a group no
+row reaches and the fill of a null or NaN row, both as int64 bits (float64
+order keys for F64) — is ``kernel_plan``, which mirrors the plain version's
+``torch.where(..., full_like(big/low))`` rule by rule. The plain PyTorch
+version is ``jit_ops.segment_aggregate`` (the counterpart of
+``jax.ops.segment_*`` in the reference's ``jit_ops.segment_aggregate``).
+
+Segment ids are int32 or int64, or ``None`` for a global aggregate
+(``k == 1``, every row in group 0): the caller writes no O(n) id array.
 
 Eligibility keeps the reference's semantic rules (count over anything; sum
 over I64 only, since float sums reorder; min/max over I64/BOOL/STR/F64
 without int_flag bookkeeping) and re-derives the size cap: k <= 256 keeps
-one block's partials in 2 KB of shared memory, and fewer than 2**31 rows
-keeps the int32 segment ids and counts exact.
+one block's per-warp partials in 32 KB of shared memory, and fewer than
+2**31 rows keeps the counts exact in int32.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import struct
+from typing import NamedTuple
 
 import torch
 
@@ -42,121 +51,122 @@ dispatch.register(
 )
 
 MAX_GROUPS = 256
-_MAX_BLOCKS = 1024
-_ROWS_PER_THREAD = 8
-_THREADS = 256
-_DTYPES = {torch.int32: 0, torch.int64: 1, torch.float64: 2}
-_OPS = {"sum": 0, "min": 1, "max": 2}
+# the codes of csrc/segment_reduce.cu
+OPS = {"count": 0, "sum": 1, "min": 2, "max": 3}
+VTYPES = {torch.int32: 1, torch.int64: 2, torch.float64: 3, torch.bool: 4}
+STYPES = {torch.int32: 1, torch.int64: 2}
+
+
+class KernelPlan(NamedTuple):
+    """What one aggregate hands the kernel: ``op`` and ``vtype`` codes (0
+    for a count, whose values are not read), the output dtype, and the
+    int64 bits of ``ident`` (a group no row reaches) and ``fill`` (a null or
+    NaN row of a group); float64 bits are order keys."""
+
+    op: int
+    vtype: int
+    out_dtype: torch.dtype
+    ident: int
+    fill: int
+
+
+def f64_key(x: float) -> int:
+    """The order-preserving int64 key of one float64 (``jit_ops.f64_order_keys``)."""
+    bits = struct.unpack("<q", struct.pack("<d", x))[0]
+    return bits ^ 0x7FFFFFFFFFFFFFFF if bits < 0 else bits
 
 
 @functools.lru_cache(maxsize=None)
-def _launch_fn():
-    fn = _build.lib("segment_reduce").segment_reduce_launch
+def kernel_plan(name: str, kind: str, dtype: torch.dtype) -> KernelPlan:
+    """The plain version's identities as kernel arguments: min fills null
+    and NaN rows with ``big`` and starts from it; max fills them with
+    ``-big`` (``-1`` for string codes) and starts from the type's lowest.
+    BOOL takes int8's bounds, as the plain version reduces it as int8."""
+    if name == "count":
+        return KernelPlan(OPS["count"], 0, torch.int64, 0, 0)
+    if dtype not in VTYPES or (kind == F64) != (dtype == torch.float64):
+        raise TypeError(f"segment_agg: {name} over {kind} stored as {dtype}")
+    if name == "sum":
+        if dtype != torch.int64:
+            raise TypeError("segment_agg: the kernel sums int64 only")
+        return KernelPlan(OPS["sum"], VTYPES[dtype], dtype, 0, 0)
+    if kind == F64:
+        big, lowest, low = float("inf"), float("-inf"), float("-inf")
+    else:
+        info = torch.iinfo(torch.int8 if kind == BOOL else dtype)
+        big, lowest = info.max, info.min
+        low = -big if kind != STR else -1
+    ident, fill = (big, big) if name == "min" else (lowest, low)
+    if kind == F64:
+        ident, fill = f64_key(ident), f64_key(fill)
+    return KernelPlan(OPS[name], VTYPES[dtype], dtype, int(ident), int(fill))
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _build.lib("segment_reduce")
+    fn = lib.segment_reduce_launch
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
-        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
-    return fn
-
-
-def _identity_bits(identity, dtype) -> int:
-    if dtype == torch.float64:
-        t = torch.tensor([float(identity)], dtype=torch.float64)
-        return int(J.f64_order_keys(t)[0])
-    return int(identity)
-
-
-def seg_reduce_cuda(vals, seg, identity, op: str, k: int):
-    """Launch the kernel: ``jax.ops.segment_<op>(vals, seg, num_segments=k)``
-    with ``identity`` for empty groups; rows with seg outside [0, k) are
-    dead. ``vals`` int32/int64/float64 (no float sum), ``seg`` int32."""
-    dev = vals.device
-    if dev.type != "cuda" or seg.device != dev:
-        raise ValueError("segment_agg: tensors must be on one CUDA device")
-    if vals.dtype not in _DTYPES or seg.dtype != torch.int32:
-        raise TypeError("segment_agg: vals int32/int64/float64, seg int32")
-    if vals.dtype == torch.float64 and op == "sum":
-        raise TypeError("segment_agg: float sums are not reduced by the kernel")
-    if not 0 < k <= MAX_GROUPS:
-        raise ValueError(f"segment_agg: k must be in [1, {MAX_GROUPS}]")
-    n = int(vals.shape[0])
-    if int(seg.shape[0]) != n or n >= 2**31:
-        raise ValueError("segment_agg: vals and seg differ in length or exceed int32")
-    vals, seg = vals.contiguous(), seg.contiguous()
-    nblocks = max(1, min(_MAX_BLOCKS, -(-n // (_THREADS * _ROWS_PER_THREAD))))
-    acc_dtype = torch.int32 if vals.dtype == torch.int32 else torch.int64
-    partials = torch.empty(nblocks * k, dtype=acc_dtype, device=dev)
-    out = torch.empty(k, dtype=vals.dtype, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.check(
-        _launch_fn()(
-            vals.data_ptr(), _DTYPES[vals.dtype], seg.data_ptr(), n, k,
-            _OPS[op], _identity_bits(identity, vals.dtype), partials.data_ptr(),
-            nblocks, out.data_ptr(), stream,
-        ),
-        "segment_agg",
-    )
-    return out
+    lib.segment_reduce_scratch_bytes.argtypes = [ctypes.c_int]
+    lib.segment_reduce_scratch_bytes.restype = ctypes.c_longlong
+    return lib
 
 
 def _segment_aggregate_cuda(data, valid, seg_j, name: str, kind: str, k: int):
-    """Kernel-backed mirror of ``jit_ops.segment_aggregate`` for the
-    eligible subset (count / int sum / min / max, no int_flag): every
-    masking rule, identity and output dtype of the plain version."""
-    n = data.shape[0]
+    """The kernel tier of ``jit_ops.segment_aggregate`` for the eligible
+    subset (count / int64 sum / min / max, no int_flag): one launch, every
+    masking rule, identity and output dtype of the plain version.
+    ``seg_j``: int32 or int64 ids, or None (every row in group 0)."""
     dev = data.device
-    v = valid if valid is not None else torch.ones(n, dtype=torch.bool, device=dev)
-    seg32 = seg_j.to(torch.int32)
-    cnt = seg_reduce_cuda(v.to(torch.int32), seg32, 0, "sum", k).to(torch.int64)
-    if name == "count":
-        return cnt, None, None, None
-    if name == "sum":  # I64 only (eligibility): zero-filled masked lanes
-        zero = torch.zeros((), dtype=torch.int64, device=dev)
-        ssum = seg_reduce_cuda(
-            torch.where(v, data.to(torch.int64), zero), seg32, 0, "sum", k
-        )
-        return ssum, None, None, None
-    d = data.to(torch.int32) if kind == BOOL else data
-    if kind == F64:
-        isnan = torch.isnan(d) & v
-        nn_valid = v & ~isnan
-        nan_cnt = seg_reduce_cuda(
-            isnan.to(torch.int32), seg32, 0, "sum", k
-        ).to(torch.int64)
-    else:
-        nn_valid = v
-        nan_cnt = None
-    big = float("inf") if kind == F64 else torch.iinfo(d.dtype).max
-    lowest = float("-inf") if kind == F64 else torch.iinfo(d.dtype).min
-    if name == "min":
-        agged = seg_reduce_cuda(
-            torch.where(nn_valid, d, torch.full_like(d, big)), seg32, big, "min", k
-        )
-        if nan_cnt is not None:
-            agged = torch.where(
-                (cnt - nan_cnt == 0) & (nan_cnt > 0),
-                torch.full_like(agged, float("nan")), agged,
-            )
-    else:
-        low = -big if kind != STR else -1
-        agged = seg_reduce_cuda(
-            torch.where(nn_valid, d, torch.full_like(d, low)), seg32, lowest,
-            "max", k,
-        )
-        if nan_cnt is not None:
-            agged = torch.where(
-                nan_cnt > 0, torch.full_like(agged, float("nan")), agged
-            )
-    if kind == BOOL:
-        agged = agged.to(torch.bool)
-    return agged, cnt > 0, None, None
+    if dev.type != "cuda" or any(
+        t is not None and t.device != dev for t in (valid, seg_j)
+    ):
+        raise ValueError("segment_agg: tensors must be on one CUDA device")
+    return _launch(data, valid, seg_j, name, kind, k)
+
+
+def _launch(data, valid, seg_j, name: str, kind: str, k: int):
+    """Check the shapes, allocate the outputs and make the one ctypes call
+    (the device check is the caller's)."""
+    dev = data.device
+    n = data.shape[0]
+    if not 0 < k <= MAX_GROUPS or n >= 2**31:
+        raise ValueError(f"segment_agg: k must be in [1, {MAX_GROUPS}], rows < 2**31")
+    if valid is not None and (valid.dtype != torch.bool or valid.shape[0] != n):
+        raise TypeError("segment_agg: valid must be bool, one per row")
+    if seg_j is not None and (seg_j.dtype not in STYPES or seg_j.shape[0] != n):
+        raise TypeError("segment_agg: segment ids must be int32 or int64, one per row")
+    plan = kernel_plan(name, kind, data.dtype)
+    # named, so that a copy of a strided input lives until the launch
+    data, valid, seg_j = (t if t is None else t.contiguous() for t in (data, valid, seg_j))
+    out = torch.empty(k, dtype=plan.out_dtype, device=dev)
+    out_valid = torch.empty(k, dtype=torch.bool, device=dev) if plan.op >= OPS["min"] else None
+    lib = _lib()
+    _build.check(
+        lib.segment_reduce_launch(
+            data.data_ptr() if plan.vtype else None, plan.vtype,
+            valid.data_ptr() if valid is not None else None,
+            seg_j.data_ptr() if seg_j is not None else None,
+            STYPES[seg_j.dtype] if seg_j is not None else 0, n, k, plan.op,
+            plan.ident, plan.fill, out.data_ptr(),
+            out_valid.data_ptr() if out_valid is not None else None,
+            _build.scratch_ptr("segment_agg", dev, lib.segment_reduce_scratch_bytes),
+            _build.stream(dev),
+        ),
+        "segment_agg",
+    )
+    return out, out_valid, None, None
 
 
 def segment_aggregate(data, valid, iflag, seg_j, *, name: str, kind: str, k: int):
     """Dispatching drop-in for ``jit_ops.segment_aggregate`` (same 4-tuple
-    contract)."""
+    contract; ``seg_j`` None is a global aggregate, ``k == 1``)."""
     eligible = (
         0 < k <= MAX_GROUPS
         and data.ndim == 1

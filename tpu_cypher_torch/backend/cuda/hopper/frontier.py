@@ -4,10 +4,16 @@ Replaces ``tpu_cypher/backend/tpu/pallas/frontier.py``
 (``_deg_sum_kernel`` / ``_csr_deg_sum_pallas``; entry
 ``csr_frontier_degree_sum``). The CUDA source is
 ``csrc/frontier_deg_sum.cu``; its note states the bound on the H100 (about
-17 bytes per frontier row, so at the slice's 100,000 rows it is bound by
-its two launches, not by bytes) and the design (grid-stride int64
-accumulation, warp-shuffle block reduce, one second pass over the
-per-block partials).
+17 bytes per frontier row, so at the slice's 100,000 rows one launch and
+the host work around it cost more than the bytes) and the design (one
+launch: 16-byte loads of ``pos``, int64 sums per thread, a block partial,
+and the last block to finish sums the partials).
+
+The wrapper is thin, since the host is the cost at this size: it checks
+dtypes and devices, copies only an input that is not contiguous,
+allocates the 0-d output and nothing else (the partials live in one
+zeroed scratch buffer per device, which the kernel leaves ready for the
+next launch), and makes one ctypes call of eight arguments.
 
 The plain PyTorch version, ``deg_sum_plain``, is the counterpart of the
 reference's ``_csr_deg_sum_jnp`` (two gathers and a masked sum).
@@ -34,8 +40,6 @@ dispatch.register(
     source="tpu_cypher_torch/csrc/frontier_deg_sum.cu",
 )
 
-_MAX_BLOCKS = 1024
-
 
 def deg_sum_plain(rp, pos, present):
     """Sum over present frontier rows of ``rp[pos+1] - rp[pos]`` (int64)."""
@@ -44,17 +48,17 @@ def deg_sum_plain(rp, pos, present):
 
 
 @functools.lru_cache(maxsize=None)
-def _launch_fn():
+def _lib():
     lib = _build.lib("frontier_deg_sum")
     fn = lib.frontier_deg_sum_launch
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
-    lib.frontier_deg_sum_threads.restype = ctypes.c_int
-    return fn, int(lib.frontier_deg_sum_threads())
+    lib.frontier_deg_sum_scratch_bytes.argtypes = [ctypes.c_int]
+    lib.frontier_deg_sum_scratch_bytes.restype = ctypes.c_longlong
+    return lib
 
 
 def deg_sum_cuda(rp, pos, present):
@@ -62,25 +66,30 @@ def deg_sum_cuda(rp, pos, present):
     dev = pos.device
     if dev.type != "cuda" or rp.device != dev or present.device != dev:
         raise ValueError("frontier_deg_sum: tensors must be on one CUDA device")
+    return _launch(rp, pos, present)
+
+
+def _launch(rp, pos, present):
+    """Check dtypes and shapes, allocate the output and make the one ctypes
+    call (the device check is the caller's)."""
+    dev = pos.device
     if rp.dtype != torch.int32 or pos.dtype != torch.int64 or present.dtype != torch.bool:
         raise TypeError("frontier_deg_sum: rp int32, pos int64, present bool")
-    rp, pos, present = rp.contiguous(), pos.contiguous(), present.contiguous()
-    frontier = int(pos.shape[0])
-    if int(present.shape[0]) != frontier:
+    frontier = pos.shape[0]
+    if present.shape[0] != frontier:
         raise ValueError("frontier_deg_sum: pos and present differ in length")
-    fn, threads = _launch_fn()
-    nblocks = max(1, min(_MAX_BLOCKS, -(-frontier // threads)))
-    partials = torch.empty(nblocks, dtype=torch.int64, device=dev)
-    out = torch.empty(1, dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    rp, pos, present = rp.contiguous(), pos.contiguous(), present.contiguous()
+    out = torch.empty((), dtype=torch.int64, device=dev)
+    lib = _lib()
     _build.check(
-        fn(
-            rp.data_ptr(), int(rp.shape[0]), pos.data_ptr(), present.data_ptr(),
-            frontier, partials.data_ptr(), nblocks, out.data_ptr(), stream,
+        lib.frontier_deg_sum_launch(
+            rp.data_ptr(), rp.shape[0], pos.data_ptr(), present.data_ptr(), frontier,
+            _build.scratch_ptr("frontier_deg_sum", dev, lib.frontier_deg_sum_scratch_bytes),
+            out.data_ptr(), _build.stream(dev),
         ),
         "frontier_deg_sum",
     )
-    return out[0]
+    return out
 
 
 def csr_frontier_degree_sum(rp, pos, present):

@@ -475,9 +475,12 @@ def segment_aggregate(data, valid, iflag, seg_j, name: str, kind: str, k: int):
     """One aggregator over (value column, group index): null masking, NaN
     orderability and Cypher intness exactly as the reference's
     ``jit_ops.segment_aggregate``. Returns (out_data, out_valid_or_None,
-    out_iflag_or_None, iflag_any_or_None)."""
+    out_iflag_or_None, iflag_any_or_None). ``seg_j`` None is a global
+    aggregate: every row in group 0, as a stride-0 view (no id array)."""
     n = data.shape[0]
     dev = data.device
+    if seg_j is None:
+        seg_j = torch.zeros((), dtype=torch.int64, device=dev).expand(n)
     v = valid if valid is not None else torch.ones(n, dtype=torch.bool, device=dev)
     cnt = _segment_reduce(v.to(torch.int64), seg_j, k, "sum", 0)
     if name == "count":

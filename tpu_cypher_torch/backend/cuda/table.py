@@ -456,7 +456,6 @@ class CudaTable(Table):
                 1,
             )
         dev = _device.get()
-        seg_j = torch.zeros(n, dtype=torch.int64, device=dev)
         ev = CudaEvaluator(self, header, parameters)
         out_cols: Dict[str, Column] = {}
         for out_col, agg in aggregations:
@@ -469,12 +468,13 @@ class CudaTable(Table):
             col = ev.eval(agg.expr)
             if col.kind == OBJ:
                 raise TpuUnsupportedExpr("object-valued aggregation input")
-            out_cols[out_col] = self._segment_agg(name, seg_j, col, 1)
+            # one group: no segment ids (the kernel reads none)
+            out_cols[out_col] = self._segment_agg(name, None, col, 1)
         return CudaTable(out_cols, 1)
 
     def _segment_agg(self, name: str, seg_j, col: Column, k: int) -> Column:
-        """One aggregator over (value column, group index) through the
-        ``segment_agg`` kernel gate."""
+        """One aggregator over (value column, group index; None: one
+        group) through the ``segment_agg`` kernel gate."""
         from .hopper import segment_aggregate
 
         fault_point("agg")
