@@ -11,13 +11,19 @@ Phases (any failure exits non-zero and prints no result line):
             ``nvcc`` (all in parallel) and prints each build's ``ptxas``
             resource line;
 3. kernels — calls each kernel's wrapper on the card at the shapes the
-            slice's queries give it (``intersect`` and ``join_probe``: the
-            very inputs of an extra Q6 and Q11 run, captured there), holds
-            the result against the kernel's
+            slice's queries give it (``expand_rows``, ``intersect`` and
+            ``join_probe``: the very inputs of an extra Q6 and Q11 run,
+            captured there), holds the result against the kernel's
             plain PyTorch version on the same inputs (tolerance: exact —
             every output is integral, and float64 outputs are compared bit
             for bit), and times kernel, plain version and one PyTorch
-            library call with CUDA events;
+            library call with CUDA events (``expand_rows``: its whole
+            kernel tier, at Q5's second hop and Q6's arm 0); then launches
+            ``segment_agg``, ``frontier_deg_sum`` and ``expand_rows`` on
+            two side streams at once, each answer held to its plain
+            version, and times ``join_materialize`` (Q11) and
+            ``into_materialize_counted`` (Q7), torch ops, against their
+            byte bounds;
 4. slice  — runs the slices' queries through ``CypherSession.cuda()``
             on the LDBC-SNB-shaped graphs (SF1: 10,000 persons, SF10:
             100,000 persons, seed 42): Q1-Q5 on the CSR expand path, Q6-Q8
@@ -208,7 +214,60 @@ def graph_arrays(pg):
     )
 
 
-def check_expand_rows(torch, session, g1, g10, report):
+def q6_expand_calls(g10, want):
+    """Run Q6 once more on ``g10`` with a hook on the ``expand_rows`` gate
+    and return the (args, kwargs) of the count tier's calls, in call order
+    (arm 0 first), after the first call (the ``CsrExpandOp`` hop that makes
+    the tier's input rows). The run's launches are not the main path's (the
+    counts are zeroed before phase 4)."""
+    from tpu_cypher_torch.backend.cuda import hopper
+
+    calls = []
+    inner = hopper.expand_materialize_counted
+
+    def hook(*args, **kwargs):
+        calls.append((args, kwargs))
+        return inner(*args, **kwargs)
+
+    hopper.expand_materialize_counted = hook
+    try:
+        rows = [dict(r) for r in g10.cypher(Q6).records.collect()]
+    finally:
+        hopper.expand_materialize_counted = inner
+    check(rows == [{"triangles": want}], f"Q6 (hooked) {rows} != {want}")
+    check(len(calls) == 3, f"Q6 made {len(calls)} expand calls, expected 3")
+    return calls[1:]
+
+
+def expand_bound(torch, pos, deg, live, size, with_orig, tile):
+    """(bound_ms, bound_by, ops_ms) of the expand tier: the bytes it must
+    move (per frontier row pos, deg and rp[pos]: 20 B; per live lane ci and
+    eo: 12 B, 4 without orig; per lane row, nbr, orig and live: 25 B, 17
+    without orig) against its int32 operations, counted from
+    expand_rows.cu for this run's merge: per frontier row 27 (the block
+    scan's five shuffle rounds at 3, the casts, adds, the gather's address
+    and the partition bounds), per live lane 12 (the range test, the edge
+    arithmetic, the row, two addresses, the pair loop), per lane pair one
+    binary search over its tile's row starts at 5 a step."""
+    f = int(pos.shape[0])
+    nbytes = 20 * f + (12 if with_orig else 4) * live + (25 if with_orig else 17) * size
+    cum = torch.cumsum(deg, 0) - deg
+    m = torch.clamp(cum, max=live) + torch.arange(f, device=deg.device)
+    ntiles = -(-(live + f) // tile)
+    edges = torch.clamp(torch.arange(ntiles + 1, device=deg.device) * tile, max=live + f)
+    parts = torch.searchsorted(m, edges)
+    nb = parts[1:] - parts[:-1]
+    lanes = (edges[1:] - edges[:-1]) - nb
+    steps = torch.ceil(torch.log2(nb.double() + 1))
+    ops = 27 * f + 12 * live + 5 * int(torch.sum((lanes.double() / 2) * steps))
+    t_bytes, _ = bound(nbytes, 0)
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes", t_ops) if t_bytes >= t_ops else (t_ops, "operations", t_ops)
+
+
+def check_expand_rows(torch, session, g1, g10, tri10, report):
+    import numpy as np
+
     from tpu_cypher_torch.backend.cuda import jit_ops as J
     from tpu_cypher_torch.backend.cuda.bucketing import round_up_pow2
     from tpu_cypher_torch.backend.cuda.graph_index import GraphIndex
@@ -216,27 +275,38 @@ def check_expand_rows(torch, session, g1, g10, report):
 
     ctx = session._runtime_context({})
     dev = backend_device()
+    rng = np.random.default_rng(SEED)
+    tile = KX.TILE_ITEMS
     err = 0.0
-    cases = []
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     def csr(pg):
         gi = GraphIndex.of(pg._graph)
         gi.node_ids(ctx)
         return gi, gi.csr(("KNOWS",), False, ctx)
 
-    def compare(label, rp, ci, eo, pos, present, size=None):
+    def compare_call(label, args, size):
+        """The kernel tier against the plain version, with and without
+        orig, on one gate call's arguments."""
         nonlocal err
+        for with_orig in (True, False):
+            got = KX.expand_materialize_counted_cuda(*args, size, with_orig)
+            want = J.expand_materialize_counted(*args, size, with_orig=with_orig)
+            torch.cuda.synchronize()
+            e = tuple_err(torch, got, want)
+            err = max(err, e)
+            print(f"  expand_rows {label}{'' if with_orig else ', without orig'}: "
+                  f"F={int(args[3].shape[0])} lanes={size} live={args[5]} max_abs_err={e}")
+            check(e == 0.0, f"expand_rows {label} (orig={with_orig}) disagrees "
+                  f"with its plain version")
+
+    def compare(label, rp, ci, eo, pos, present, size=None):
         deg, t_dev = J.expand_degrees_total(rp, pos, present)
         total = int(t_dev)
-        size = total if size is None else size
-        got = KX.expand_materialize_counted_cuda(rp, ci, eo, pos, deg, total, size)
-        want = J.expand_materialize_counted(rp, ci, eo, pos, deg, total, size)
-        torch.cuda.synchronize()
-        e = tuple_err(torch, got, want)
-        err = max(err, e)
-        print(f"  expand_rows {label}: F={int(pos.shape[0])} lanes={size} "
-              f"live={total} max_abs_err={e}")
-        check(e == 0.0, f"expand_rows {label} disagrees with its plain version")
+        compare_call(label, (rp, ci, eo, pos, deg, total),
+                     total if size is None else size)
         return deg, total
 
     # Q3's hop at SF10: the whole Person scan as frontier
@@ -245,8 +315,7 @@ def check_expand_rows(torch, session, g1, g10, report):
     pos = torch.arange(v10, dtype=torch.int64, device=dev)
     present = torch.ones(v10, dtype=torch.bool, device=dev)
     deg, total = compare("SF10 hop", rp, ci, eo, pos, present)
-    cases.append(("SF10 hop (Q3)", rp, pos, deg, total))
-    # the same frontier on a bucket-padded lane count (pad lanes clamp)
+    # the same frontier on a bucket-padded lane count (pad lanes)
     compare("SF10 hop, pow2-padded", rp, ci, eo, pos, present,
             size=round_up_pow2(total))
     # Q5's second hop at SF1: the first hop's far ends as frontier
@@ -259,38 +328,77 @@ def check_expand_rows(torch, session, g1, g10, report):
     pos2 = nbr1.contiguous()
     pres2 = torch.ones(pos2.shape[0], dtype=torch.bool, device=dev)
     deg2, total2 = compare("SF1 second hop", rp1, ci1, eo1, pos2, pres2)
-    cases.append(("SF1 second hop (Q5)", rp1, pos2, deg2, total2))
     # an empty frontier and an all-absent one (every lane a pad lane)
     empty = torch.zeros(0, dtype=torch.int64, device=dev)
     compare("empty frontier", rp1, ci1, eo1, empty, empty.bool())
     compare("all-absent frontier", rp1, ci1, eo1, pos1,
             torch.zeros(v1, dtype=torch.bool, device=dev), size=1024)
+    # the tile shapes: absent rows in runs of several tiles, a hub row whose
+    # degree spans several tiles, lanes and pads off the tile boundary
+    runs = pres2.clone()
+    runs[1000:1000 + 3 * tile] = False
+    runs[200_000:200_000 + tile + 7] = False
+    compare("absent runs of 3 and 1+ tiles", rp1, ci1, eo1, pos2, runs)
+    hub_deg = rng.integers(0, 40, 5000)
+    hub_deg[17] = 5 * tile + 77
+    hub_rp = t(np.concatenate([[0], np.cumsum(hub_deg)]).astype(np.int32))
+    n_hub = int(hub_deg.sum())
+    hub_ci = t(rng.integers(0, 5000, n_hub).astype(np.int32))
+    hub_eo = t(rng.integers(0, 1 << 40, n_hub).astype(np.int64))
+    hub_pos = t(np.concatenate([rng.integers(0, 5000, 3000), [17],
+                                rng.integers(0, 5000, 3000)]).astype(np.int64))
+    compare("hub row of 5 tiles", hub_rp, hub_ci, hub_eo, hub_pos,
+            torch.ones(6001, dtype=torch.bool, device=dev))
+    off = compare("off the tile boundary", rp1, ci1, eo1, pos2[:-3], pres2[:-3])[1]
+    check((off + pos2.shape[0] - 3) % tile != 0, "the off-tile case lies on a boundary")
+    compare("off the tile boundary, with pads", rp1, ci1, eo1, pos2[:-3], pres2[:-3],
+            size=off + 2 * tile + 3)
+    # Q6's count tier at SF10, as it calls the gate (arm 0: the most lanes)
+    calls = q6_expand_calls(g10, tri10)
+    for j, (args, kwargs) in enumerate(calls):
+        check(kwargs.get("with_orig") is False, f"Q6 arm {j} asked for orig")
+        compare_call(f"Q6 SF10 arm {j}", args, kwargs["size"])
 
-    # timing at Q5's second hop: the kernel (row search), its plain
-    # version (the repeat cascade) and torch.searchsorted over the lanes
-    label, rp_t, pos_t, deg_t, size = cases[-1]
-    cum, starts = KX.frontier_state(rp_t, pos_t, deg_t)
-    lanes = torch.arange(size, dtype=torch.int32, device=dev)
-    ms = time_ms(torch, lambda: KX.expand_rows_cuda(cum, starts, size))
-    plain_ms = time_ms(torch, lambda: J._expand_rows(starts, deg_t, size))
-    lib_ms = time_ms(torch, lambda: torch.searchsorted(cum, lanes, right=True))
-    f = int(pos_t.shape[0])
-    nbytes = 4 * (f + 1) + 4 * f + 8 * size
-    # int32 operations per lane, counted from expand_rows.cu: each step of
-    # the row search is 6 (the midpoint's subtract, shift and add, the
-    # compare, the lo/hi update and the loop test), and a search over F + 1
-    # stops takes at least floor(log2(F + 1)) steps; the row clamp and the
-    # edge arithmetic add 6 more
-    ops = size * (6 * ((f + 1).bit_length() - 1) + 6)
-    b_ms, b_by = bound(nbytes, ops)
+    # timing at Q5's second hop (the tier as CsrExpandOp calls it) and at
+    # Q6 arm 0 (as the count tier calls it, without orig): the tier, its
+    # plain version, and torch.searchsorted over the lanes
+    timings = {}
+    q6_args, q6_kwargs = calls[0]
+    for key, args, size, with_orig in (
+        ("q5", (rp1, ci1, eo1, pos2, deg2, total2), total2, True),
+        ("q6", q6_args, q6_kwargs["size"], False),
+    ):
+        iters = 20 if key == "q5" else 10
+        tier = lambda: KX.expand_materialize_counted_cuda(*args, size, with_orig)  # noqa: E731
+        ms = time_ms(torch, tier, iters=iters)
+        orig_ms = time_ms(torch, lambda: KX.expand_materialize_counted_cuda(
+            *args, size, True), iters=iters)
+        plain_ms = time_ms(torch, lambda: J.expand_materialize_counted(
+            *args, size, with_orig=with_orig), iters=3, warmup=1)
+        cum, _ = KX.frontier_state(args[0], args[3], args[4])
+        lanes = torch.arange(size, dtype=torch.int32, device=dev)
+        lib_ms = time_ms(torch, lambda: torch.searchsorted(cum, lanes, right=True),
+                         iters=iters)
+        live = min(int(args[5]), size)
+        b_ms, b_by, ops_ms = expand_bound(torch, args[3], args[4], live, size, with_orig, tile)
+        shape = (f"F={int(args[3].shape[0])}, {size} lanes, "
+                 f"{'with' if with_orig else 'without'} orig")
+        timings[key] = (ms, orig_ms, plain_ms, lib_ms, b_ms, b_by, ops_ms, shape)
+        print(f"  expand_rows tier at {key.upper()} ({shape}): {ms:.4f} ms"
+              f"{'' if with_orig else f' ({orig_ms:.4f} ms with orig)'}, plain "
+              f"{plain_ms:.4f} ms, torch.searchsorted {lib_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}; operations {ops_ms:.4f} ms)")
+    ms, _, plain_ms, lib_ms, b_ms, b_by, ops_ms, shape = timings["q5"]
+    q6 = timings["q6"]
     report["expand_rows"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms, library_call="torch.searchsorted",
-        shape=f"{label}: F={f}, lanes={size}",
+        shape=f"the tier at Q5's second hop, SF1: {shape}",
+        ops_bound_ms=ops_ms,
+        q6_tier_ms=q6[0], q6_tier_with_orig_ms=q6[1], q6_plain_ms=q6[2],
+        q6_library_ms=q6[3], q6_bound_ms=q6[4], q6_bound_by=q6[5],
+        q6_ops_bound_ms=q6[6], q6_shape=f"the tier at Q6 arm 0, SF10: {q6[7]}",
     )
-    print(f"  expand_rows timing at {label}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, torch.searchsorted {lib_ms:.4f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by})")
 
 
 def device_ms(torch, fn, iters=100, warmup=3):
@@ -853,6 +961,121 @@ def check_join_probe(torch, g10, q11_truth, report):
           f"bound {b_ms:.4f} ms ({b_by}); {steps} slot reads over {nq} lanes")
 
 
+def check_two_streams(torch, session, g10, rounds=30):
+    """``segment_agg``, ``frontier_deg_sum`` and ``expand_rows``, whose
+    launches keep tickets and partials in a scratch buffer, launched at once
+    on two side streams with different inputs for ``rounds`` rounds: every
+    answer must equal its plain version. Each stream compares its own
+    answers as it goes, so the check holds only two rounds in memory."""
+    import numpy as np
+
+    from tpu_cypher_torch.backend.cuda import jit_ops as J
+    from tpu_cypher_torch.backend.cuda.graph_index import GraphIndex
+    from tpu_cypher_torch.backend.cuda.hopper import aggregate as KA
+    from tpu_cypher_torch.backend.cuda.hopper import expand as KX
+    from tpu_cypher_torch.backend.cuda.hopper import frontier as KF
+
+    dev = backend_device()
+    rng = np.random.default_rng(SEED + 1)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    ctx = session._runtime_context({})
+    gi = GraphIndex.of(g10._graph)
+    gi.node_ids(ctx)
+    rp, ci, eo = gi.csr(("KNOWS",), False, ctx)
+    v = gi.num_nodes
+    n, f = 4_000_000, 3_000_000
+    work = []
+    for name, density in (("min", 0.9), ("max", 0.5)):
+        seg = (t(rng.integers(-(2**40), 2**40, n)), t(rng.random(n) < density),
+               t(rng.integers(0, 256, n)), name, "i64", 256)
+        fr = (rp, t(rng.integers(0, v, f)), t(rng.random(f) < density))
+        pos = t(rng.integers(0, v, v))
+        deg, total = J.expand_degrees_total(rp, pos, t(rng.random(v) < density))
+        ex = (rp, ci, eo, pos, deg, int(total), int(total))
+        want = (
+            J.segment_aggregate(seg[0], seg[1], None, seg[2], name, "i64", 256),
+            KF.deg_sum_plain(*fr),
+            J.expand_materialize_counted(*ex),
+        )
+        work.append((seg, fr, ex, want))
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(device=dev) for _ in work]
+    bad = [torch.zeros((), dtype=torch.bool, device=dev) for _ in work]
+    for _ in range(rounds):
+        for i, (stream, (seg, fr, ex, want)) in enumerate(zip(streams, work)):
+            with torch.cuda.stream(stream):
+                got = (
+                    KA._segment_aggregate_cuda(seg[0], seg[1], seg[2], *seg[3:]),
+                    (KF.deg_sum_cuda(*fr),),
+                    KX.expand_materialize_counted_cuda(*ex),
+                )
+                for g_t, w_t in zip(got, (want[0], (want[1],), want[2])):
+                    for a, b in zip(g_t, w_t):
+                        if a is None or b is None:
+                            check(a is None and b is None, "two streams: a missing output")
+                            continue
+                        check(a.dtype == b.dtype and a.shape == b.shape,
+                              "two streams: an output's dtype or shape differs")
+                        bad[i] = bad[i] | (a != b).any()
+    torch.cuda.synchronize()
+    check(not any(bool(b) for b in bad),
+          f"two streams: an answer differs from its plain version ({[bool(b) for b in bad]})")
+    print(f"  two side streams, {rounds} rounds each of segment_agg (k=256, {n} rows), "
+          f"frontier_deg_sum (F={f}) and expand_rows (F={v}) on different inputs: "
+          f"every answer equal to its plain version")
+
+
+def q_hooked_calls(pg, query, module, name):
+    """Run ``query`` once with a hook on ``module.name`` and return the
+    (args, kwargs) of each call, and the rows."""
+    calls = []
+    inner = getattr(module, name)
+
+    def hook(*args, **kwargs):
+        calls.append((args, kwargs))
+        return inner(*args, **kwargs)
+
+    setattr(module, name, hook)
+    try:
+        rows = [dict(r) for r in pg.cypher(query).records.collect()]
+    finally:
+        setattr(module, name, inner)
+    return calls, rows
+
+
+def time_materializes(torch, g1, g10, q11_truth, q7_rows):
+    """``join_materialize`` at Q11 and ``into_materialize_counted`` at Q7,
+    the torch-op repeat cascades the expand kernel could also answer,
+    timed on the arguments the queries hand them (captured with a hook),
+    with their byte bounds."""
+    from tpu_cypher_torch.backend.cuda import jit_ops as J
+
+    calls, rows = q_hooked_calls(g10, Q11, J, "join_materialize")
+    check(rows == [{"n": q11_truth}] and len(calls) == 1, "Q11 (hooked join_materialize)")
+    args, kwargs = calls[0]
+    r_idx_valid, lo, _, total = args
+    ms = time_ms(torch, lambda: J.join_materialize(*args, **kwargs), iters=10)
+    # reads: lo and counts per probe row, the valid build rows; writes: the
+    # left and right row of each pair
+    nbytes = 16 * int(lo.shape[0]) + 8 * int(r_idx_valid.shape[0]) + 16 * int(total)
+    b_ms, _ = bound(nbytes, 0)
+    print(f"  join_materialize at Q11 (torch ops): {int(total)} pairs from "
+          f"{int(lo.shape[0])} probe rows: {ms:.4f} ms, byte bound {b_ms:.4f} ms")
+    calls, rows = q_hooked_calls(g1, Q7, J, "into_materialize_counted")
+    check(len(rows) == q7_rows and len(calls) == 1, "Q7 (hooked into_materialize_counted)")
+    args, kwargs = calls[0]
+    lo, size = args[1], kwargs["size"]
+    ms7 = time_ms(torch, lambda: J.into_materialize_counted(*args, **kwargs), iters=10)
+    # reads: lo and counts per query, eo per lane; writes: row, orig, live
+    nbytes7 = 16 * int(lo.shape[0]) + 25 * int(size)
+    b7_ms, _ = bound(nbytes7, 0)
+    print(f"  into_materialize_counted at Q7 (torch ops): {int(size)} lanes from "
+          f"{int(lo.shape[0])} queries: {ms7:.4f} ms, byte bound {b7_ms:.4f} ms")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the slice through CypherSession.cuda()
 # ---------------------------------------------------------------------------
@@ -1169,11 +1392,13 @@ def main() -> int:
     # 3. kernels against their plain versions
     report = {}
     print("kernels vs plain (exact):")
-    check_expand_rows(torch, session, g1, g10, report)
+    check_expand_rows(torch, session, g1, g10, tri10["triangles"], report)
     check_frontier(torch, session, g10, report)
     check_segment_agg(torch, g1, truth["Q5"], truth["Q5_rows"], report)
     check_intersect(torch, g10, tri10["triangles"], report)
     check_join_probe(torch, g10, truth["Q11"], report)
+    check_two_streams(torch, session, g10)
+    time_materializes(torch, g1, g10, truth["Q11"], tri1["triangles"])
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # 4. the slice, on graphs phase 3 has not touched (no CSR built yet)
@@ -1362,9 +1587,9 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "library_call": r["library_call"],
             "shape": r["shape"],
-            **{k: v for k, v in r.items() if k.endswith("_ms") and k not in (
-                "ms", "plain_ms", "bound_ms", "library_ms")},
-            **{k: r[k] for k in ("tier_shape",) if k in r},
+            **{k: v for k, v in r.items() if k not in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library_call", "shape")},
         })
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)  # the nvidia-smi line as it came: name, power limit

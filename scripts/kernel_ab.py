@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the ``segment_agg`` and ``frontier_deg_sum`` calls of one checkout
-of the port on one CUDA card, so that two checkouts compare in one run.
+"""Time the ``segment_agg``, ``frontier_deg_sum`` and ``expand_rows`` calls
+and Q3, Q5 and Q6 of one checkout of the port on one CUDA card, so that two
+checkouts compare in one run.
 
     python3 scripts/kernel_ab.py [--root PATH] [--label NAME]
 
@@ -24,15 +25,30 @@ otherwise):
 - ``frontier_ms``: ``frontier_deg_sum``'s wrapper at Q2 (SF10, F =
   100,000), a host loop of 100 calls; ``frontier_device_ms`` the device
   time of the same loop (``torch.profiler``, kernel durations only);
-- ``q3_warm_ms``, ``q5_warm_ms``: medians of ``--runs`` warm runs of Q3
-  (SF10) and Q5 (SF1) through ``CypherSession.cuda()`` (host clock, ending
-  in a synchronize), with their fastest and slowest runs.
+- ``expand_q5_tier_ms``: the ``expand_rows`` kernel tier
+  (``expand_materialize_counted_cuda``) at Q5's second hop (SF1, F =
+  449,972, 19,853,591 lanes, with orig, as ``CsrExpandOp`` calls it);
+- ``expand_q6_tier_ms``: the same tier on the arguments Q6's count tier
+  hands the ``expand_rows`` gate for arm 0 (SF10, 102,797,650 lanes),
+  captured with a hook; ``expand_q6_call`` says whether that checkout's
+  count tier asks for orig;
+- ``q3_warm_ms``, ``q5_warm_ms``, ``q6_warm_ms``: medians of ``--runs``
+  warm runs of Q3 (SF10), Q5 (SF1) and Q6 (SF10) through
+  ``CypherSession.cuda()`` (host clock, ending in a synchronize), with
+  their fastest and slowest runs;
+- ``q6_first_peak_gib``: peak device memory
+  (``torch.cuda.max_memory_allocated``, GiB) over Q6's first run on the
+  graph, which builds its reverse CSR; ``q6_warm_peak_gib`` the same over
+  the warm runs; ``q6_base_gib`` and ``q6_peak_trace``: the memory held
+  when one more warm run starts, and that run's running peak at each
+  ``expand_rows`` and ``intersect`` gate call's entry and exit.
 
 Every answer is checked against numpy truth from the generator's arrays,
 and every kernel result against the checkout's plain version.
 """
 
 import argparse
+import gc
 import importlib.util
 import json
 import os
@@ -41,6 +57,53 @@ import sys
 import time
 
 HERE_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def expand_tier(KX, args, kwargs):
+    """A call of the checkout's kernel tier on a gate call's arguments; a
+    checkout without ``with_orig`` computes orig all the same."""
+    extra = (kwargs["with_orig"],) if "with_orig" in kwargs else ()
+    return lambda: KX.expand_materialize_counted_cuda(*args, kwargs["size"], *extra)
+
+
+def peak_trace(S, torch, pg, query, rows_ok):
+    """One run of ``query`` with hooks on the ``expand_rows`` and
+    ``intersect`` gates: the device memory allocated when the run starts
+    (GiB, after a garbage collection) and the running peak
+    (``torch.cuda.max_memory_allocated``, GiB) at each gate call's entry and
+    exit, so that the step which sets the query's peak shows."""
+    from tpu_cypher_torch.backend.cuda import hopper
+
+    trace = []
+
+    def gib():
+        torch.cuda.synchronize()
+        return round(torch.cuda.max_memory_allocated() / 2**30, 3)
+
+    def hooked(name, inner):
+        def hook(*args, **kwargs):
+            trace.append([f"{name} in", gib()])
+            out = inner(*args, **kwargs)
+            trace.append([f"{name} out", gib()])
+            return out
+        return hook
+
+    names = ("expand_materialize_counted", "intersect_range_count")
+    inner = {n: getattr(hopper, n) for n in names}
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = round(torch.cuda.memory_allocated() / 2**30, 3)
+    for n in names:
+        setattr(hopper, n, hooked(n, inner[n]))
+    try:
+        rows = [dict(r) for r in pg.cypher(query).records.collect()]
+    finally:
+        for n in names:
+            setattr(hopper, n, inner[n])
+    S.check(rows_ok(rows), f"{query!r} (peak trace) gave other rows")
+    trace.append(["end", gib()])
+    return base, trace
 
 
 def main() -> int:
@@ -69,6 +132,7 @@ def main() -> int:
     from tpu_cypher_torch.backend.cuda.graph_index import GraphIndex
     from tpu_cypher_torch.backend.cuda.hopper import _build
     from tpu_cypher_torch.backend.cuda.hopper import aggregate as KA
+    from tpu_cypher_torch.backend.cuda.hopper import expand as KX
     from tpu_cypher_torch.backend.cuda.hopper import frontier as KF
     from tpu_cypher_torch.io.ldbc import generate_snb
     from tpu_cypher_torch.relational.session import PropertyGraph
@@ -145,10 +209,45 @@ def main() -> int:
     res["frontier_ms"] = S.time_ms(torch, fr, iters=100)
     res["frontier_device_ms"] = S.device_ms(torch, fr, iters=100)
 
-    # Q3 and Q5 warm
-    for key, pg, q, want in (("q3", g10, S.Q3, q3_truth), ("q5", g1, S.Q5, q5_truth)):
+    # the expand tier at Q5's second hop
+    gi1 = GraphIndex.of(g1._graph)
+    gi1.node_ids(ctx)
+    rp1, ci1, eo1 = gi1.csr(("KNOWS",), False, ctx)
+    pos1 = torch.arange(gi1.num_nodes, dtype=torch.int64, device=dev)
+    deg1, t1 = J.expand_degrees_total(rp1, pos1, torch.ones_like(pos1, dtype=torch.bool))
+    _, nbr1, _, _ = J.expand_materialize_counted(rp1, ci1, eo1, pos1, deg1, int(t1), int(t1))
+    pos2 = nbr1.contiguous()
+    deg2, t2 = J.expand_degrees_total(rp1, pos2, torch.ones_like(pos2, dtype=torch.bool))
+    q5_args = (rp1, ci1, eo1, pos2, deg2, int(t2), int(t2))
+    q5_tier = lambda: KX.expand_materialize_counted_cuda(*q5_args)  # noqa: E731
+    same(q5_tier(), J.expand_materialize_counted(*q5_args), "expand tier at Q5")
+    res["expand_q5_tier_ms"] = S.time_ms(torch, q5_tier)
+
+    # the expand tier at Q6 arm 0, on the count tier's own arguments; Q6's
+    # first run on the graph (the hooked one) builds its reverse CSR
+    q6_truth = {"triangles": S.triangle_truth(ids10, src10, dst10, False)["triangles"]}
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    q6_args, q6_kwargs = S.q6_expand_calls(g10, q6_truth["triangles"])[0]
+    torch.cuda.synchronize()
+    res["q6_first_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    q6_plain = {k: v for k, v in q6_kwargs.items() if k == "with_orig"}
+    res["expand_q6_call"] = "without orig" if q6_plain.get("with_orig") is False else "with orig"
+    q6_tier = expand_tier(KX, q6_args, q6_kwargs)
+    same(q6_tier(), J.expand_materialize_counted(*q6_args, q6_kwargs["size"], **q6_plain),
+         "expand tier at Q6 arm 0")
+    res["expand_q6_tier_ms"] = S.time_ms(torch, q6_tier, iters=10)
+
+    # Q3, Q5 and Q6 warm
+    for key, pg, q, want in (("q3", g10, S.Q3, q3_truth), ("q5", g1, S.Q5, q5_truth),
+                             ("q6", g10, S.Q6, q6_truth)):
         times = []
         for i in range(args.runs + 1):
+            if i == 1:
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             rows = [dict(r) for r in pg.cypher(q).records.collect()]
             torch.cuda.synchronize()
@@ -157,6 +256,9 @@ def main() -> int:
             S.check(rows == [want], f"{key} {rows} != {want}")
         res[f"{key}_warm_ms"] = statistics.median(times)
         res[f"{key}_warm_min_max_ms"] = [min(times), max(times)]
+    res["q6_warm_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["q6_base_gib"], res["q6_peak_trace"] = peak_trace(
+        S, torch, g10, S.Q6, lambda rows: rows == [q6_truth])
     print(json.dumps(res))
     return 0
 

@@ -1,6 +1,6 @@
 """The port's kernel modules held against the JAX package, on the CPU.
 
-For each of the port's four kernels, the plain PyTorch
+For each of the port's five kernels, the plain PyTorch
 version (what a CPU tensor runs, and what the CUDA kernel is held to on the
 card by ``chip_smoke.py``) must be bit-identical — values AND dtypes — to
 the reference's jnp formulation and to its Pallas kernel run in interpret
@@ -12,6 +12,8 @@ ineligible call.
 """
 
 import ctypes
+import threading
+import time
 import zlib
 
 import numpy as np
@@ -31,6 +33,7 @@ from tpu_cypher.backend.tpu.pallas import intersect as RPI
 from tpu_cypher_torch import errors as PERR
 from tpu_cypher_torch.backend.cuda import device as PDEV
 from tpu_cypher_torch.backend.cuda import jit_ops as PJ
+from tpu_cypher_torch.backend.cuda.hopper import _build as PB
 from tpu_cypher_torch.backend.cuda.hopper import aggregate as PA
 from tpu_cypher_torch.backend.cuda.hopper import dispatch as PD
 from tpu_cypher_torch.backend.cuda.hopper import expand as PE
@@ -161,6 +164,242 @@ def test_repeat_padding_matches_jnp():
             _same(want, PJ._repeat_padded(_t(x), _t(c), total), (counts, total))
 
 
+def _csr_from_degrees(rng, deg):
+    deg = np.asarray(deg, np.int64)
+    rp = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    n_edges = int(deg.sum())
+    ci = rng.integers(0, len(deg), n_edges).astype(np.int32)
+    eo = rng.integers(0, 10**9, n_edges).astype(np.int64)
+    return rp, ci, eo
+
+
+def _tile_case(name):
+    """(rp, ci, eo, pos, present, sizes beyond the total) for the shapes
+    that cross the row kernel's tiles of ``PE.TILE_ITEMS`` merge items."""
+    tile = PE.TILE_ITEMS
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    if name == "absent_runs":
+        # absent frontier rows (degree 0) in runs longer than a tile; the
+        # first holds a whole tile of row starts wherever the tiles fall
+        rp, ci, eo = _csr_from_degrees(rng, rng.integers(0, 6, 3000))
+        f = 4 * tile + 1500
+        pos = rng.integers(0, 3000, f).astype(np.int64)
+        present = rng.random(f) < 0.9
+        present[700:700 + 2 * tile + 100] = False
+        present[3 * tile:4 * tile + 300] = False
+        return rp, ci, eo, pos, present, (5,)
+    if name == "hub_row":
+        # one row whose degree spans several tiles
+        deg = rng.integers(0, 4, 400)
+        deg[7] = 3 * tile + 77
+        rp, ci, eo = _csr_from_degrees(rng, deg)
+        pos = rng.integers(0, 400, 500).astype(np.int64)
+        pos[250] = 7
+        present = rng.random(500) < 0.9
+        present[250] = True
+        return rp, ci, eo, pos, present, (3,)
+    # lanes plus row starts off the tile boundary, with pads past it
+    rp, ci, eo = _csr_from_degrees(rng, rng.integers(1, 5, 2000))
+    pos = rng.integers(0, 2000, 1501).astype(np.int64)
+    return rp, ci, eo, pos, np.ones(1501, bool), (2 * tile + 3, 1)
+
+
+TILE_SHAPES = ["absent_runs", "hub_row", "off_tile"]
+
+
+def _expand_sizes(total, extra=()):
+    if not total:
+        return [0]
+    return sorted({total, RB.round_up_pow2(total, 32), total * 2 + 32}
+                  | {total + e for e in extra})
+
+
+@pytest.mark.parametrize("shape_name", TILE_SHAPES)
+def test_expand_tile_shapes_match_reference(interpret_mode, shape_name):
+    """Frontiers that cross the kernel's tiles: the plain version and the
+    gate equal the reference's jnp and Pallas (interpret) formulations bit
+    for bit, pad lanes included."""
+    rp, ci, eo, pos, present, extra = _tile_case(shape_name)
+    r_deg, r_tot = RJ.expand_degrees_total(
+        jnp.asarray(rp), jnp.asarray(pos), jnp.asarray(present)
+    )
+    p_deg, p_tot = PJ.expand_degrees_total(_t(rp), _t(pos), _t(present))
+    _same(r_deg, p_deg, "deg")
+    total = int(r_tot)
+    if shape_name == "off_tile":
+        assert (total + len(pos)) % PE.TILE_ITEMS
+    sizes = _expand_sizes(total, extra)
+    for size in sizes:
+        args_r = (jnp.asarray(rp), jnp.asarray(ci), jnp.asarray(eo),
+                  jnp.asarray(pos), r_deg, r_tot)
+        args_p = (_t(rp), _t(ci), _t(eo), _t(pos), p_deg, total)
+        want_jnp = RJ.expand_materialize_counted(*args_r, size=size)
+        want_pallas = RPE.expand_materialize_counted(*args_r, size=size)
+        got_plain = PJ.expand_materialize_counted(*args_p, size)
+        got_gate = PE.expand_materialize_counted(*args_p, size=size)
+        for nm, w, wp, g, gg in zip(
+            ("row", "nbr", "orig", "live"), want_jnp, want_pallas, got_plain, got_gate
+        ):
+            _same(w, g, (shape_name, size, nm, "jnp"))
+            _same(wp, g, (shape_name, size, nm, "pallas-interpret"))
+            _same(w, gg, (shape_name, size, nm, "gate"))
+    assert PD.use_counts()["expand_rows"] == {"kernel": 0, "plain": len(sizes), "fallback": 0}
+
+
+class _Unreadable:
+    """An ``eo`` that fails the test on any use."""
+
+    def __getattr__(self, name):
+        raise AssertionError(f"eo.{name} was read")
+
+    def __getitem__(self, idx):
+        raise AssertionError("eo was indexed")
+
+
+class _ExpandKernelEmulation:
+    """``expand_rows.cu`` in torch, reading the wrapper's raw ctypes
+    arguments as its two kernels read them. The state launch: starts, the
+    degree scan, and the partition points as its rows write them (row r
+    writes r + 1 at every tile boundary k * tile in (m(r), m(r + 1)], with
+    m(r) = min(cum[r], live) + r its merge position), checked against the
+    closed rule (parts[k] = the row starts merged before boundary k). The
+    row launch: per tile, its window of row starts and its lanes, each
+    lane's row found in the window, then the gathers; pad lanes zero."""
+
+    def __init__(self):
+        self.windows = []  # (lanes, row starts) of each tile
+
+    def expand_rows_scratch_bytes(self, device):
+        return 16
+
+    def expand_state_launch(self, rp, pos, deg, nrows, live, ntiles, tile, starts,
+                            cum, parts, scratch, stream):
+        assert nrows > 0 and live > 0 and ntiles == -(-(live + nrows) // tile)
+        p = _raw(pos, ctypes.c_int64, nrows)
+        d = _raw(deg, ctypes.c_int64, nrows)
+        hi = torch.cumsum(d, 0)
+        lo = hi - d
+        r = torch.arange(nrows)
+        m_lo = torch.clamp(lo, max=live) + r
+        m_hi = torch.clamp(hi, max=live) + r + 1
+        k_end = torch.where(r + 1 < nrows, m_hi // tile, torch.full_like(r, ntiles))
+        k_start = m_lo // tile + 1
+        n = torch.clamp(k_end - k_start + 1, min=0)
+        first = torch.repeat_interleave(k_start, n)
+        offset = torch.arange(int(n.sum())) - torch.repeat_interleave(
+            torch.cumsum(n, 0) - n, n)
+        ks = first + offset
+        out = torch.full((ntiles + 1,), -1, dtype=torch.int64)
+        out[0] = 0
+        out[ks] = torch.repeat_interleave(r + 1, n)
+        assert torch.equal(torch.bincount(ks, minlength=ntiles + 1)[1:],
+                           torch.ones(ntiles, dtype=torch.int64)), "a boundary written twice or never"
+        bounds = torch.clamp(torch.arange(ntiles + 1) * tile, max=live + nrows)
+        assert torch.equal(out, torch.searchsorted(m_lo, bounds)), "parts break the merge rule"
+        rp_t = _raw(rp, ctypes.c_int32, int(p.max()) + 1)
+        _store(starts, rp_t[p])
+        _store(cum, torch.cat([torch.zeros(1, dtype=torch.int64), hi]).to(torch.int32))
+        _store(parts, out.to(torch.int32))
+        return 0
+
+    def expand_rows_launch(self, cum, starts, parts, nrows, live, ntiles, tile, size,
+                           ci, eo, row, nbr, orig, live_out, stream):
+        assert (eo is None) == (orig is None) and 0 <= live <= size
+        i64 = torch.int64
+        rows = torch.zeros(size, dtype=i64)
+        edges = torch.zeros(size, dtype=i64)
+        if live:
+            c = _raw(cum, ctypes.c_int32, nrows + 1).to(i64)
+            st = _raw(starts, ctypes.c_int32, nrows).to(i64)
+            pt = _raw(parts, ctypes.c_int32, ntiles + 1).to(i64).tolist()
+            items = live + nrows
+            for t in range(ntiles):
+                d0, d1 = t * tile, min((t + 1) * tile, items)
+                b0, b1 = pt[t], pt[t + 1]
+                a0, a1 = d0 - b0, d1 - b1
+                assert 0 <= b1 - b0 <= tile and a0 <= a1 <= live
+                self.windows.append((a1 - a0, b1 - b0))
+                lanes = torch.arange(a0, a1)
+                win = torch.searchsorted(c[b0:b1], lanes, right=True)
+                r = b0 - 1 + win
+                assert (r >= 0).all() and (r < nrows).all()
+                rows[a0:a1] = r
+                edges[a0:a1] = st[r] + lanes - c[r]
+        alive = torch.arange(size) < live
+        n_edges = int(edges.max()) + 1 if size else 0
+        nbr_v = torch.where(alive, _raw(ci, ctypes.c_int32, n_edges).to(i64)[edges], 0)
+        _store(row, rows)
+        _store(nbr, nbr_v)
+        if eo is not None:
+            _store(orig, torch.where(alive, _raw(eo, ctypes.c_int64, n_edges)[edges], 0))
+        _store(live_out, alive)
+        return 0
+
+
+EXPAND_SHAPES = [s[0] for s in SHAPES] + TILE_SHAPES
+
+
+def _expand_case(shape_name):
+    if shape_name in TILE_SHAPES:
+        return _tile_case(shape_name)
+    rp, ci, eo, pos, present = _csr_case(*[s for s in SHAPES if s[0] == shape_name][0])
+    return rp, ci, eo, pos, present, ()
+
+
+@pytest.mark.parametrize("tile", [16, PE.TILE_ITEMS])
+@pytest.mark.parametrize("shape_name", EXPAND_SHAPES)
+def test_expand_kernel_arguments_emulated_match_plain(monkeypatch, shape_name, tile):
+    """The wrapper's ctypes arguments, read by a torch emulation of the two
+    kernels' partition rule and per-tile windows, give the plain version's
+    (row, nbr, orig, live) bit for bit, with and without orig, at the
+    kernel's tile and at a 16-item one that makes every shape cross many
+    tiles. The kernels themselves run only on the card
+    (``chip_smoke.py`` holds them to the plain version there)."""
+    emu = _ExpandKernelEmulation()
+    monkeypatch.setattr(PE, "_lib", lambda: emu)
+    monkeypatch.setattr(PE, "TILE_ITEMS", tile)
+    monkeypatch.setattr(PE._build, "stream", lambda dev: 0)
+    monkeypatch.setattr(PE._build, "scratch_ptr", lambda kernel, dev, nbytes, stream: 0)
+    rp, ci, eo, pos, present, extra = _expand_case(shape_name)
+    deg, tot = PJ.expand_degrees_total(_t(rp), _t(pos), _t(present))
+    total = int(tot)
+    for size in _expand_sizes(total, extra):
+        args = (_t(rp), _t(ci), _t(eo), _t(pos), deg, total, size)
+        want = PJ.expand_materialize_counted(*args)
+        for nm, w, g in zip(("row", "nbr", "orig", "live"), want, PE._launch(*args, True)):
+            _same(w.numpy(), g, (shape_name, tile, size, nm))
+        got = PE._launch(*args[:2], _Unreadable(), *args[3:], False)
+        for nm, w, g in zip(("row", "nbr", "live"), (want[0], want[1], want[3]),
+                            (got[0], got[1], got[3])):
+            _same(w.numpy(), g, (shape_name, tile, size, nm, "without orig"))
+        assert got[2].dtype == torch.int64 and got[2].shape == (0,)
+    if shape_name == "absent_runs":
+        assert any(lanes == 0 and starts == tile for lanes, starts in emu.windows)
+    if shape_name == "hub_row":
+        assert any(lanes == tile and starts == 0 for lanes, starts in emu.windows)
+
+
+@pytest.mark.parametrize("shape_name", ["dense", "hub_row"])
+def test_expand_without_orig_leaves_eo_unread(shape_name):
+    """``with_orig=False``: the plain version and the gate give the same
+    row, nbr and live as with orig, an empty int64 orig, and never touch
+    ``eo``."""
+    rp, ci, eo, pos, present, extra = _expand_case(shape_name)
+    deg, tot = PJ.expand_degrees_total(_t(rp), _t(pos), _t(present))
+    total = int(tot)
+    for size in _expand_sizes(total, extra):
+        want = PJ.expand_materialize_counted(_t(rp), _t(ci), _t(eo), _t(pos), deg, total, size)
+        for got in (
+            PJ.expand_materialize_counted(_t(rp), _t(ci), _Unreadable(), _t(pos), deg,
+                                          total, size, with_orig=False),
+            PE.expand_materialize_counted(_t(rp), _t(ci), _Unreadable(), _t(pos), deg,
+                                          total, size=size, with_orig=False),
+        ):
+            for i in (0, 1, 3):
+                _same(want[i].numpy(), got[i], (shape_name, size, i))
+            assert got[2].dtype == torch.int64 and got[2].shape == (0,)
+
+
 # ---------------------------------------------------------------------------
 # frontier_deg_sum
 # ---------------------------------------------------------------------------
@@ -252,7 +491,7 @@ def test_frontier_kernel_arguments_emulated_match_reference(
     lengths, and a dense copy of a strided input."""
     monkeypatch.setattr(PF, "_lib", lambda: _FrontierKernelEmulation())
     monkeypatch.setattr(PF._build, "stream", lambda dev: 0)
-    monkeypatch.setattr(PF._build, "scratch_ptr", lambda kernel, dev, nbytes: 0)
+    monkeypatch.setattr(PF._build, "scratch_ptr", lambda kernel, dev, nbytes, stream: 0)
     rp, _, _, pos, present = _csr_case(shape_name, n, density)
     pos_p, present_p = _t(pos), _t(present)
     if shape_name == "non_contiguous":
@@ -467,7 +706,7 @@ def test_segment_kernel_arguments_emulated_match_plain(monkeypatch, name, kind, 
     (``chip_smoke.py`` holds it to the plain version there)."""
     monkeypatch.setattr(PA, "_lib", lambda: _SegmentKernelEmulation())
     monkeypatch.setattr(PA._build, "stream", lambda dev: 0)
-    monkeypatch.setattr(PA._build, "scratch_ptr", lambda kernel, dev, nbytes: 0)
+    monkeypatch.setattr(PA._build, "scratch_ptr", lambda kernel, dev, nbytes, stream: 0)
     rng = np.random.default_rng(zlib.crc32(f"emul/{name}/{kind}/{seg_form}".encode()))
     k = {"none": 1, "int32_k1": 1, "int32_k7": 7, "int64_k256": 256}[seg_form]
     for n, density in ((0, None), (300, 0.8), (300, None), (60, 0.0)):
@@ -611,6 +850,52 @@ def test_intersect_ineligible_cuda_call_takes_fallback_tier(monkeypatch, case):
     lo, counts, total = PI.intersect_range_count(_t(keys), _t(q), _t(qvalid))
     assert lo.shape == counts.shape == (len(q),) and int(total) == 0
     assert PD.use_counts()["intersect"] == {"kernel": 0, "plain": 0, "fallback": 1}
+
+
+# ---------------------------------------------------------------------------
+# kernel scratch
+# ---------------------------------------------------------------------------
+
+
+def test_scratch_ptr_keys_buffers_by_stream(monkeypatch):
+    """Two stream handles get two zeroed buffers; one handle gets its
+    buffer again, without asking for a size."""
+    monkeypatch.setattr(PB, "_SCRATCH", {})
+    a = PB.scratch_ptr("k", CPU, lambda index: 32, 0x1111)
+    b = PB.scratch_ptr("k", CPU, lambda index: 32, 0x2222)
+    assert a != b
+    assert PB.scratch_ptr("k", CPU, lambda index: pytest.fail("reallocated"), 0x1111) == a
+    for ptr in (a, b):
+        assert not _raw(ptr, ctypes.c_uint8, 32).any()
+    assert PB.scratch_ptr("other", CPU, lambda index: 32, 0x1111) not in (a, b)
+
+
+def test_scratch_ptr_racing_first_calls_get_one_buffer(monkeypatch):
+    """Two threads racing on a first launch on one stream get one buffer,
+    sized once."""
+    monkeypatch.setattr(PB, "_SCRATCH", {})
+    sized = []
+    barrier = threading.Barrier(2)
+
+    def nbytes(index):
+        sized.append(index)
+        time.sleep(0.05)  # widen the race window
+        return 64
+
+    got = []
+
+    def first_launch():
+        barrier.wait()
+        got.append(PB.scratch_ptr("race", CPU, nbytes, 0x3333))
+
+    threads = [threading.Thread(target=first_launch) for _ in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=30)
+        assert not th.is_alive()
+    assert len(got) == 2 and got[0] == got[1]
+    assert len(sized) == 1
 
 
 # ---------------------------------------------------------------------------

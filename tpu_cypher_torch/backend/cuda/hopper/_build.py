@@ -153,22 +153,33 @@ def stream(dev) -> int:
 
 
 _SCRATCH: Dict[tuple, tuple] = {}
+_SCRATCH_LOCK = threading.Lock()
 
 
-def scratch_ptr(kernel: str, dev, nbytes) -> int:
-    """The address of ``kernel``'s scratch buffer on ``dev``: ``nbytes(device
-    index)`` zeroed bytes, allocated at first use and kept for the process.
-    A kernel that uses one leaves it ready for its next launch (its ticket
-    back at zero), so launches in stream order share it."""
-    got = _SCRATCH.get((kernel, dev.index))
+def scratch_ptr(kernel: str, dev, nbytes, stream: int) -> int:
+    """The address of ``kernel``'s scratch buffer for launches on the raw
+    CUDA stream handle ``stream`` of ``dev``: ``nbytes(device index)``
+    zeroed bytes, allocated at first use and kept for the process. A
+    kernel that uses one leaves it ready for its next launch (its tickets
+    back at zero), so the launches that share a buffer must run in stream
+    order: one buffer per (kernel, device, stream) gives that, and two
+    launches on two streams never mix their partials. Launches from two
+    threads on one stream (the default stream, say) stay in that stream's
+    order and share its buffer safely. The buffer is created under a lock,
+    so threads racing on a first launch get one buffer."""
+    key = (kernel, dev.type, dev.index, int(stream))
+    got = _SCRATCH.get(key)
     if got is None:
-        import torch
+        with _SCRATCH_LOCK:
+            got = _SCRATCH.get(key)
+            if got is None:
+                import torch
 
-        size = int(nbytes(dev.index))
-        if size <= 0:
-            raise KernelLaunchError(f"{kernel}: no scratch size for device {dev}")
-        buf = torch.zeros(size, dtype=torch.uint8, device=dev)
-        got = _SCRATCH[(kernel, dev.index)] = (buf, buf.data_ptr())
+                size = int(nbytes(dev.index if dev.index is not None else 0))
+                if size <= 0:
+                    raise KernelLaunchError(f"{kernel}: no scratch size for device {dev}")
+                buf = torch.zeros(size, dtype=torch.uint8, device=dev)
+                got = _SCRATCH[key] = (buf, buf.data_ptr())
     return got[1]
 
 

@@ -148,6 +148,7 @@ def _launch(data, valid, seg_j, name: str, kind: str, k: int):
     out = torch.empty(k, dtype=plan.out_dtype, device=dev)
     out_valid = torch.empty(k, dtype=torch.bool, device=dev) if plan.op >= OPS["min"] else None
     lib = _lib()
+    stream = _build.stream(dev)
     _build.check(
         lib.segment_reduce_launch(
             data.data_ptr() if plan.vtype else None, plan.vtype,
@@ -156,8 +157,8 @@ def _launch(data, valid, seg_j, name: str, kind: str, k: int):
             STYPES[seg_j.dtype] if seg_j is not None else 0, n, k, plan.op,
             plan.ident, plan.fill, out.data_ptr(),
             out_valid.data_ptr() if out_valid is not None else None,
-            _build.scratch_ptr("segment_agg", dev, lib.segment_reduce_scratch_bytes),
-            _build.stream(dev),
+            _build.scratch_ptr("segment_agg", dev, lib.segment_reduce_scratch_bytes, stream),
+            stream,
         ),
         "segment_agg",
     )

@@ -1,20 +1,23 @@
-"""The ``expand_rows`` kernel: the CSR expand-materialize row search.
+"""The ``expand_rows`` kernel: the CSR expand materialize, whole.
 
 Replaces ``tpu_cypher/backend/tpu/pallas/expand.py`` (``_expand_rows_kernel``
 / ``_expand_rows_pallas``; entry ``expand_materialize_counted``). The CUDA
 source is ``csrc/expand_rows.cu``; its note states the bound on the H100
-(memory: 8 bytes written per lane, ``cum`` L2-resident) and what the design
-does about it.
+(memory: 25 bytes written a lane, 12 read a live lane) and the design: a
+small state launch (``starts``, the degree scan and the merge-path
+partition points, one pass with a look-back over a scratch buffer kept per
+stream), then one launch that merges the lanes with the row starts tile by
+tile and writes all four outputs.
 
 Beside it, the plain PyTorch version: ``jit_ops.expand_materialize_counted``
-(the reference's repeat cascade). Both end in the ONE shared tail,
-``jit_ops.finish_expand_counted``, so the tiers cannot drift past the
-(row, edge) lanes; pad lanes agree once that tail has sanitized them.
+(the reference's repeat cascade and ``finish_expand_counted``), to which
+the kernel tier is held bit for bit on the card (``chip_smoke.py``), pad
+lanes included. ``frontier_state`` is the plain version of the state step.
 
 Eligibility is re-derived for this card. The reference caps the frontier
-at 2**18 rows because its ``cum``/``starts`` state must fit VMEM; here both
-live in device memory and only the int32 lane and edge ranges bound the
-call (a 449,972-row frontier is eligible).
+at 2**18 rows because its ``cum``/``starts`` state must fit VMEM; here a
+block stages only its tile's window of them, so only the int32 lane and
+edge ranges bound the call.
 """
 
 from __future__ import annotations
@@ -29,6 +32,10 @@ from . import _build, dispatch
 
 _INT32_MAX = 2**31 - 1
 
+# merge items (lanes plus row starts) a block of the row kernel takes; the
+# launch functions refuse any other value than their kTileItems
+TILE_ITEMS = 2048
+
 dispatch.register(
     "expand_rows",
     "kernel_expand",
@@ -38,51 +45,24 @@ dispatch.register(
 
 
 @functools.lru_cache(maxsize=None)
-def _launch_fn():
-    fn = _build.lib("expand_rows").expand_rows_launch
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+def _lib():
+    lib = _build.lib("expand_rows")
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.expand_state_launch.argtypes = [p, p, p, i64, i64, i64, i64, p, p, p, p, p]
+    lib.expand_state_launch.restype = ctypes.c_int
+    lib.expand_rows_launch.argtypes = [
+        p, p, p, i64, i64, i64, i64, i64, p, p, p, p, p, p, p,
     ]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def expand_rows_cuda(cum: torch.Tensor, starts: torch.Tensor, size: int):
-    """Launch the kernel: int32 (row, edge) for ``size`` output lanes from
-    the frontier's int32 degree cumsum ``cum`` (F+1 stops, leading 0) and
-    int32 ``starts`` (F rows). Raises on what the kernel does not take."""
-    if cum.device.type != "cuda" or starts.device != cum.device:
-        raise ValueError("expand_rows: tensors must be on one CUDA device")
-    if cum.dtype != torch.int32 or starts.dtype != torch.int32:
-        raise TypeError("expand_rows: cum and starts must be int32")
-    if not (cum.is_contiguous() and starts.is_contiguous()):
-        raise ValueError("expand_rows: inputs must be contiguous")
-    nstops = int(cum.shape[0])
-    if nstops != int(starts.shape[0]) + 1:
-        raise ValueError("expand_rows: cum must hold one stop more than starts")
-    if not 0 <= size <= _INT32_MAX or nstops > _INT32_MAX:
-        raise ValueError("expand_rows: lanes and stops must fit int32")
-    row = torch.empty(size, dtype=torch.int32, device=cum.device)
-    edge = torch.empty(size, dtype=torch.int32, device=cum.device)
-    if size == 0:
-        return row, edge
-    if nstops < 2:
-        raise ValueError("expand_rows: lanes need a non-empty frontier")
-    stream = torch.cuda.current_stream(cum.device).cuda_stream
-    _build.check(
-        _launch_fn()(
-            cum.data_ptr(), nstops, starts.data_ptr(), row.data_ptr(),
-            edge.data_ptr(), size, stream,
-        ),
-        "expand_rows",
-    )
-    return row, edge
+    lib.expand_rows_launch.restype = ctypes.c_int
+    lib.expand_rows_scratch_bytes.argtypes = [ctypes.c_int]
+    lib.expand_rows_scratch_bytes.restype = ctypes.c_longlong
+    return lib
 
 
 def frontier_state(rp, pos, deg):
     """``starts`` = rp[pos] and the int32 degree cumsum with a leading 0,
-    built by torch ops exactly as the TPU wrapper builds them."""
+    built by torch ops exactly as the TPU wrapper builds them: the plain
+    version of the kernel tier's state launch."""
     starts = rp[pos].to(torch.int32).contiguous()
     cum = torch.cat([
         torch.zeros(1, dtype=torch.int32, device=deg.device),
@@ -91,19 +71,82 @@ def frontier_state(rp, pos, deg):
     return cum, starts
 
 
-def expand_materialize_counted_cuda(rp, ci, eo, pos, deg, nvalid, size: int):
-    """Kernel tier of ``expand_materialize_counted``: frontier state by
-    torch ops, the row search on the card, then the shared tail."""
-    cum, starts = frontier_state(rp, pos, deg)
-    row, edge = expand_rows_cuda(cum, starts, size)
-    return J.finish_expand_counted(
-        ci, eo, row.to(torch.int64), edge.to(torch.int64), nvalid, size
+def expand_materialize_counted_cuda(rp, ci, eo, pos, deg, nvalid, size: int,
+                                    with_orig: bool = True):
+    """Kernel tier of ``expand_materialize_counted``: the state launch and
+    the row launch. Raises on what the kernels do not take."""
+    dev = pos.device
+    tensors = (rp, ci, pos, deg) + ((eo,) if with_orig else ())
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("expand_rows: tensors must be on one CUDA device")
+    return _launch(rp, ci, eo, pos, deg, nvalid, size, with_orig)
+
+
+def _launch(rp, ci, eo, pos, deg, nvalid, size: int, with_orig: bool):
+    """Check dtypes and ranges, allocate the outputs and make the two ctypes
+    calls (the device check is the caller's). ``nvalid`` is the degree
+    total, as every caller passes it."""
+    if rp.dtype != torch.int32 or ci.dtype != torch.int32:
+        raise TypeError("expand_rows: rp and ci must be int32")
+    if pos.dtype != torch.int64 or deg.dtype != torch.int64:
+        raise TypeError("expand_rows: pos and deg must be int64")
+    if with_orig and eo.dtype != torch.int64:
+        raise TypeError("expand_rows: eo must be int64")
+    frontier = int(pos.shape[0])
+    if int(deg.shape[0]) != frontier:
+        raise ValueError("expand_rows: pos and deg differ in length")
+    if not 0 <= size <= _INT32_MAX or frontier >= _INT32_MAX:
+        raise ValueError("expand_rows: lanes and frontier rows must fit int32")
+    live = max(0, min(int(nvalid), size))
+    if live and not frontier:
+        raise ValueError("expand_rows: live lanes need a non-empty frontier")
+    dev = pos.device
+    # named, so that a copy of a strided input lives until the launches
+    rp, ci, pos, deg = (t.contiguous() for t in (rp, ci, pos, deg))
+    eo = eo.contiguous() if with_orig else None
+    row = torch.empty(size, dtype=torch.int64, device=dev)
+    nbr = torch.empty(size, dtype=torch.int64, device=dev)
+    orig = torch.empty(size if with_orig else 0, dtype=torch.int64, device=dev)
+    live_out = torch.empty(size, dtype=torch.bool, device=dev)
+    if size == 0:
+        return row, nbr, orig, live_out
+    lib = _lib()
+    stream = _build.stream(dev)
+    ntiles, state = 0, (None, None, None)
+    if live:  # the frontier state; without live lanes the row launch only zeroes pads
+        ntiles = -(-(live + frontier) // TILE_ITEMS)
+        cum = torch.empty(frontier + 1, dtype=torch.int32, device=dev)
+        starts = torch.empty(frontier, dtype=torch.int32, device=dev)
+        parts = torch.empty(ntiles + 1, dtype=torch.int32, device=dev)
+        _build.check(
+            lib.expand_state_launch(
+                rp.data_ptr(), pos.data_ptr(), deg.data_ptr(), frontier, live,
+                ntiles, TILE_ITEMS, starts.data_ptr(), cum.data_ptr(),
+                parts.data_ptr(),
+                _build.scratch_ptr("expand_rows", dev, lib.expand_rows_scratch_bytes, stream),
+                stream,
+            ),
+            "expand_rows",
+        )
+        state = (cum.data_ptr(), starts.data_ptr(), parts.data_ptr())
+    _build.check(
+        lib.expand_rows_launch(
+            *state, frontier, live, ntiles, TILE_ITEMS,
+            size, ci.data_ptr(), eo.data_ptr() if with_orig else None,
+            row.data_ptr(), nbr.data_ptr(), orig.data_ptr() if with_orig else None,
+            live_out.data_ptr(), stream,
+        ),
+        "expand_rows",
     )
+    return row, nbr, orig, live_out
 
 
-def expand_materialize_counted(rp, ci, eo, pos, deg, nvalid, *, size: int):
+def expand_materialize_counted(rp, ci, eo, pos, deg, nvalid, *, size: int,
+                               with_orig: bool = True):
     """Dispatching drop-in for ``jit_ops.expand_materialize_counted``:
-    (row, nbr, orig, live) for ``size`` lanes, ``nvalid`` of them live."""
+    (row, nbr, orig, live) for ``size`` lanes, ``nvalid`` of them live.
+    With ``with_orig=False`` neither tier reads ``eo``, and ``orig`` comes
+    back as an empty int64 tensor."""
     frontier = int(pos.shape[0])
     eligible = (
         0 < size <= _INT32_MAX
@@ -113,8 +156,12 @@ def expand_materialize_counted(rp, ci, eo, pos, deg, nvalid, *, size: int):
     )
     return dispatch.launch(
         "expand_rows",
-        lambda: expand_materialize_counted_cuda(rp, ci, eo, pos, deg, nvalid, size),
-        lambda: J.expand_materialize_counted(rp, ci, eo, pos, deg, nvalid, size),
+        lambda: expand_materialize_counted_cuda(
+            rp, ci, eo, pos, deg, nvalid, size, with_orig
+        ),
+        lambda: J.expand_materialize_counted(
+            rp, ci, eo, pos, deg, nvalid, size, with_orig=with_orig
+        ),
         device=pos.device,
         eligible=eligible,
     )

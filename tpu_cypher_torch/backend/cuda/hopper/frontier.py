@@ -12,8 +12,8 @@ and the last block to finish sums the partials).
 The wrapper is thin, since the host is the cost at this size: it checks
 dtypes and devices, copies only an input that is not contiguous,
 allocates the 0-d output and nothing else (the partials live in one
-zeroed scratch buffer per device, which the kernel leaves ready for the
-next launch), and makes one ctypes call of eight arguments.
+zeroed scratch buffer per device and stream, which the kernel leaves ready
+for the next launch), and makes one ctypes call of eight arguments.
 
 The plain PyTorch version, ``deg_sum_plain``, is the counterpart of the
 reference's ``_csr_deg_sum_jnp`` (two gathers and a masked sum).
@@ -81,11 +81,13 @@ def _launch(rp, pos, present):
     rp, pos, present = rp.contiguous(), pos.contiguous(), present.contiguous()
     out = torch.empty((), dtype=torch.int64, device=dev)
     lib = _lib()
+    stream = _build.stream(dev)
     _build.check(
         lib.frontier_deg_sum_launch(
             rp.data_ptr(), rp.shape[0], pos.data_ptr(), present.data_ptr(), frontier,
-            _build.scratch_ptr("frontier_deg_sum", dev, lib.frontier_deg_sum_scratch_bytes),
-            out.data_ptr(), _build.stream(dev),
+            _build.scratch_ptr("frontier_deg_sum", dev, lib.frontier_deg_sum_scratch_bytes,
+                               stream),
+            out.data_ptr(), stream,
         ),
         "frontier_deg_sum",
     )

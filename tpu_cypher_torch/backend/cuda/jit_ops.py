@@ -301,27 +301,31 @@ def expand_degrees_total(rp, pos, present):
 
 
 def finish_expand_counted(ci, eo, row, edge, nvalid, size: int):
-    """Tail shared by every counted expand-materialize formulation (the
-    repeat cascade AND the Hopper row-search kernel): sanitize pad lanes
-    to row/edge 0, gather neighbour/edge-orig, mask the gathers dead. ONE
-    definition so the two formulations cannot drift."""
+    """Tail of the repeat cascade's expand-materialize: sanitize pad lanes
+    to row/edge 0, gather neighbour/edge-orig, mask the gathers dead. With
+    ``eo`` None no orig is gathered and ``orig`` is an empty int64 tensor.
+    The Hopper kernel (``hopper/expand.py``) computes the same four outputs
+    in its own launch and is held to this one bit for bit on the card."""
     live = _live_lanes(size, nvalid, row)
     zero = torch.zeros((), dtype=torch.int64, device=row.device)
     row = torch.where(live, row, zero)
     edge = torch.where(live, edge, zero)
-    nbr = ci[edge].to(torch.int64)
-    orig = eo[edge]
-    nbr = torch.where(live, nbr, zero)
-    orig = torch.where(live, orig, zero)
+    nbr = torch.where(live, ci[edge].to(torch.int64), zero)
+    if eo is None:
+        orig = torch.zeros(0, dtype=torch.int64, device=row.device)
+    else:
+        orig = torch.where(live, eo[edge], zero)
     return row, nbr, orig, live
 
 
-def expand_materialize_counted(rp, ci, eo, pos, deg, nvalid, size: int):
+def expand_materialize_counted(rp, ci, eo, pos, deg, nvalid, size: int,
+                               with_orig: bool = True):
     """The plain PyTorch version of the ``expand_rows`` kernel: the
     reference's repeat cascade at a (possibly bucketed) static ``size`` >=
-    the true total ``nvalid``; pad lanes come out sanitized and dead."""
+    the true total ``nvalid``; pad lanes come out sanitized and dead. With
+    ``with_orig=False`` ``eo`` is not read and ``orig`` is empty."""
     row, edge = _expand_rows(rp[pos], deg, size)
-    return finish_expand_counted(ci, eo, row, edge, nvalid, size)
+    return finish_expand_counted(ci, eo if with_orig else None, row, edge, nvalid, size)
 
 
 def into_materialize_counted(eo, lo, counts, nvalid, size: int):

@@ -307,11 +307,12 @@ class MultiwayIntersectOp(_FusedExpandBase):
             n_a = int(t_dev)
             if n_a == 0:
                 continue
-            # lanes: row + cand + orig (24B) plus one 8B count per probe
-            bucketing.admit(n_a, 24 + 8 * (len(lists) - 1), "intersect")
+            # lanes: row + cand (16B) and live (1B), no orig, plus one 8B
+            # count per probe
+            bucketing.admit(n_a, 17 + 8 * (len(lists) - 1), "intersect")
             row, cand, _, live = expand_materialize_counted(
                 lst.rp, lst.ci, lst.eo, lst.pos, deg_a, n_a,
-                size=bucketing.exact_size(n_a),
+                size=bucketing.exact_size(n_a), with_orig=False,
             )
             m = None
             for b, other in enumerate(lists):
