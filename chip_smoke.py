@@ -23,7 +23,8 @@ Phases (any failure exits non-zero and prints no result line):
             two side streams at once, each answer held to its plain
             version, and times ``join_materialize`` (Q11) and
             ``into_materialize_counted`` (Q7), torch ops, against their
-            byte bounds;
+            byte bounds; holds ``segment_agg`` to its plain version at
+            Q15's own group ids (k = 256) and times it there;
 4. slice  — runs the slices' queries through ``CypherSession.cuda()``
             on the LDBC-SNB-shaped graphs (SF1: 10,000 persons, SF10:
             100,000 persons, seed 42): Q1-Q5 on the CSR expand path, Q6-Q8
@@ -32,9 +33,13 @@ Phases (any failure exits non-zero and prints no result line):
             small seeded graph with self-loops and parallel edges, whose
             uniqueness pairs the operator enforces itself, and Q9-Q12 on
             the classic filter and equi-join path (a property-property
-            WHERE, an IS3-shaped point lookup, a value join and an
-            OPTIONAL MATCH with WHERE; ``join_probe`` on the last two). It
-            checks every
+            WHERE, IS3 ordered by friendId, a value join and an
+            OPTIONAL MATCH with WHERE; ``join_probe`` on the last two), and
+            Q13-Q16 on row shaping and grouping (the 2-hop DISTINCT count,
+            a grouped count under ORDER BY ... LIMIT, grouped min, max and
+            percentileDisc over 256 groups on ``segment_agg``, DISTINCT
+            values paged with SKIP and LIMIT), each cold and five times
+            warm with its peak device memory. It checks every
             answer against numpy/scipy ground truth computed from the
             generator's arrays, and checks that each query ran on the
             device rung once with no kernel fallback, launched its kernels
@@ -48,7 +53,8 @@ Phases (any failure exits non-zero and prints no result line):
             plain version called in the gate's place, and the triangle
             count on the WCOJ tier (``force``) against the binary plan
             (``off``) on three graphs, ABBA-interleaved, every answer
-            checked.
+            checked; and the ``segment_agg`` gate's ``min`` at Q14's group
+            ids (about 100,000 groups: the ``fallback`` tier).
 
 The kernel launch counts are zeroed just before phase 4 and read just after
 it; the comparisons of phase 3 and the runs of phase 5 do not count. The line before the last is
@@ -59,6 +65,7 @@ the kernels' JSON summary; the last line is
 import contextlib
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -105,13 +112,13 @@ Q9 = (
     "MATCH (a:Person)-[:KNOWS]->(b:Person) WHERE a.birthday < b.birthday "
     "RETURN count(*) AS n"
 )
-# LDBC SNB Interactive Short Query 3 (IS3, friends of a person) without
-# three parts: the ORDER BY (not ported yet: ROADMAP.md queue 1, item 1.2),
-# r.creationDate (this generator's KNOWS edges carry no properties) and
-# lastName (the generator makes none)
+# LDBC SNB Interactive Short Query 3 (IS3, friends of a person), as far as
+# the generator allows: its KNOWS edges carry no creationDate (so the
+# friendship date and the ORDER BY on it are left out) and persons have no
+# lastName; it orders by friendId
 Q10 = (
     "MATCH (n:Person {id: $personId})-[:KNOWS]-(friend:Person) "
-    "RETURN friend.id AS friendId, friend.firstname AS firstName"
+    "RETURN friend.id AS friendId, friend.firstname AS firstName ORDER BY friendId"
 )
 Q10_PERSON = 7001
 Q11 = (
@@ -122,6 +129,30 @@ Q12 = (
     "MATCH (a:Person) WHERE a.birthday < 1000 "
     "OPTIONAL MATCH (a)-[:KNOWS]->(b:Person) WHERE b.birthday > 9000 "
     "RETURN a.id AS a, b.id AS b"
+)
+
+# row shaping and grouping: the 2-hop DISTINCT count (bench.py
+# TWO_HOP_DISTINCT), the most connected persons (a grouped count, ORDER BY
+# ... LIMIT as the packed top-k), the hubs' friends' birthdays (the
+# segment_agg kernel at k > 1; ids are 7k + 1, so the WHERE keeps k < 256)
+# and distinct values paged (DISTINCT, then ORDER BY ... SKIP ... LIMIT)
+Q13 = (
+    "MATCH (a:Person)-[:KNOWS]->(b:Person)-[:KNOWS]->(c:Person) "
+    "WITH DISTINCT a, c RETURN count(*) AS pairs"
+)
+Q14 = (
+    "MATCH (a:Person)-[:KNOWS]->(b:Person) RETURN a.id AS id, count(*) AS deg "
+    "ORDER BY deg DESC, id LIMIT 20"
+)
+Q15_ID_BOUND = 1793
+Q15 = (
+    f"MATCH (a:Person)-[:KNOWS]->(b:Person) WHERE a.id < {Q15_ID_BOUND} "
+    "RETURN a.id AS id, count(*) AS n, min(b.birthday) AS lo, max(b.birthday) AS hi, "
+    "percentileDisc(b.birthday, 0.5) AS med ORDER BY id"
+)
+Q16 = (
+    "MATCH (a:Person)-[:KNOWS]->(b:Person) RETURN DISTINCT b.birthday AS d "
+    "ORDER BY d SKIP 100 LIMIT 50"
 )
 
 
@@ -644,6 +675,78 @@ def check_segment_agg(torch, g1, q5_truth, q5_rows, report):
           f"{k256_ms:.4f} ms")
 
 
+def q15_segment_agg_calls(g10, want):
+    """Run Q15 once more on ``g10`` with a hook on the ``segment_agg`` gate
+    and return the (data, valid, seg_j, name, kind, k) of each of its calls:
+    its real group ids. The run's launches are not the main path's (the
+    counts are zeroed before phase 4)."""
+    from tpu_cypher_torch.backend.cuda import hopper
+
+    calls = []
+    inner = hopper.segment_aggregate
+
+    def hook(data, valid, iflag, seg_j, *, name, kind, k):
+        check(iflag is None, "Q15 aggregates carry no int_flag")
+        calls.append((data, valid, seg_j, name, kind, k))
+        return inner(data, valid, iflag, seg_j, name=name, kind=kind, k=k)
+
+    hopper.segment_aggregate = hook
+    try:
+        rows = [dict(r) for r in g10.cypher(Q15).records.collect()]
+    finally:
+        hopper.segment_aggregate = inner
+    check(rows == want, "Q15 (hooked) differs from numpy")
+    check([c[3] for c in calls] == ["min", "max"], f"Q15 made calls {[c[3] for c in calls]}")
+    return calls
+
+
+def check_segment_agg_q15(torch, g10, q15_truth, report):
+    """``segment_agg`` at Q15's own group ids (skewed sizes, numbered in
+    first-occurrence order, int64, k = 256): the kernel against its plain
+    version, bit for bit, and timed beside its byte bound and
+    ``Tensor.scatter_reduce(..., "amin")`` at the same shape."""
+    from tpu_cypher_torch.backend.cuda import jit_ops as J
+    from tpu_cypher_torch.backend.cuda.hopper import aggregate as KA
+
+    calls = q15_segment_agg_calls(g10, q15_truth)
+    err = 0.0
+    for data, valid, seg_j, name, kind, k in calls:
+        got = KA._segment_aggregate_cuda(data, valid, seg_j, name, kind, k)
+        want = J.segment_aggregate(data, valid, None, seg_j, name, kind, k)
+        e = tuple_err(torch, got, want)
+        err = max(err, e)
+        check(e == 0.0, f"segment_agg at Q15's ids, {name}, disagrees with its plain version")
+    data, valid, seg_j, name, kind, k = calls[0]
+    n = int(data.shape[0])
+    check(seg_j is not None and seg_j.dtype == torch.int64 and k == len(q15_truth),
+          f"Q15's ids: {None if seg_j is None else seg_j.dtype}, k={k}")
+    sizes = torch.bincount(seg_j, minlength=k)
+    first = torch.full((k,), n, dtype=torch.int64, device=seg_j.device).scatter_reduce(
+        0, seg_j, torch.arange(n, device=seg_j.device), "amin", include_self=True)
+    check(bool((first[1:] > first[:-1]).all()), "Q15's ids are not in first-occurrence order")
+    ms = time_ms(torch, lambda: KA._segment_aggregate_cuda(data, valid, seg_j, name, kind, k))
+    plain_ms = time_ms(torch, lambda: J.segment_aggregate(data, valid, None, seg_j, name, kind, k))
+    big = torch.iinfo(torch.int64).max
+    scatter_ms = time_ms(
+        torch, lambda: torch.full((k,), big, dtype=torch.int64, device=data.device)
+        .scatter_reduce(0, seg_j, data, "amin", include_self=True))
+    # the min and the validity of k groups written once
+    nbytes = agg_bytes(data, valid, seg_j) + 9 * k
+    # per row: the min, the count's add and the segment-id check
+    b_ms, b_by = bound(nbytes, 3 * n)
+    shape = (f"{name}({kind}) over Q15's {n} rows, k={k}, int64 ids in first-occurrence "
+             f"order, group sizes {int(sizes.min())}..{int(sizes.max())}, mask "
+             f"{'yes' if valid is not None else 'none'}")
+    report["segment_agg"].update(
+        max_abs_err=max(report["segment_agg"]["max_abs_err"], err),
+        q15_ms=ms, q15_plain_ms=plain_ms, q15_scatter_reduce_ms=scatter_ms,
+        q15_bound_ms=b_ms, q15_bound_by=b_by, q15_shape=shape,
+    )
+    print(f"  segment_agg at {shape}: min and max equal to the plain version; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, Tensor.scatter_reduce(amin) "
+          f"{scatter_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+
+
 def q6_range_count_calls(torch, g10, want):
     """Run Q6 once more on ``g10`` with a hook on the count tier's
     ``intersect_range_count`` and return the (keys, q, qvalid) of each of
@@ -1152,13 +1255,14 @@ def loopy_triangles(src, dst) -> int:
 
 
 def run_query(torch, pg, query, kernels, plan_op="CsrExpandOp", wcoj_tiers=(),
-              params=None):
-    """Run one query twice (cold, warm) and check the device-only contract
-    on both runs: one device attempt, ``plan_op`` in the plan, every kernel
-    of ``kernels`` launched and no kernel off its ``kernel`` tier, and each
-    WCOJ tier of ``wcoj_tiers`` hit once. Returns (records rows of the warm
-    run, seconds list, per-kernel kernel-tier launches, materialized lanes,
-    the cold run's result)."""
+              params=None, warm=1):
+    """Run one query cold and then ``warm`` times, and check the
+    device-only contract on every run: one device attempt, ``plan_op`` in
+    the plan, every kernel of ``kernels`` launched and no kernel off its
+    ``kernel`` tier, and each WCOJ tier of ``wcoj_tiers`` hit once. Returns
+    (records rows of the last run, seconds list, per-kernel kernel-tier
+    launches, materialized lanes of the last run, the cold run's
+    result)."""
     from tpu_cypher_torch.backend.cuda import bucketing
     from tpu_cypher_torch.backend.cuda import wcoj as W
     from tpu_cypher_torch.backend.cuda.hopper import dispatch
@@ -1168,7 +1272,7 @@ def run_query(torch, pg, query, kernels, plan_op="CsrExpandOp", wcoj_tiers=(),
     launches = {}
     lanes = None
     results = []
-    for attempt in ("cold", "warm"):
+    for _ in range(1 + warm):
         before = dispatch.use_counts()
         tiers0 = dict(W.WCOJ_TIER_COUNTS)
         rows0 = bucketing._ROWS_TRUE.value()
@@ -1202,6 +1306,40 @@ def run_query(torch, pg, query, kernels, plan_op="CsrExpandOp", wcoj_tiers=(),
         out_rows = rows
         results.append(result)
     return out_rows, secs, launches, lanes, results[0]
+
+
+@contextlib.contextmanager
+def recorded(cls, name, out):
+    """Append what ``cls.name`` returns to ``out`` while the block runs."""
+    inner = getattr(cls, name)
+
+    def hook(self, *args, **kwargs):
+        ret = inner(self, *args, **kwargs)
+        out.append(ret)
+        return ret
+
+    setattr(cls, name, hook)
+    try:
+        yield
+    finally:
+        setattr(cls, name, inner)
+
+
+def two_hop_distinct_pairs(s, d, n) -> int:
+    """(distinct (a, c), 2-hop paths) over the paths a->b->c of the edges
+    (s, d) (node indices), from numpy: each edge's far end's out-edges,
+    packed as a * n + c."""
+    import numpy as np
+
+    out = np.bincount(s, minlength=n)
+    order = np.argsort(s, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(out)])
+    reps = out[d]
+    total = int(reps.sum())
+    base = np.repeat(starts[d] - np.concatenate([[0], np.cumsum(reps)[:-1]]), reps)
+    c = d[order][base + np.arange(total)]
+    a = np.repeat(s, reps)
+    return len(np.unique(a.astype(np.int64) * n + c)), total
 
 
 # ---------------------------------------------------------------------------
@@ -1278,6 +1416,127 @@ def print_times(name, times):
     for label, (secs, execute, all_secs) in times.items():
         print(f"    {name} {label}: warm median {secs * 1e3:.3f} ms (execute phase "
               f"{execute * 1e3:.3f} ms); runs (s) {all_secs}")
+
+
+def shaping_truth(ids1, s1, d1, ids10, bday10, s10, d10):
+    """numpy truth of Q13 (SF1) and Q14-Q16 (SF10) from the generator's
+    arrays (node indices ``s``, ``d`` of each KNOWS edge)."""
+    import numpy as np
+
+    truth = {}
+    truth["Q13"], truth["Q13_rows"] = two_hop_distinct_pairs(s1, d1, len(ids1))
+    out10 = np.bincount(s10, minlength=len(ids10))
+    top = np.lexsort((ids10, -out10))[:20]
+    truth["Q14"] = [{"id": int(ids10[i]), "deg": int(out10[i])} for i in top]
+    e15 = ids10[s10] < Q15_ID_BOUND
+    o15 = np.lexsort((bday10[d10[e15]], s10[e15]))
+    src15, val15 = s10[e15][o15], bday10[d10[e15]][o15]
+    grp, first, size = np.unique(src15, return_index=True, return_counts=True)
+    med = val15[first + np.ceil(0.5 * size).astype(np.int64) - 1]
+    truth["Q15"] = [
+        {"id": int(ids10[g]), "n": int(c), "lo": int(val15[f]), "hi": int(val15[f + c - 1]),
+         "med": int(m)}
+        for g, f, c, m in zip(grp, first, size, med)
+    ]
+    truth["Q15_rows"] = int(e15.sum())
+    check(0 < len(grp) <= 256, f"Q15 groups {len(grp)}: the WHERE must keep k <= 256")
+    distinct = np.unique(bday10[d10])
+    truth["Q16"] = [{"d": int(x)} for x in distinct[100:150]]
+    truth["Q16_distinct"] = len(distinct)
+    return truth
+
+
+def run_shaping_queries(torch, run, slice_launches, g1, g10, truth):
+    """Phase 4's row shaping and grouping queries, Q13-Q16: each cold, then
+    five warm runs, with its warm median and peak device memory, checked
+    against ``shaping_truth``."""
+    from tpu_cypher_torch.backend.cuda.table import CudaTable
+
+    def shaped(label, pg, q, kernels, plan_op):
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2**30
+        rows, secs, _ = run(label, pg, q, kernels, plan_op=plan_op, warm=5)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"    {label} warm median {statistics.median(secs[1:]) * 1e3:.3f} ms over "
+              f"{len(secs) - 1} runs (s: {[round(x, 6) for x in secs[1:]]}); peak device "
+              f"memory {peak:.3f} GiB, of which {held:.3f} GiB held before the query "
+              f"(graphs, indexes)")
+        return [dict(r) for r in rows]
+
+    def topk_said(topk):
+        said = "answered (packed top-k)" if all(t is not None for t in topk) else "returned None"
+        return f"order_by_limit {said} in {len(topk)} runs"
+
+    rows = shaped("Q13 (SF1)", g1, Q13, ("expand_rows",), "DistinctOp")
+    check(rows == [{"pairs": truth["Q13"]}], f"Q13 {rows} != {truth['Q13']}")
+    print(f"    Q13 = {truth['Q13']} distinct (a, c) over {truth['Q13_rows']} 2-hop rows")
+    topk = []
+    with recorded(CudaTable, "order_by_limit", topk):
+        rows = shaped("Q14 (SF10)", g10, Q14, ("expand_rows",), "OrderByOp")
+    check(rows == truth["Q14"], f"Q14 rows differ from numpy: {rows[:3]} ...")
+    print(f"    Q14 = the top {len(rows)} by out-degree (first {rows[0]}), equal to numpy "
+          f"row for row; {topk_said(topk)}")
+    agg_before = slice_launches.get("segment_agg", 0)
+    rows = shaped("Q15 (SF10)", g10, Q15, ("expand_rows", "segment_agg"), "AggregateOp")
+    check(rows == truth["Q15"], "Q15 rows differ from numpy")
+    check(slice_launches["segment_agg"] - agg_before == 12,
+          "Q15's six runs did not launch segment_agg twice each (min, max)")
+    print(f"    Q15 = {len(rows)} groups (k={len(truth['Q15'])}) over {truth['Q15_rows']} "
+          f"rows, equal to numpy row for row; min and max on the segment_agg kernel tier")
+    topk = []
+    with recorded(CudaTable, "order_by_limit", topk):
+        rows = shaped("Q16 (SF10)", g10, Q16, ("expand_rows",), "DistinctOp")
+    check(rows == truth["Q16"], f"Q16 rows differ from numpy: {rows[:3]} ...")
+    print(f"    Q16 = {len(rows)} of {truth['Q16_distinct']} distinct birthdays after "
+          f"SKIP 100, equal to numpy row for row; {topk_said(topk)}")
+
+
+def time_q14_fallback(torch, g10, q14_truth, report):
+    """The ``segment_agg`` gate's ``min`` at Q14's group ids (about 100,000
+    groups, past the kernel's 256): the ``fallback`` tier (the plain
+    version's scatter), beside ``Tensor.scatter_reduce(..., "amin")`` alone
+    and the byte bound, over seeded int64 values. The evidence for or
+    against raising ``MAX_GROUPS``."""
+    import numpy as np
+
+    from tpu_cypher_torch.backend.cuda import hopper
+    from tpu_cypher_torch.backend.cuda import jit_ops as J
+    from tpu_cypher_torch.backend.cuda.hopper import dispatch
+
+    calls, rows = q_hooked_calls(g10, Q14, J, "group_index")
+    check(rows == q14_truth and len(calls) == 1, "Q14 (hooked group_index)")
+    args, kwargs = calls[0]
+    seg_j, _ = J.group_index(*args, **kwargs)
+    k = int(kwargs.get("k", args[2] if len(args) > 2 else 0))
+    n = int(seg_j.shape[0])
+    rng = np.random.default_rng(SEED)
+    vals = torch.from_numpy(rng.integers(0, 18_000, n)).to(seg_j.device)
+    before = dispatch.use_counts()["segment_agg"]
+
+    def gate():
+        return hopper.segment_aggregate(vals, None, None, seg_j, name="min", kind="i64", k=k)
+
+    got = gate()
+    big = torch.iinfo(torch.int64).max
+
+    def scatter():
+        return torch.full((k,), big, dtype=torch.int64, device=vals.device).scatter_reduce(
+            0, seg_j, vals, "amin", include_self=True)
+
+    check(torch.equal(got[0], scatter()), "the fallback min differs from scatter_reduce")
+    ms = time_ms(torch, gate)
+    scatter_ms = time_ms(torch, scatter)
+    after = dispatch.use_counts()["segment_agg"]
+    check(after["kernel"] == before["kernel"] and after["fallback"] > before["fallback"],
+          f"the gate at k={k} did not take the fallback tier: {before} -> {after}")
+    b_ms, b_by = bound(16 * n + 9 * k, 3 * n)
+    report["segment_agg"].update(
+        q14_fallback_min_ms=ms, q14_scatter_reduce_ms=scatter_ms, q14_bound_ms=b_ms,
+        q14_shape=f"min(i64) through the gate at Q14's ids: {n} rows, k={k}, no mask",
+    )
+    print(f"  segment_agg gate min at Q14's ids ({n} rows, k={k}): fallback tier "
+          f"{ms:.4f} ms, Tensor.scatter_reduce(amin) alone {scatter_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by})")
 
 
 def main() -> int:
@@ -1373,12 +1632,16 @@ def main() -> int:
     ]))
     truth["Q12_left"] = int(young.sum())
     truth["Q12_matched"] = int(hit.sum())
+    truth.update(shaping_truth(ids1, s1, d1, ids10, bday10, s10, d10))
     print(f"truth: SF1 {len(ids1)} persons / {len(src1)} KNOWS; SF10 "
           f"{len(ids10)} persons / {len(src10)} KNOWS; Q4 2-hop paths "
           f"{truth['Q4']}; Q5 second-hop rows {truth['Q5_rows']}; Q9 "
           f"{truth['Q9']}; Q10 {len(truth['Q10'])} friends of {Q10_PERSON}; "
           f"Q11 {truth['Q11']} pairs; Q12 {truth['Q12_left']} left rows, "
-          f"{truth['Q12_matched']} matched, {len(unmatched)} padded")
+          f"{truth['Q12_matched']} matched, {len(unmatched)} padded; Q13 "
+          f"{truth['Q13']} distinct (a, c) of {truth['Q13_rows']} 2-hop rows; Q15 "
+          f"k={len(truth['Q15'])} groups over {truth['Q15_rows']} rows; Q16 "
+          f"{truth['Q16_distinct']} distinct birthdays")
     t0 = time.perf_counter()
     tri10 = triangle_truth(ids10, src10, dst10, rows_and_cliques=False)
     tri1 = triangle_truth(ids1, src1, dst1, rows_and_cliques=True)
@@ -1395,6 +1658,7 @@ def main() -> int:
     check_expand_rows(torch, session, g1, g10, tri10["triangles"], report)
     check_frontier(torch, session, g10, report)
     check_segment_agg(torch, g1, truth["Q5"], truth["Q5_rows"], report)
+    check_segment_agg_q15(torch, g10, truth["Q15"], report)
     check_intersect(torch, g10, tri10["triangles"], report)
     check_join_probe(torch, g10, truth["Q11"], report)
     check_two_streams(torch, session, g10)
@@ -1505,11 +1769,12 @@ def main() -> int:
     rows, _, _ = run("Q9 (SF10)", g10, Q9, ("expand_rows",), plan_op="FilterOp")
     check([dict(r) for r in rows] == [{"n": truth["Q9"]}], f"Q9 {rows} != {truth['Q9']}")
     print(f"    Q9 = {rows[0]['n']} of {len(src10)} KNOWS kept")
-    rows, _, _ = run("Q10 (SF10)", g10, Q10, ("expand_rows",), plan_op="FilterOp",
+    rows, _, _ = run("Q10 (SF10)", g10, Q10, ("expand_rows",), plan_op="OrderByOp",
                      params={"personId": Q10_PERSON})
-    got = sorted((r["friendId"], r["firstName"]) for r in rows)
+    got = [(r["friendId"], r["firstName"]) for r in rows]
     check(got == truth["Q10"], f"Q10 rows differ from numpy: {got[:5]} ...")
-    print(f"    Q10 = {len(rows)} friends of person {Q10_PERSON}, bag-identical to numpy")
+    print(f"    Q10 = {len(rows)} friends of person {Q10_PERSON}, in friendId order, "
+          f"equal to numpy row for row")
     join_kernels = ("expand_rows", "join_probe")
     rows, _, _ = run("Q11 (SF10)", g10, Q11, join_kernels, plan_op="JoinOp(inner")
     check([dict(r) for r in rows] == [{"n": truth["Q11"]}], f"Q11 {rows} != {truth['Q11']}")
@@ -1528,6 +1793,9 @@ def main() -> int:
     print("  Q11's cold run, its trace tree (wall ms per span):")
     for line in cold["Q11 (SF10)"].profile().render().splitlines():
         print(f"    {line}")
+
+    # row shaping and grouping
+    run_shaping_queries(torch, run, slice_launches, g1, g10, truth)
     counts = dispatch.use_counts()
     for name, c in counts.items():
         check(c["fallback"] == 0 and c["plain"] == 0, f"{name} fallbacks: {c}")
@@ -1567,6 +1835,8 @@ def main() -> int:
               f"{out_max}, max in-degree {in_max}, {want} triangles")
         print_times(name, warm_times(
             torch, pg, Q6, plans, lambda rows: rows == [{"triangles": want}]))
+
+    time_q14_fallback(torch, g10, truth["Q14"], report)
 
     specs = dispatch.registry()
     kernels = []

@@ -158,8 +158,8 @@ def test_unported_spi_names_its_roadmap_item():
     from tpu_cypher_torch.backend.cuda.table import CudaTable
 
     t = CudaTable.from_columns({"x": [1, 2]})
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md queue 1, item 1\.2"):
-        t.distinct()
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md queue 1, item 6"):
+        t.explode(None, "y", None, {})
 
 
 @pytest.mark.parametrize(
@@ -186,10 +186,11 @@ def test_device_fault_reaches_caller_typed(engines, qname, site):
     [
         # an expression kind the slice's compiler does not cover
         "MATCH (a:Person)-[:KNOWS]->(b) RETURN a.birthday + 1 AS x",
-        # an aggregate the slice's group does not cover
-        "MATCH (a:Person)-[:KNOWS]->(b) RETURN collect(b.birthday) AS xs",
-        # grouping keys
-        "MATCH (a:Person)-[:KNOWS]->(b) RETURN a.firstname AS f, count(*) AS c",
+        # a percentile fraction that is neither a literal nor a parameter
+        "MATCH (a:Person)-[:KNOWS]->(b) RETURN percentileCont(b.birthday, a.birthday) AS p",
+        # a grouping key the compiler does not cover
+        "MATCH (a:Person)-[:KNOWS]->(b) "
+        "RETURN CASE WHEN a.birthday < 5000 THEN 'y' ELSE 'o' END AS k, count(*) AS c",
     ],
 )
 def test_no_host_island(engines, query):

@@ -32,6 +32,9 @@ F64 = "f64"
 BOOL = "bool"
 STR = "str"  # dictionary-encoded int32 codes
 OBJ = "obj"  # host-side Python objects — not device resident
+# kinds whose payload is an integer (the temporal ones join with ROADMAP.md
+# queue 1, item 7)
+INTEGRAL_KINDS = (I64, BOOL, STR)
 
 _NULL_CODE = np.int32(-1)
 
@@ -118,6 +121,8 @@ class Column:
     # has no nulls) — type metadata stays non-nullable and depad restores
     # ``valid=None``
     pad_synth: bool = False
+    # cached ``ints_beyond_f64`` probe (one scalar sync per column)
+    _beyond_f64: Optional[bool] = None
 
     def __len__(self) -> int:
         return int(self.data.shape[0]) if self.kind != OBJ else len(self.data)
@@ -298,16 +303,29 @@ class Column:
         return Column(self.kind, d, v, self.vocab, int_flag=i)
 
     def concat(self, other: "Column") -> "Column":
-        """Rows of ``self`` then ``other``, for two columns of one kind (STR
-        sides re-coded onto one vocab). Unioning two kinds (the reference
-        promotes numerics and adopts an all-null side's kind) is not ported
-        yet and raises ``NotImplementedError``."""
+        """Rows of ``self`` then ``other``. An all-null side adopts the
+        other side's kind; I64 and F64 promote to F64 keeping Cypher
+        intness, unless an int lies beyond 2**53; every other kind pair
+        becomes OBJ. STR sides are re-coded onto one vocab. (The
+        reference's ZDT/ZT offset branch comes with the temporal kinds,
+        ROADMAP.md queue 1, item 7.)"""
         a, b = self, other
         if a.kind != b.kind:
-            raise NotImplementedError(
-                f"concat of {a.kind} and {b.kind} columns is not ported yet: "
-                "ROADMAP.md queue 1, item 1.2"
-            )
+            # scan alignment fills absent properties with I64 null
+            # constants: without this a STR/BOOL union would become OBJ
+            if a.kind != OBJ and b.is_all_null():
+                b = a.null_like(len(b))
+            elif b.kind != OBJ and a.is_all_null():
+                a = b.null_like(len(a))
+        if a.kind != b.kind:
+            if {a.kind, b.kind} == {I64, F64}:
+                iside = a if a.kind == I64 else b
+                if iside.ints_beyond_f64():
+                    a, b = a.to_obj(), b.to_obj()
+                else:
+                    a, b = a.as_f64_keeping_intness(), b.as_f64_keeping_intness()
+            else:
+                a, b = a.to_obj(), b.to_obj()
         if a.kind == OBJ:
             return Column(OBJ, np.concatenate([a.data, b.data]), None)
         if a.kind == STR:
@@ -330,6 +348,45 @@ class Column:
             a.vocab,
             int_flag=cat(a.int_flag, b.int_flag, False),
         )
+
+    def ints_beyond_f64(self) -> bool:
+        """True when a VALID int64 payload exceeds f64 exactness (2**53)."""
+        if self.kind != I64:
+            return False
+        if self._beyond_f64 is None:
+            big = self.valid_mask() & (torch.abs(self.data) > 2**53)
+            self._beyond_f64 = bool(torch.any(big))
+        return self._beyond_f64
+
+    def is_all_null(self) -> bool:
+        if self.kind == OBJ:
+            return all(v is None for v in self.data)
+        return self.valid is not None and not bool(torch.any(self.valid))
+
+    def null_like(self, n: int) -> "Column":
+        """n all-null rows with this column's kind and vocab."""
+        if self.kind == OBJ:
+            return Column(OBJ, np.array([None] * n, dtype=object), None)
+        dev = self.data.device
+        if self.kind == STR:
+            data = torch.full((n,), int(_NULL_CODE), dtype=torch.int32, device=dev)
+        else:
+            data = torch.zeros(n, dtype=self.data.dtype, device=dev)
+        return Column(self.kind, data, torch.zeros(n, dtype=torch.bool, device=dev), self.vocab)
+
+    def as_f64_keeping_intness(self) -> "Column":
+        """Value-union contexts (UNION ALL): an I64 column becomes f64
+        payloads with every valid row flagged a Cypher INTEGER, so decode
+        restores 1 (not 1.0). Exact only below 2**53, which the caller
+        checks (``ints_beyond_f64``)."""
+        if self.kind == F64:
+            return self
+        return Column(
+            F64, self.data.to(torch.float64), self.valid, int_flag=self.valid_mask()
+        )
+
+    def to_obj(self) -> "Column":
+        return Column(OBJ, _obj_array(self.to_values()), None)
 
     def cast_f64(self) -> "Column":
         """Pure float cast (comparison contexts: intness deliberately

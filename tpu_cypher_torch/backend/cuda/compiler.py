@@ -9,8 +9,8 @@ four ordered comparisons and ``IN`` over a literal list. Every other kind
 raises ``TpuUnsupportedExpr``, as the reference does for what it cannot
 compile. The reference then evaluates the expression as a host island on
 its local oracle; the port does not, so the error reaches the caller.
-Arithmetic, CASE, functions, string predicates and temporal kinds come
-with ROADMAP.md queue 1, item 1.2.
+Arithmetic, CASE, functions and string predicates come with ROADMAP.md
+queue 1, item 6, and temporal kinds with item 7.
 """
 
 from __future__ import annotations

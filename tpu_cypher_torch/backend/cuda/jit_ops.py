@@ -20,6 +20,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 
 I64 = "i64"
@@ -69,6 +70,41 @@ def _live_lanes(total: int, nvalid, like: torch.Tensor) -> torch.Tensor:
     return _arange(total, like) < nvalid
 
 
+def _pack_fold(keys, pack):
+    """Fold integer key tensors into one 63-bit key: ``pack`` holds one
+    (lo, bits) per key."""
+    ints = [k.to(torch.int64) for k in keys]
+    acc = torch.zeros_like(ints[0])
+    for k, (lo, b) in zip(ints, pack):
+        acc = (acc << b) | (k - lo)
+    return acc
+
+
+def _sort_key(k: torch.Tensor) -> torch.Tensor:
+    """A key ``torch.sort`` orders as ``lax.sort`` orders it: bools as int8,
+    floats as int64 order keys with -0.0 made 0.0 and every NaN one NaN
+    (above +inf). The order keys spare the question of how a device sort
+    ranks -0.0 against 0.0."""
+    if k.dtype == torch.bool:
+        return k.to(torch.int8)
+    if k.dtype == torch.float64:
+        canon = torch.where(torch.isnan(k), torch.full_like(k, float("nan")), k + 0.0)
+        return f64_order_keys(canon)
+    return k
+
+
+def _lexsort(keys) -> torch.Tensor:
+    """``jnp.lexsort(tuple(reversed(keys)))``: the stable permutation that
+    sorts by ``keys[0]``, ties by ``keys[1]`` and so on; equal rows keep
+    their order. One stable sort per key, from the last key to the
+    primary."""
+    n = keys[0].shape[0]
+    order = _arange(n, keys[0])
+    for k in reversed(keys):
+        order = order[torch.sort(_sort_key(k)[order], stable=True).indices]
+    return order
+
+
 # ---------------------------------------------------------------------------
 # masks / compaction
 # ---------------------------------------------------------------------------
@@ -110,6 +146,15 @@ def mask_to_idx(mask) -> Tuple[Any, int]:
 def and_valid_mask(data, valid):
     """filter mask = data & valid (valid=None: every row valid)."""
     return data & valid if valid is not None else data
+
+
+def any_nan_valid(data, valid):
+    nan = torch.isnan(data)
+    return torch.any(nan & valid if valid is not None else nan)
+
+
+def take_take(a, idx_outer, idx_inner):
+    return a[idx_outer[idx_inner.to(torch.int64)].to(torch.int64)]
 
 
 # ---------------------------------------------------------------------------
@@ -180,16 +225,14 @@ def join_build(rd, rvalids, is_f64: bool, is_bool: bool):
     """Build-side prep: fold validity masks, NaN-exclude float keys, sort
     valid-first by key. Returns (key data, order, valid count).
 
-    ``jnp.lexsort((rd, ~rvalid))`` is two stable sorts here: by key, then
-    by invalidity, so equal keys keep their row order as in the reference
-    (-0.0 and 0.0 are equal keys in both sorts; NaN keys are invalid)."""
+    ``jnp.lexsort((rd, ~rvalid))``: equal keys keep their row order as in
+    the reference (-0.0 and 0.0 are equal keys; NaN keys are invalid)."""
     rvalid = _fold_valid(rd.shape[0], rvalids, rd)
     if is_f64:
         rvalid = rvalid & ~torch.isnan(rd)
     if is_bool:
         rd = rd.to(torch.int8)
-    by_key = torch.sort(rd, stable=True).indices
-    r_order = by_key[torch.sort((~rvalid)[by_key].to(torch.int8), stable=True).indices]
+    r_order = _lexsort([~rvalid, rd])
     return rd, r_order, torch.sum(rvalid, dtype=torch.int64)
 
 
@@ -461,6 +504,16 @@ def _segment_reduce(vals, seg, k: int, op: str, identity):
     )
 
 
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """float64 square root, correctly rounded as the reference's (IEEE)
+    ``jnp.sqrt`` is. CUDA's double ``sqrt`` is; torch's CPU kernel is not
+    (one ulp off on about 1% of inputs with its AVX-512 path), so a CPU
+    tensor takes numpy's."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(x.numpy()))
+    return torch.sqrt(x)
+
+
 def f64_order_keys(x: torch.Tensor) -> torch.Tensor:
     """float64 -> int64 keys with the same order (-0.0 < 0.0): the bit
     pattern, with all but the sign bit flipped for negative values. The
@@ -522,7 +575,7 @@ def segment_aggregate(data, valid, iflag, seg_j, name: str, kind: str, k: int):
         diff = torch.where(v, x - mean[seg_j.to(torch.int64)], torch.zeros_like(x))
         ssq = _segment_reduce(diff * diff, seg_j, k, "sum", 0.0)
         denom = torch.clamp(cnt - (1 if name == "stdev" else 0), min=1)
-        out = torch.sqrt(ssq / denom)
+        out = _sqrt_rn(ssq / denom)
         return torch.where(cnt >= 2, out, torch.zeros_like(out)), None, None, None
     # min / max with Cypher orderability: numbers < NaN; nulls skipped
     d = data.to(torch.int8) if kind == BOOL else data
@@ -570,3 +623,222 @@ def segment_aggregate(data, valid, iflag, seg_j, name: str, kind: str, k: int):
         out_iflag = iflag[safe_row] & (first_row < n)
         iflag_any = torch.any(out_iflag)
     return agged, cnt > 0, out_iflag, iflag_any
+
+
+# ---------------------------------------------------------------------------
+# equivalence sort (distinct / group factorization)
+# ---------------------------------------------------------------------------
+
+
+def _equivalence_keys(datas, valids, kinds):
+    """Key tensors whose row equality is Cypher equivalence: a null payload
+    becomes 0 (outer joins leave arbitrary data under valid=False), NaN is
+    its own class (a flag key), -0.0 equals 0.0, bools are int8, and the
+    null-class key is left out when the column has no mask. distinct and
+    group only: join keys have ``=`` semantics instead (NaN never
+    matches)."""
+    keys = []
+    for d, v, k in zip(datas, valids, kinds):
+        if k == F64:
+            valid = v if v is not None else torch.ones(d.shape[0], dtype=torch.bool, device=d.device)
+            nan = torch.isnan(d) & valid
+            d = torch.where(valid & ~nan, d, torch.zeros_like(d))
+            d = d + 0.0
+            keys.append(nan)
+        elif k == BOOL:
+            d = d.to(torch.int8)
+        if v is None:
+            keys.append(d)
+        else:
+            keys.append(torch.where(v, d, torch.zeros((), dtype=d.dtype, device=d.device)))
+            keys.append(~v)
+    return keys
+
+
+def _first_flags(keys, order):
+    """First-of-run flags over the rows in ``order``."""
+    n = order.shape[0]
+    diff = torch.zeros(max(n - 1, 0), dtype=torch.bool, device=order.device)
+    for k in keys:
+        ks = k[order]
+        diff = diff | (ks[1:] != ks[:-1])
+    return torch.cat([torch.ones(min(n, 1), dtype=torch.bool, device=order.device), diff])
+
+
+def equivalence_minmax(datas, valids, extra_keys, kinds):
+    """Per-key (min, max) over the equivalence keys, for the host to decide
+    the int packing from one sync. Only called when every key is
+    integral."""
+    keys = list(extra_keys) + _equivalence_keys(datas, valids, kinds)
+    ints = [k.to(torch.int64) for k in keys]
+    return (
+        torch.stack([k.min() for k in ints]),
+        torch.stack([k.max() for k in ints]),
+    )
+
+
+def equivalence_sort(datas, valids, extra_keys, kinds, pack=None):
+    """(order, first-of-group flags over sorted order, group count).
+    ``pack``: None, or one (lo, bits) per key: all-int keys folded into one
+    63-bit key (one stable sort instead of one per key)."""
+    keys = list(extra_keys) + _equivalence_keys(datas, valids, kinds)
+    if pack is not None:
+        keys = [_pack_fold(keys, pack)]
+    order = _lexsort(keys)
+    flags = _first_flags(keys, order)
+    return order, flags, torch.sum(flags, dtype=torch.int64)
+
+
+def distinct_count_packed(datas, valids, extra_keys, kinds, pack):
+    """Distinct-row count over packable all-integer equivalence keys: fold
+    into one int64 key, sort the values, count run boundaries."""
+    keys = list(extra_keys) + _equivalence_keys(datas, valids, kinds)
+    acc = _pack_fold(keys, pack)
+    if acc.shape[0] == 0:
+        return torch.zeros((), dtype=torch.int64, device=acc.device)
+    s = torch.sort(acc).values
+    return torch.sum(s[1:] != s[:-1], dtype=torch.int64) + 1
+
+
+def first_occurrence_rows(order, flags, k: int):
+    """Distinct row indices (original order) from a sorted factorization."""
+    idx = mask_nonzero(flags, size=k)
+    return torch.sort(order[idx]).values
+
+
+def group_index(order, flags, k: int):
+    """(row -> group id in first-occurrence order, first row of each group
+    in row order)."""
+    n = order.shape[0]
+    flag_idx = mask_nonzero(flags, size=k)
+    seg_sorted = torch.cumsum(flags.to(torch.int64), 0) - 1
+    seg_rows = torch.zeros(n, dtype=torch.int64, device=order.device)
+    seg_rows[order] = seg_sorted
+    first_rows_keyorder = order[flag_idx]
+    rank_order = torch.sort(first_rows_keyorder, stable=True).indices
+    rank = torch.zeros(k, dtype=torch.int64, device=order.device)
+    rank[rank_order] = _arange(k, order)
+    seg_j = rank[seg_rows]
+    first_rows = torch.sort(first_rows_keyorder).values
+    return seg_j, first_rows
+
+
+# ---------------------------------------------------------------------------
+# ORDER BY permutation
+# ---------------------------------------------------------------------------
+
+
+def order_permutation(datas, valids, kinds, ascs):
+    """Stable lexsort permutation under Cypher orderability (numbers < NaN
+    < null ascending; DESC reverses all three ranks). Items arrive in ORDER
+    BY priority order; within an item the null rank is the primary key,
+    then the NaN rank, then the value."""
+    keys = []
+    for d, v, k, asc in zip(datas, valids, kinds, ascs):
+        null = ~v if v is not None else torch.zeros(d.shape[0], dtype=torch.bool, device=d.device)
+        if k == BOOL:
+            d = d.to(torch.int8)
+        if k == F64:
+            nan = torch.isnan(d)
+            d = torch.where(nan, torch.zeros_like(d), d)
+        else:
+            nan = None
+        item = [null.to(torch.int8)]
+        if nan is not None:
+            item.append(nan.to(torch.int8))
+        item.append(d)
+        keys.extend(item if asc else [-x for x in item])
+    return _lexsort(keys)
+
+
+# ---------------------------------------------------------------------------
+# ORDER BY ... LIMIT k as top-k over one packed key
+# ---------------------------------------------------------------------------
+
+
+def order_minmax(datas, valids):
+    """(min, max) per key over VALID rows only (invalid payloads are
+    arbitrary and must not widen the packing range)."""
+    info = torch.iinfo(torch.int64)
+    mins, maxs = [], []
+    for d, v in zip(datas, valids):
+        d = d.to(torch.int64)
+        if v is not None:
+            mins.append(torch.min(torch.where(v, d, torch.full_like(d, info.max))))
+            maxs.append(torch.max(torch.where(v, d, torch.full_like(d, info.min))))
+        else:
+            mins.append(torch.min(d))
+            maxs.append(torch.max(d))
+    return torch.stack(mins), torch.stack(maxs)
+
+
+def order_topk(datas, valids, ascs, pack, k: int):
+    """Row indices of the first ``k`` rows under Cypher orderability, as one
+    top-k over a packed int64 rank. Keys arrive in ORDER BY priority order;
+    each contributes (1 null bit | data bits) with DESC keys reversed, so
+    lexicographic order is integer order. The original row index in the
+    lowest bits makes every key unique, so the k smallest are the rows a
+    stable sort puts first. All-integer keys only (the caller budgets the
+    bits)."""
+    acc = torch.zeros(datas[0].shape[0], dtype=torch.int64, device=datas[0].device)
+    for d, v, asc, (lo, span, bits) in zip(datas, valids, ascs, pack):
+        val = d.to(torch.int64) - lo
+        if v is not None:
+            val = torch.where(v, val, torch.zeros_like(val))
+            null_rank = (~v).to(torch.int64)  # nulls last ascending
+        else:
+            null_rank = torch.zeros_like(val)
+        if not asc:
+            val = span - val
+            null_rank = 1 - null_rank  # nulls first descending
+        acc = (acc << 1) | null_rank
+        acc = (acc << bits) | val
+    n = acc.shape[0]
+    rowbits = max(n - 1, 0).bit_length()
+    acc = (acc << rowbits) | _arange(n, acc)
+    return torch.topk(acc, k, largest=False, sorted=True).indices
+
+
+# ---------------------------------------------------------------------------
+# percentiles
+# ---------------------------------------------------------------------------
+
+
+def segment_percentile(data, valid, seg_j, p: float, name: str, k: int):
+    """percentileCont/Disc: one segment-sorted gather. Returns (out_data,
+    out_valid, order, positions); the caller maps the gathered rows back
+    for the disc variant's int_flag."""
+    n = data.shape[0]
+    dev = data.device
+    v = valid if valid is not None else torch.ones(n, dtype=torch.bool, device=dev)
+    cnt = _segment_reduce(v.to(torch.int64), seg_j, k, "sum", 0)
+    # an explicit invalid flag as the secondary key: a value sentinel could
+    # tie with real data and let a null row's payload be gathered
+    order = _lexsort([seg_j, ~v, data])
+    sorted_val = data[order]
+    sizes = _segment_reduce(torch.ones(n, dtype=torch.int64, device=dev), seg_j, k, "sum", 0)
+    starts = _exclusive_cumsum(sizes)
+    safe_cnt = torch.clamp(cnt, min=1)
+    last = max(n - 1, 0)
+    if name == "percentiledisc":
+        if p > 0:
+            idx = torch.ceil(p * safe_cnt.to(torch.float64)).to(torch.int64) - 1
+        else:
+            idx = torch.zeros_like(safe_cnt)
+        idx = torch.minimum(torch.clamp(idx, min=0), safe_cnt - 1)
+        pos = torch.clamp(starts + idx, 0, last)
+        out = sorted_val[pos] if n else torch.zeros(k, dtype=data.dtype, device=dev)
+        return out, cnt > 0, order, pos
+    fidx = p * (safe_cnt.to(torch.float64) - 1)
+    lo = torch.floor(fidx).to(torch.int64)
+    hi = torch.ceil(fidx).to(torch.int64)
+    frac = fidx - lo.to(torch.float64)
+    pos_lo = torch.clamp(starts + lo, 0, last)
+    pos_hi = torch.clamp(starts + hi, 0, last)
+    if n:
+        vlo = sorted_val[pos_lo].to(torch.float64)
+        vhi = sorted_val[pos_hi].to(torch.float64)
+        out = vlo * (1 - frac) + vhi * frac
+    else:
+        out = torch.zeros(k, dtype=torch.float64, device=dev)
+    return out, cnt > 0, order, pos_lo

@@ -1,17 +1,18 @@
 """CudaTable: the torch/CUDA columnar Table implementation.
 
-The port of the slice's part of ``tpu_cypher/backend/tpu/table.py``
-(``TpuTable``): columns are tensors on the backend's device
-(``column.Column``) with validity masks. The port carries the Table SPI
-methods that the CSR expand, WCOJ triangle and classic filter/join plans
-call — construction (``from_arrays``, ``from_numpy``, ``from_columns``),
-``select``/``rename``/``drop``/``project``, ``with_columns``, ``filter``,
-``join`` (every kind; the probe goes through the ``join_probe`` kernel),
-``union_all`` (of columns that share their kind),
-``group`` (global aggregates on device through the ``segment_agg``
-kernel), ``rows``/``column_values`` and ``cache`` — plus the planner's
-fused-expand and multiway-intersect hooks. Every other SPI method raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it.
+The port of ``tpu_cypher/backend/tpu/table.py`` (``TpuTable``): columns are
+tensors on the backend's device (``column.Column``) with validity masks.
+The port carries the Table SPI — construction (``from_arrays``,
+``from_numpy``, ``from_columns``), ``select``/``rename``/``drop``/
+``project``, ``with_columns``, ``filter``, ``join`` (every kind; the probe
+goes through the ``join_probe`` kernel), ``union_all`` (with kind
+promotion), ``distinct``, ``order_by``, ``skip``, ``limit``,
+``with_row_index``, ``group`` (grouped and global aggregates, count, sum,
+min and max through the ``segment_agg`` kernel), ``rows``/
+``column_values`` and ``cache`` — plus the ``order_by_limit`` and
+``distinct_count`` hooks and the planner's fused-expand and
+multiway-intersect hooks. ``explode`` raises ``NotImplementedError``
+naming the ROADMAP.md item that ports it.
 
 The reference answers an expression or aggregate it cannot compile with a
 host island on its local oracle. The port keeps no host island: such a
@@ -20,7 +21,7 @@ call raises ``TpuUnsupportedExpr``, so device work never moves to the CPU.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, List, Optional, Sequence
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,11 +33,23 @@ from ...runtime.faults import fault_point
 from . import bucketing
 from . import device as _device
 from . import jit_ops as J
-from .column import BOOL, F64, I64, OBJ, STR, Column, TpuBackendError, _unify_vocab
+from .column import (
+    BOOL,
+    F64,
+    I64,
+    INTEGRAL_KINDS,
+    OBJ,
+    STR,
+    Column,
+    TpuBackendError,
+    _obj_array,
+    _unify_vocab,
+    to_host,
+)
 from .compiler import CudaEvaluator, TpuUnsupportedExpr
 
 # ROADMAP.md queue 1 items that port the SPI methods this slice leaves out
-_NEXT_SLICE = "queue 1, item 1.2 (the remaining Table SPI methods and compiler.py)"
+_NEXT_SLICE = "queue 1, item 6 (explode, from_rows and the rest of compiler.py)"
 
 
 def _not_ported(method: str, item: str = _NEXT_SLICE):
@@ -410,10 +423,9 @@ class CudaTable(Table):
     # -- union -------------------------------------------------------------
 
     def union_all(self, other: "CudaTable") -> "CudaTable":
-        """Rows of ``self`` then ``other`` (the classic plan's undirected
-        relationship scan). Each column pair must share its kind; kind
-        promotion raises ``NotImplementedError`` (ROADMAP.md queue 1, item
-        1.2)."""
+        """Rows of ``self`` then ``other``, column by column through
+        ``Column.concat`` (kind promotion included). The reference's padded
+        fork (``_union_all_padded``) is left out with the bucket lattice."""
         if set(self._cols) != set(other._cols):
             raise TpuBackendError("unionAll column mismatch")
         t, o = self._depad(), other._depad()
@@ -422,30 +434,195 @@ class CudaTable(Table):
             t._nrows + o._nrows,
         )
 
+    # -- row shaping -------------------------------------------------------
+
+    def skip(self, n: int) -> "CudaTable":
+        t = self._depad()
+        n = min(n, t._nrows)
+        return CudaTable(
+            {c: col.slice(n, t._nrows) for c, col in t._cols.items()}, t._nrows - n
+        )
+
+    def limit(self, n: int) -> "CudaTable":
+        t = self._depad()
+        n = min(n, t._nrows)
+        return CudaTable({c: col.slice(0, n) for c, col in t._cols.items()}, n)
+
+    def with_row_index(self, col: str) -> "CudaTable":
+        t = self._depad()
+        out = dict(t._cols)
+        out[col] = Column(
+            I64, torch.arange(t._nrows, dtype=torch.int64, device=_device.get()), None
+        )
+        return CudaTable(out, t._nrows)
+
+    # -- ordering ----------------------------------------------------------
+
+    def order_by_limit(
+        self, items: Sequence[Tuple[str, bool]], k: int
+    ) -> Optional["CudaTable"]:
+        """The first ``k`` rows under ORDER BY as one top-k over a packed
+        int64 rank (``jit_ops.order_topk``). None (the caller sorts and
+        limits) unless every key is integral (ints, bools, string codes)
+        and the ranges, a null bit per key and the row-index tiebreak fit
+        62 bits."""
+        t = self._depad()
+        if t is not self:
+            return t.order_by_limit(items, k)
+        n = self._nrows
+        if not items or n == 0 or k == 0:
+            return None
+        cols = [self._cols[c] for c, _ in items]
+        if any(c.kind not in INTEGRAL_KINDS for c in cols):
+            return None
+        k = min(k, n)
+        datas = tuple(c.data for c in cols)
+        valids = tuple(c.valid for c in cols)
+        mins, maxs = (to_host(x) for x in J.order_minmax(datas, valids))
+        pack = []
+        total_bits = 0
+        for lo, hi in zip(mins, maxs):
+            lo, hi = int(lo), int(hi)
+            if lo > hi:  # all-null key: no data bits
+                lo, hi = 0, 0
+            span = hi - lo
+            bits = span.bit_length()
+            total_bits += bits + 1  # and a null bit
+            pack.append((lo, span, bits))
+        total_bits += max(n - 1, 0).bit_length()  # the row-index tiebreak
+        if total_bits > 62:
+            return None
+        ascs = tuple(bool(a) for _, a in items)
+        return self._take(J.order_topk(datas, valids, ascs, tuple(pack), k=k))
+
+    def order_by(self, items: Sequence[Tuple[str, bool]]) -> "CudaTable":
+        """ORDER BY: one stable lexsort under Cypher orderability
+        (``jit_ops.order_permutation``) and one gather. Object-valued keys
+        raise ``TpuUnsupportedExpr``; the reference sorts them on its host
+        oracle."""
+        t = self._depad()
+        if t is not self:
+            return t.order_by(items)
+        if any(self._cols[c].kind == OBJ for c, _ in items):
+            raise TpuUnsupportedExpr("ORDER BY on object-valued keys")
+        if not items:
+            return self
+        cols = [self._cols[c] for c, _ in items]
+        idx = J.order_permutation(
+            tuple(c.data for c in cols),
+            tuple(c.valid for c in cols),
+            tuple(c.kind for c in cols),
+            tuple(bool(asc) for _, asc in items),
+        )
+        return self._take(idx)
+
+    # -- distinct / group factorization ------------------------------------
+
+    def _first_occurrence_index(self, on: Sequence[str], extra_keys: Sequence[Any] = ()):
+        """Stable lexsort over Cypher-equivalence keys -> (sorted row order,
+        first-of-group flags over the sorted order, device group count).
+        The first row of each equal-key run is the group's earliest row.
+        ``extra_keys`` are higher-priority keys (a group index for DISTINCT
+        aggregates). All-integer key sets whose ranges fit 63 bits sort as
+        one packed key."""
+        datas = tuple(self._cols[c].data for c in on)
+        valids = tuple(self._cols[c].valid for c in on)
+        kinds = tuple(self._cols[c].kind for c in on)
+        extras = tuple(extra_keys)
+        pack = self._equiv_pack(datas, valids, kinds, extras, min_keys=2)
+        return J.equivalence_sort(datas, valids, extras, kinds, pack=pack)
+
+    def _equiv_pack(self, datas, valids, kinds, extras, min_keys: int):
+        """The int packing of the equivalence keys over these columns, or
+        None when a key is not integral, the ranges exceed 63 bits or there
+        are fewer than ``min_keys`` keys (one min/max probe, one sync)."""
+        # extras are group ids: int64
+        if self._nrows == 0 or any(k not in INTEGRAL_KINDS for k in kinds):
+            return None
+        # one data key per column, a null-class key per mask, the extras:
+        # decided before the device probe
+        nkeys = len(extras) + sum(1 if v is None else 2 for v in valids)
+        if nkeys < min_keys:
+            return None
+        mins, maxs = (to_host(x) for x in J.equivalence_minmax(datas, valids, extras, kinds))
+        bits = [(int(hi) - int(lo)).bit_length() for lo, hi in zip(mins, maxs)]
+        if sum(bits) > 63:
+            return None
+        return tuple((int(lo), b) for lo, b in zip(mins, bits))
+
+    def distinct_count(self, cols: Sequence[str]) -> Optional[int]:
+        """Number of distinct rows over ``cols`` without materializing them
+        (the count-over-distinct pushdown). All-integer key sets take a
+        packed values-only sort; other keys the first-occurrence
+        factorization. None for object-valued keys (the caller runs
+        ``distinct``). The reference's sharded tier waits for ROADMAP.md
+        queue 1, item 9."""
+        t = self._depad()
+        if t is not self:
+            return t.distinct_count(cols)
+        if not cols or any(self._cols[c].kind == OBJ for c in cols):
+            return None
+        if self._nrows == 0:
+            return 0
+        # one scalar sync: an agg-class device sync, so the agg fault site
+        fault_point("agg")
+        datas = tuple(self._cols[c].data for c in cols)
+        valids = tuple(self._cols[c].valid for c in cols)
+        kinds = tuple(self._cols[c].kind for c in cols)
+        pack = self._equiv_pack(datas, valids, kinds, (), min_keys=1)
+        if pack is not None:
+            return int(J.distinct_count_packed(datas, valids, (), kinds, pack))
+        _, _, cnt = J.equivalence_sort(datas, valids, (), kinds, pack=None)
+        return int(cnt)
+
+    def distinct(self, cols: Optional[Sequence[str]] = None) -> "CudaTable":
+        """The first row of each Cypher-equivalence class, in row order.
+        Object-valued keys raise ``TpuUnsupportedExpr``; the reference
+        deduplicates them on its host oracle."""
+        t = self._depad()
+        if t is not self:
+            return t.distinct(cols)
+        on = list(cols) if cols is not None else self.physical_columns
+        if any(self._cols[c].kind == OBJ for c in on):
+            raise TpuUnsupportedExpr("DISTINCT on object-valued keys")
+        if not on:
+            return self.limit(1) if self._nrows > 1 else self
+        if self._nrows == 0:
+            return self
+        order, flags, cnt = self._first_occurrence_index(on)
+        return self._take(J.first_occurrence_rows(order, flags, k=int(cnt)))
+
     # -- grouped aggregation ------------------------------------------------
 
-    _DEVICE_AGGS = frozenset({"count", "sum", "avg", "stdev", "stdevp", "min", "max"})
+    _DEVICE_AGGS = frozenset({
+        "count", "sum", "avg", "stdev", "stdevp", "min", "max",
+        "percentilecont", "percentiledisc", "collect",
+    })
+    # DISTINCT runs as a device pre-dedup of (group, value) pairs
+    _DISTINCT_AGGS = frozenset({"count", "sum", "avg", "min", "max", "collect"})
 
     def group(self, by, aggregations, header, parameters) -> "CudaTable":
         return self._depad()._group_device(by, aggregations, header, parameters)
 
     def _group_device(self, by, aggregations, header, parameters) -> "CudaTable":
-        """Global aggregation (no grouping keys) on the device: one group,
-        every aggregate a segment reduce through the ``segment_agg`` gate.
-        Grouping keys, DISTINCT aggregates and the other aggregate names
-        raise ``TpuUnsupportedExpr`` until the classic Table SPI slice
-        ports the device group factorization."""
+        """Grouped aggregation on the device: the group ids come from
+        ``distinct``'s lexsort factorization (null and NaN classes), renumbered
+        in first-occurrence order (``jit_ops.group_index``); each aggregate is
+        then a segment reduce over them. An aggregate or grouping key the
+        device cannot compute raises ``TpuUnsupportedExpr``: the reference
+        answers those on its host oracle."""
         from ...ir import expr as E
 
-        if by:
-            raise TpuUnsupportedExpr("grouping keys: ROADMAP.md " + _NEXT_SLICE)
         for _, agg in aggregations:
             if not isinstance(agg, E.Agg) or agg.name.lower() not in self._DEVICE_AGGS:
                 raise TpuUnsupportedExpr(f"device agg {getattr(agg, 'name', agg)}")
-            if agg.distinct:
+            if agg.distinct and agg.name.lower() not in self._DISTINCT_AGGS:
                 raise TpuUnsupportedExpr(f"device agg DISTINCT {agg.name}")
+        if any(self._cols[c].kind == OBJ for c in by):
+            raise TpuUnsupportedExpr("object-valued group keys")
         n = self._nrows
-        if all(agg.name.lower() == "count" and agg.expr is None for _, agg in aggregations):
+        if not by and all(agg.name.lower() == "count" and agg.expr is None
+                          for _, agg in aggregations):
             # global count(*): the row count is already host-known (the
             # fused count-only expand path ends here)
             return CudaTable(
@@ -456,21 +633,72 @@ class CudaTable(Table):
                 1,
             )
         dev = _device.get()
-        ev = CudaEvaluator(self, header, parameters)
         out_cols: Dict[str, Column] = {}
+        if by and n == 0:
+            return self._empty_group(by, aggregations, header, parameters)
+        if by:
+            order, flags, cnt = self._first_occurrence_index(by)
+            k = int(cnt)
+            seg_j, first_rows = J.group_index(order, flags, k=k)
+            for c, key in self.select(by)._take(first_rows)._cols.items():
+                out_cols[c] = key
+        else:  # global aggregation: one group, even over zero rows
+            seg_j, k = None, 1
+        ev = CudaEvaluator(self, header, parameters)
         for out_col, agg in aggregations:
             name = agg.name.lower()
             if agg.expr is None:  # count(*): every row counts
-                out_cols[out_col] = Column(
-                    I64, torch.tensor([n], dtype=torch.int64, device=dev), None
+                counts = (
+                    torch.tensor([n], dtype=torch.int64, device=dev) if seg_j is None
+                    else torch.bincount(seg_j, minlength=k)
                 )
+                out_cols[out_col] = Column(I64, counts, None)
                 continue
             col = ev.eval(agg.expr)
             if col.kind == OBJ:
                 raise TpuUnsupportedExpr("object-valued aggregation input")
-            # one group: no segment ids (the kernel reads none)
-            out_cols[out_col] = self._segment_agg(name, None, col, 1)
-        return CudaTable(out_cols, 1)
+            seg_a, col_a = seg_j, col
+            if agg.distinct or name in ("collect", "percentilecont", "percentiledisc"):
+                if seg_a is None:  # these take explicit ids, all in group 0
+                    seg_a = torch.zeros(n, dtype=torch.int64, device=dev)
+                if agg.distinct:
+                    seg_a, col_a = self._dedup_seg_values(seg_a, col)
+            if name == "collect":
+                out_cols[out_col] = _collect(seg_a, col_a, k)
+            elif name in ("percentilecont", "percentiledisc"):
+                out_cols[out_col] = _percentile(name, agg, seg_a, col_a, k, parameters)
+            else:
+                out_cols[out_col] = self._segment_agg(name, seg_a, col_a, k)
+        return CudaTable(out_cols, k)
+
+    def _empty_group(self, by, aggregations, header, parameters) -> "CudaTable":
+        """Zero rows with grouping keys: no group, so an empty table of the
+        key columns and one column per aggregate, of the kind the aggregate
+        gives. The reference asks its host oracle here."""
+        out_cols = dict(self.select(by)._cols)
+        ev = CudaEvaluator(self, header, parameters)
+        for out_col, agg in aggregations:
+            name = agg.name.lower()
+            if name == "collect":
+                out_cols[out_col] = Column(OBJ, _obj_array([]), None)
+                continue
+            kind = I64 if agg.expr is None else ev.eval(agg.expr).kind
+            if name == "count":
+                kind = I64
+            elif name in ("avg", "stdev", "stdevp", "percentilecont"):
+                kind = F64
+            out_cols[out_col] = _empty_column(kind)
+        return CudaTable(out_cols, 0)
+
+    def _dedup_seg_values(self, seg_j, col: Column):
+        """Device dedup of (group, value) pairs for DISTINCT aggregates: the
+        first occurrence of each Cypher-equivalence class within each group
+        (the group id is the leading key), in row order, so collect DISTINCT
+        keeps first-appearance order as the oracle does."""
+        tmp = CudaTable({"__v": col}, int(seg_j.shape[0]))
+        order, flags, cnt = tmp._first_occurrence_index(["__v"], extra_keys=[seg_j])
+        rows = J.first_occurrence_rows(order, flags, k=int(cnt))
+        return seg_j[rows], col.take(rows)
 
     def _segment_agg(self, name: str, seg_j, col: Column, k: int) -> Column:
         """One aggregator over (value column, group index; None: one
@@ -493,12 +721,7 @@ class CudaTable(Table):
 
     # -- not ported yet ----------------------------------------------------
 
-    order_by = _not_ported("order_by")
-    skip = _not_ported("skip")
-    limit = _not_ported("limit")
-    distinct = _not_ported("distinct")
     explode = _not_ported("explode")
-    with_row_index = _not_ported("with_row_index")
 
     def __repr__(self) -> str:
         return f"CudaTable({self._nrows} rows, cols={self.physical_columns})"
@@ -522,6 +745,61 @@ class CudaTable(Table):
         from .expand_op import plan_filter_fastpath
 
         return plan_filter_fastpath(planner, op, child)
+
+
+def _empty_column(kind: str) -> Column:
+    dtype = {I64: torch.int64, F64: torch.float64, BOOL: torch.bool, STR: torch.int32}[kind]
+    return Column(kind, torch.zeros(0, dtype=dtype, device=_device.get()), None,
+                  [] if kind == STR else None)
+
+
+def _collect(seg_j, col: Column, k: int) -> Column:
+    """collect per group: host lists by definition, so only this column
+    decodes (the reference does the same)."""
+    fault_point("agg")
+    vals = col.to_values()
+    valid = to_host(col.valid) if col.valid is not None else None
+    lists: List[List[Any]] = [[] for _ in range(k)]
+    for i, g in enumerate(to_host(seg_j).tolist()):
+        if valid is None or valid[i]:
+            lists[g].append(vals[i])
+    return Column(OBJ, _obj_array(lists), None)
+
+
+def _percentile(name: str, agg, seg_j, col: Column, k: int, parameters) -> Column:
+    """percentileCont/Disc as a segment-sorted gather. A fraction that is
+    not a literal or parameter in [0, 1], a non-numeric input and NaN values
+    raise ``TpuUnsupportedExpr``; the reference answers those on its host
+    oracle."""
+    from ...ir import expr as E
+
+    if not agg.extra:
+        raise TpuUnsupportedExpr("percentile without fraction")
+    pe = agg.extra[0]
+    if isinstance(pe, E.Lit):
+        p = pe.value
+    elif isinstance(pe, E.Param):
+        p = (parameters or {}).get(pe.name)
+    else:
+        raise TpuUnsupportedExpr("non-literal percentile fraction")
+    if not isinstance(p, (int, float)) or not 0 <= float(p) <= 1:
+        raise TpuUnsupportedExpr("percentile fraction out of range")
+    p = float(p)
+    fault_point("agg")
+    kind = col.kind
+    if kind not in (I64, F64, STR) or (name == "percentilecont" and kind == STR):
+        raise TpuUnsupportedExpr(f"{name} over {kind}")
+    if kind == F64 and bool(J.any_nan_valid(col.data, col.valid)):
+        raise TpuUnsupportedExpr("percentile over NaN values")
+    out, out_valid, order, pos = J.segment_percentile(
+        col.data, col.valid, seg_j, p, name=name, k=k
+    )
+    if name == "percentilecont":
+        return Column(F64, out, out_valid)
+    iflag = None
+    if col.int_flag is not None and len(col):
+        iflag = J.take_take(col.int_flag, order, pos)
+    return Column(kind, out, out_valid, col.vocab, int_flag=iflag)
 
 
 def _float_as_exact_int(c: Column) -> Column:
