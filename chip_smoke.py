@@ -24,7 +24,11 @@ Phases (any failure exits non-zero and prints no result line):
             version, and times ``join_materialize`` (Q11) and
             ``into_materialize_counted`` (Q7), torch ops, against their
             byte bounds; holds ``segment_agg`` to its plain version at
-            Q15's own group ids (k = 256) and times it there;
+            Q15's own group ids (k = 256) and times it there; holds
+            ``expand_rows`` to its plain version at the chain walk's
+            shapes (Q17's final hop, about 197M lanes without orig, and
+            Q18's third hop with orig, captured from a run of each) and
+            times them, with Q17's final hop whole and its sort;
 4. slice  — runs the slices' queries through ``CypherSession.cuda()``
             on the LDBC-SNB-shaped graphs (SF1: 10,000 persons, SF10:
             100,000 persons, seed 42): Q1-Q5 on the CSR expand path, Q6-Q8
@@ -38,8 +42,17 @@ Phases (any failure exits non-zero and prints no result line):
             Q13-Q16 on row shaping and grouping (the 2-hop DISTINCT count,
             a grouped count under ORDER BY ... LIMIT, grouped min, max and
             percentileDisc over 256 groups on ``segment_agg``, DISTINCT
-            values paged with SKIP and LIMIT), each cold and five times
-            warm with its peak device memory. It checks every
+            values paged with SKIP and LIMIT; Q13 now on the fused walk's
+            DISTINCT-endpoints count), and Q17-Q21 and three loopy-graph
+            queries on the chain walk (the 2-hop DISTINCT at SF10,
+            bench.py VAR_LENGTH, BASELINE.md config 4's *1..4, a
+            materializing *1..2 at SF1, an undirected *1..2 and a *0..2,
+            and relationship uniqueness enforced inside the chain), each
+            cold and five times warm with its peak device memory. The
+            walk counts' truth honours relationship uniqueness: by rule
+            (the homomorphic count less the walks that reuse an edge),
+            each rule held to a brute-force enumeration on 20 sources,
+            or by the enumeration itself. It checks every
             answer against numpy/scipy ground truth computed from the
             generator's arrays, and checks that each query ran on the
             device rung once with no kernel fallback, launched its kernels
@@ -153,6 +166,26 @@ Q15 = (
 Q16 = (
     "MATCH (a:Person)-[:KNOWS]->(b:Person) RETURN DISTINCT b.birthday AS d "
     "ORDER BY d SKIP 100 LIMIT 50"
+)
+
+# the chain walk: the 2-hop DISTINCT count at SF10 (bench.py
+# TWO_HOP_DISTINCT), bench.py VAR_LENGTH (*1..3), BASELINE.md config 4
+# (*1..4), a materializing *1..2, an undirected *1..2 and a *0..2, each
+# over a source-id window by bench.py's rule
+Q17 = Q13
+WALK_WINDOW = "MATCH (a:Person) WHERE a.id >= $lo AND a.id < $hi WITH a "
+Q18 = WALK_WINDOW + "MATCH (a)-[:KNOWS*1..3]->(b:Person) RETURN count(*) AS walks"
+Q19 = WALK_WINDOW + "MATCH (a)-[:KNOWS*1..4]->(b:Person) RETURN count(*) AS walks"
+Q20 = WALK_WINDOW + "MATCH (a)-[:KNOWS*1..2]->(b:Person) RETURN a.id AS a, b.id AS b"
+Q21_UNDIRECTED = WALK_WINDOW + "MATCH (a)-[:KNOWS*1..2]-(b:Person) RETURN count(*) AS walks"
+Q21_ZERO = WALK_WINDOW + "MATCH (a)-[:KNOWS*0..2]->(b:Person) RETURN count(*) AS walks"
+# relationship uniqueness inside the chain, on the loopy graph: a
+# fixed-rel-versus-var-length count, the fixed rels from a window of x (a
+# window of c would sit above the walk, which then walks from every c)
+LOOPY_FORBID = (
+    "MATCH (x:Person) WHERE x.id < $hi WITH x "
+    "MATCH (x)-[r:KNOWS]->(y:Person), (c:Person)-[rs:KNOWS*1..2]->(d:Person) "
+    "RETURN count(*) AS n"
 )
 
 
@@ -1064,6 +1097,100 @@ def check_join_probe(torch, g10, q11_truth, report):
           f"bound {b_ms:.4f} ms ({b_by}); {steps} slot reads over {nq} lanes")
 
 
+def check_expand_rows_walks(torch, g10, q17_truth, q18_params, q18_truth, report):
+    """``expand_rows`` at the chain walk's shapes, held to its plain version
+    bit for bit (pads included) and timed (mean of 20, CUDA events) against
+    its byte bound: Q17's final hop (SF10, the 2-hop DISTINCT: the middle
+    hop's lanes as frontier, without orig) and Q18's third hop (bench.py
+    VAR_LENGTH, with orig). The inputs are those of an extra Q17 and Q18
+    run, captured there; at Q17 also the final hop whole (the kernel's
+    merge, then ``distinct_pairs_count_final``) and its sort alone."""
+    from tpu_cypher_torch.backend.cuda import expand_op as PX
+    from tpu_cypher_torch.backend.cuda import hopper
+    from tpu_cypher_torch.backend.cuda import jit_ops as J
+    from tpu_cypher_torch.backend.cuda.hopper import expand as KX
+
+    finals = []
+    inner = J.distinct_pairs_count_final
+
+    def final_hook(lanes, *args, **kwargs):
+        finals.append((args, kwargs))
+        return inner(lanes, *args, **kwargs)
+
+    J.distinct_pairs_count_final = final_hook
+    try:
+        calls, rows = q_hooked_calls(g10, Q17, PX, "_walk_lanes")
+    finally:
+        J.distinct_pairs_count_final = inner
+    check(rows == [{"pairs": q17_truth}] and len(calls) == 2 and len(finals) == 1,
+          f"Q17 (hooked) {rows} != {q17_truth}, {len(calls)} merges, "
+          f"{len(finals)} final hops")
+    rp, ci, _, pos, deg, q17_size, nvalid, with_orig = calls[1][0]
+    check(nvalid is None and not with_orig, "Q17's final hop is not an exact merge "
+          "without orig")
+    (akey, mask), f_kwargs = finals[0]
+    n = f_kwargs["num_nodes"]
+    gate = {"q17": ((rp, ci, None, pos, deg, q17_size), q17_size, False)}
+    calls, rows = q_hooked_calls(g10, Q18, hopper, "expand_materialize_counted",
+                                 q18_params)
+    check(len(calls) == 3, f"Q18 made {len(calls)} expand calls, expected 3")
+    check(rows == [{"walks": q18_truth}], f"Q18 (hooked) {rows} != {q18_truth}")
+    args, kwargs = calls[2]
+    check(kwargs["with_orig"] is True, "Q18's third hop asked for no orig")
+    gate["q18"] = (args, kwargs["size"], True)
+    err = report["expand_rows"]["max_abs_err"]
+    for key, (args, size, with_orig) in gate.items():
+        got = KX.expand_materialize_counted_cuda(*args, size, with_orig)
+        want = J.expand_materialize_counted(*args, size, with_orig=with_orig)
+        torch.cuda.synchronize()
+        e = tuple_err(torch, got, want)
+        del got, want
+        err = max(err, e)
+        f = int(args[3].shape[0])
+        shape = (f"F={f}, {size} lanes, {'with' if with_orig else 'without'} orig")
+        check(e == 0.0, f"expand_rows at {key.upper()} ({shape}) disagrees with its "
+              f"plain version")
+        ms = time_ms(torch, lambda: KX.expand_materialize_counted_cuda(
+            *args, size, with_orig))
+        plain_ms = time_ms(torch, lambda: J.expand_materialize_counted(
+            *args, size, with_orig=with_orig), iters=3, warmup=1)
+        cum, _ = KX.frontier_state(args[0], args[3], args[4])
+        lanes = torch.arange(size, dtype=torch.int32, device=cum.device)
+        lib_ms = time_ms(torch, lambda: torch.searchsorted(cum, lanes, right=True))
+        del cum, lanes
+        b_ms, b_by, ops_ms = expand_bound(torch, args[3], args[4], min(int(args[5]), size),
+                                          size, with_orig, KX.TILE_ITEMS)
+        report["expand_rows"].update({
+            f"{key}_tier_ms": ms, f"{key}_plain_ms": plain_ms, f"{key}_library_ms": lib_ms,
+            f"{key}_bound_ms": b_ms, f"{key}_bound_by": b_by,
+            f"{key}_ops_bound_ms": ops_ms, f"{key}_max_abs_err": e,
+            f"{key}_shape": shape,
+        })
+        print(f"  expand_rows tier at {key.upper()}'s "
+              f"{'final' if key == 'q17' else 'third'} hop ({shape}): bit-identical, "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.searchsorted {lib_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}; operations {ops_ms:.4f} ms)")
+    report["expand_rows"]["max_abs_err"] = err
+
+    def final_hop():  # Q17's final hop whole, as the walk runs it
+        lanes = list(KX.expand_materialize_counted_cuda(rp, ci, None, pos, deg, q17_size,
+                                                        q17_size, False))
+        lanes[3] = None  # an exact merge: every lane is live
+        return J.distinct_pairs_count_final(lanes, akey, mask, **f_kwargs)
+
+    final_ms = time_ms(torch, final_hop, iters=5, warmup=1)
+    # and its sort alone, on the hop's packed keys
+    row, nbr, _, _ = KX.expand_materialize_counted_cuda(rp, ci, None, pos, deg, q17_size,
+                                                        q17_size, False)
+    keys = akey[row] * n + nbr
+    del row, nbr
+    sort_ms = time_ms(torch, lambda: torch.sort(keys), iters=10, warmup=2)
+    del keys
+    report["expand_rows"].update(q17_final_hop_ms=final_ms, q17_sort_ms=sort_ms)
+    print(f"  Q17's final hop (merge, distinct_pairs_count_final): {final_ms:.4f} ms, "
+          f"of which torch.sort of its {q17_size} packed keys {sort_ms:.4f} ms")
+
+
 def check_two_streams(torch, session, g10, rounds=30):
     """``segment_agg``, ``frontier_deg_sum`` and ``expand_rows``, whose
     launches keep tickets and partials in a scratch buffer, launched at once
@@ -1131,7 +1258,7 @@ def check_two_streams(torch, session, g10, rounds=30):
           f"every answer equal to its plain version")
 
 
-def q_hooked_calls(pg, query, module, name):
+def q_hooked_calls(pg, query, module, name, params=None):
     """Run ``query`` once with a hook on ``module.name`` and return the
     (args, kwargs) of each call, and the rows."""
     calls = []
@@ -1143,7 +1270,7 @@ def q_hooked_calls(pg, query, module, name):
 
     setattr(module, name, hook)
     try:
-        rows = [dict(r) for r in pg.cypher(query).records.collect()]
+        rows = [dict(r) for r in pg.cypher(query, params).records.collect()]
     finally:
         setattr(module, name, inner)
     return calls, rows
@@ -1342,6 +1469,154 @@ def two_hop_distinct_pairs(s, d, n) -> int:
     return len(np.unique(a.astype(np.int64) * n + c)), total
 
 
+def two_hop_distinct_scipy(s, d, n, step=8192) -> int:
+    """Distinct (a, c) over the 2-walks a->b->c: the nonzeros of A @ A on
+    the binary adjacency, by row block (scipy)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    A = sp.csr_matrix((np.ones(len(s), np.int8), (s, d)), shape=(n, n))
+    A.data[:] = 1  # duplicates summed: binary again
+    A = A.astype(np.int32)
+    return sum(int((A[lo:lo + step] @ A).nnz) for lo in range(0, n, step))
+
+
+def walk_window(est, budget: int, start: int) -> int:
+    """bench.py's source window rule: from ``start``, the number of sources
+    whose walk estimates ``est`` sum to ``budget`` (at least one)."""
+    import numpy as np
+
+    cum = np.cumsum(est[start:])
+    return min(max(1, int(np.searchsorted(cum, budget))), len(est) - start)
+
+
+def walk_estimates(s, d, n, k):
+    """[w_1, ..., w_k]: w_j[v] = directed j-walks from v with edge
+    multiplicity, exact int64 (a segment sum per node over its out-edges
+    in CSR order)."""
+    import numpy as np
+
+    order = np.argsort(s, kind="stable")
+    rp = np.searchsorted(s[order], np.arange(n + 1))
+    dsort = d[order]
+    w = [np.bincount(s, minlength=n).astype(np.int64)]
+    for _ in range(k - 1):
+        c = np.concatenate([[0], np.cumsum(w[-1][dsort])])
+        w.append(c[rp[1:]] - c[rp[:-1]])
+    return w
+
+
+def edge_multiplicity(s, d, n):
+    """A vectorized ``mult(u, v)``: how many edges run u->v."""
+    import numpy as np
+
+    keys = np.sort(s.astype(np.int64) * n + d)
+
+    def mult(u, v):
+        q = u.astype(np.int64) * n + v
+        return np.searchsorted(keys, q, side="right") - np.searchsorted(keys, q, side="left")
+
+    return mult
+
+
+def unique_walk_counts(s, d, n, window, k):
+    """Relationship-unique directed walks of each length 1..k (k <= 4) from
+    the sources in ``window`` (bool[n]) of a loop-free multigraph, by rule:
+    the homomorphic count less the walks that reuse an edge. Without loops
+    adjacent edges differ, so only e1 = e3 (a->b->a->b), e2 = e4 and
+    e1 = e4 can coincide; length 4 takes them by inclusion-exclusion
+    (e1 = e3 with e2 = e4 is a->b->a->b->a; every other pair of
+    coincidences forces a loop)."""
+    import numpy as np
+
+    check(not (s == d).any(), "unique_walk_counts needs a loop-free graph")
+    w = walk_estimates(s, d, n, k)
+    hom = [int(x[window].sum()) for x in w]
+    out = hom[:2]
+    if k < 3:
+        return out[:k]
+    mult = edge_multiplicity(s, d, n)
+    ew = window[s]
+    sa, sb = s[ew], d[ew]  # the window's first edges (a, b)
+    back = mult(sb, sa)  # edges b->a
+    out.append(hom[2] - int(back.sum()))  # e1 = e3
+    if k == 3:
+        return out
+    outdeg = w[0]
+    s13 = int((back * outdeg[sb]).sum())  # a->b->a->b->?, e3 = e1
+    r = np.bincount(s, weights=mult(d, s), minlength=n).astype(np.int64)
+    s24 = int(r[sb].sum())  # a->b->c->b->c, e4 = e2
+    order = np.argsort(s, kind="stable")
+    rp = np.searchsorted(s[order], np.arange(n + 1))
+    deg = outdeg[sb]
+    first = np.repeat(np.arange(len(sb)), deg)
+    off = np.arange(int(deg.sum())) - np.repeat(np.cumsum(deg) - deg, deg)
+    c = d[order][rp[sb][first] + off]  # each window edge's b->c
+    s14 = int(mult(c, sa[first]).sum())  # a->b->c->a->b, e4 = e1
+    out.append(hom[3] - s13 - s24 - s14 + int(back.sum()))
+    return out
+
+
+def brute_walks(steps, n, sources, k, pairs=False, uses=False):
+    """Brute force: enumerate every relationship-unique walk of length
+    1..k from each source over ``steps`` = (src, dst, relationship id) of
+    each traversable step (an undirected graph lists both orientations of
+    a relationship under one id), level by level, a source at a time.
+    Returns the walk count per length; with ``pairs`` also the sorted
+    (source * n + end) keys of each length, with ``uses`` instead the
+    number of walks each relationship is on."""
+    import numpy as np
+
+    src, dst, rid = steps
+    order = np.argsort(src, kind="stable")
+    rp = np.searchsorted(src[order], np.arange(n + 1))
+    counts = [0] * k
+    keys = [[] for _ in range(k)]
+    on = np.zeros(int(rid.max()) + 1 if len(rid) else 0, np.int64)
+    for a in sources:
+        walks = np.zeros((1, 0), np.int64)
+        ends = np.array([a], np.int64)
+        for level in range(k):
+            deg = rp[ends + 1] - rp[ends]
+            row = np.repeat(np.arange(len(ends)), deg)
+            off = np.arange(int(deg.sum())) - np.repeat(np.cumsum(deg) - deg, deg)
+            step = order[rp[ends][row] + off]
+            prev = walks[row]
+            ok = (prev != rid[step][:, None]).all(axis=1)
+            walks = np.concatenate([prev[ok], rid[step][ok][:, None]], axis=1)
+            ends = dst[step][ok]
+            counts[level] += len(ends)
+            if pairs:
+                keys[level].append(int(a) * n + ends)
+            if uses:
+                on += np.bincount(walks.ravel(), minlength=len(on))
+            if not len(ends):
+                break
+    if uses:
+        return counts, on
+    if not pairs:
+        return counts
+    return counts, [np.sort(np.concatenate(x)) if x else np.zeros(0, np.int64)
+                    for x in keys]
+
+
+def directed_steps(s, d):
+    import numpy as np
+
+    return s, d, np.arange(len(s), dtype=np.int64)
+
+
+def undirected_steps(s, d):
+    """Both orientations of each relationship under its one id, a self-loop
+    once (the undirected walk's steps)."""
+    import numpy as np
+
+    rid = np.arange(len(s), dtype=np.int64)
+    keep = s != d
+    return (np.concatenate([s, d[keep]]), np.concatenate([d, s[keep]]),
+            np.concatenate([rid, rid[keep]]))
+
+
 # ---------------------------------------------------------------------------
 # phase 5: measurements off the main path, after its counts are read
 # ---------------------------------------------------------------------------
@@ -1446,6 +1721,170 @@ def shaping_truth(ids1, s1, d1, ids10, bday10, s10, d10):
     return truth
 
 
+WALK_BUDGET = 60_000_000  # bench.py's SF10 budget of materialized walks
+Q20_ROWS = 1_000_000  # Q20's window returns about this many rows
+Q21_WALKS = 10_000_000  # Q21's undirected <= 2-walk estimate over its window
+LOOPY_LANES = 40_000_000  # LOOPY_FORBID's walk lanes, at most
+
+
+def window_params(ids, start, k):
+    """The source-id window [start, start + k) as the queries' $lo/$hi."""
+    return {"lo": int(ids[start]), "hi": int(ids[start + k - 1]) + 1}
+
+
+def walk_truth(ids1, s1, d1, ids10, s10, d10, idsl, srcl, dstl):
+    """numpy truth of the chain-walk queries, relationship uniqueness
+    included. Q18 and Q19 take their windows by bench.py's rule over the
+    <= 3- and <= 4-walk estimates at the SF10 budget and count by
+    ``unique_walk_counts``, each rule first held to the brute-force
+    enumeration on the window's first 20 sources; Q20, Q21 and the loopy
+    graph's queries count by brute force."""
+    import numpy as np
+
+    n1, n10, nl = len(ids1), len(ids10), len(idsl)
+    t = {"Q17": two_hop_distinct_scipy(s10, d10, n10)}
+    start = n10 // 2
+    for name, q, k in (("Q18", Q18, 3), ("Q19", Q19, 4)):
+        w = walk_window(sum(walk_estimates(s10, d10, n10, k)), WALK_BUDGET, start)
+        sub = np.zeros(n10, bool)
+        sub[start:start + min(20, w)] = True
+        brute = brute_walks(directed_steps(s10, d10), n10, np.flatnonzero(sub), k)
+        rule = unique_walk_counts(s10, d10, n10, sub, k)
+        check(rule == brute, f"{name}: the walk rule {rule} != brute force {brute}")
+        window = np.zeros(n10, bool)
+        window[start:start + w] = True
+        counts = unique_walk_counts(s10, d10, n10, window, k)
+        t[name] = (window_params(ids10, start, w), sum(counts), w, counts)
+    start1 = n1 // 2
+    w = walk_window(sum(walk_estimates(s1, d1, n1, 2)), Q20_ROWS, start1)
+    _, keys = brute_walks(directed_steps(s1, d1), n1, np.arange(start1, start1 + w), 2,
+                          pairs=True)
+    keys = np.concatenate(keys)
+    t["Q20"] = (window_params(ids1, start1, w),
+                np.sort(ids1[keys // n1] * (1 << 32) + ids1[keys % n1]), w)
+    # Q21's window by the same rule over the undirected <= 2-walk estimate:
+    # a step into a zipf hub and out again is hundreds of thousands of walks
+    us, ud, _ = undirected_steps(s10, d10)
+    w = walk_window(sum(walk_estimates(us, ud, n10, 2)), Q21_WALKS, start)
+    sources = np.arange(start, start + w)
+    und = brute_walks(undirected_steps(s10, d10), n10, sources, 2)
+    zero = brute_walks(directed_steps(s10, d10), n10, sources, 2)
+    t["Q21"] = (window_params(ids10, start, w), sum(und), w + sum(zero), w)
+    sl, dl = np.searchsorted(idsl, srcl), np.searchsorted(idsl, dstl)
+    counts, keys = brute_walks(directed_steps(sl, dl), nl, np.arange(nl), 2, pairs=True)
+    t["loopy_chain"], t["loopy_distinct"] = counts[1], len(np.unique(keys[1]))
+    # LOOPY_FORBID: per fixed relationship r out of the x window, the
+    # walks from any c that avoid it
+    (w1, w2), on = brute_walks(directed_steps(sl, dl), nl, np.arange(nl), 2, uses=True)
+    outdeg = np.bincount(sl, minlength=nl)
+    x = walk_window(outdeg * (w1 + w2), LOOPY_LANES, 0)
+    fixed = sl < x  # the relationships r out of the window
+    t["loopy_forbid"] = ({"hi": int(idsl[x - 1]) + 1},
+                         int(fixed.sum()) * (w1 + w2) - int(on[fixed].sum()), x)
+    return t
+
+
+@contextlib.contextmanager
+def counted(module, names, calls):
+    """Count the calls of ``module.<name>`` for each name while the block
+    runs."""
+    inner = {name: getattr(module, name) for name in names}
+
+    def hook(name):
+        def spy(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            return inner[name](*args, **kwargs)
+        return spy
+
+    for name in names:
+        setattr(module, name, hook(name))
+    try:
+        yield
+    finally:
+        for name in names:
+            setattr(module, name, inner[name])
+
+
+def run_walk_queries(torch, run, cold, slice_launches, g1, g10, gl, truth, report):
+    """Phase 4's chain-walk queries, Q17-Q21 and the loopy graph's
+    uniqueness queries: each cold, then five warm runs, with its warm
+    median, peak device memory and ``expand_rows`` launches, checked
+    against ``walk_truth``."""
+    import numpy as np
+
+    from tpu_cypher_torch.backend.cuda import jit_ops as J
+    from tpu_cypher_torch.backend.cuda.table import CudaTable
+
+    def walked(label, pg, q, params, plan_op, fns=(), per_run=1, uniq=False):
+        calls = {}
+        distinct_calls = []
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2**30
+        before = slice_launches.get("expand_rows", 0)
+        with counted(J, fns, calls), recorded(CudaTable, "distinct_count", distinct_calls):
+            rows, secs, _ = run(label, pg, q, ("expand_rows",), plan_op=plan_op,
+                                params=params, warm=5)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = slice_launches["expand_rows"] - before
+        warm = statistics.median(secs[1:])
+        print(f"    {label} cold {secs[0] * 1e3:.3f} ms, warm median {warm * 1e3:.3f} ms "
+              f"over {len(secs) - 1} runs (s: {[round(x, 6) for x in secs[1:]]}); peak "
+              f"device memory {peak:.3f} GiB, of which {held:.3f} GiB held before the "
+              f"query ({peak - held:.3f} GiB its own); expand_rows launches {launches} "
+              f"({launches / len(secs):g} a run)")
+        for name in fns:
+            check(calls.get(name, 0) == per_run * len(secs),
+                  f"{label}: {name} called {calls.get(name, 0)} times in {len(secs)} runs")
+        check(not distinct_calls, f"{label} called CudaTable.distinct_count")
+        if uniq:
+            check("uniq" in cold[label].plans, f"{label}'s plan enforces no pair")
+        return [dict(r) for r in rows], warm, launches / len(secs)
+
+    rows, warm, per = walked("Q17 (SF10)", g10, Q17, None, "DistinctOp",
+                             ("distinct_pairs_count_final",))
+    check(rows == [{"pairs": truth["Q17"]}], f"Q17 {rows} != {truth['Q17']}")
+    check(per == 2, f"Q17 launched expand_rows {per} times a run, expected 2")
+    er = report["expand_rows"]
+    print(f"    Q17 = {truth['Q17']} distinct (a, c) at SF10 (scipy A @ A); of the warm "
+          f"median, the final hop's kernel tier {er['q17_tier_ms'] / (warm * 1e3):.1%} "
+          f"({er['q17_tier_ms']:.4f} ms) and its sort {er['q17_sort_ms'] / (warm * 1e3):.1%} "
+          f"({er['q17_sort_ms']:.4f} ms)")
+    for name in ("Q18", "Q19"):
+        params, want, w, counts = truth[name]
+        rows, _, _ = walked(f"{name} (SF10)", g10, Q18 if name == "Q18" else Q19, params,
+                            "CsrVarExpandOp")
+        check(rows == [{"walks": want}], f"{name} {rows} != {want}")
+        print(f"    {name} = {want} relationship-unique walks from {w} sources "
+              f"(per length {counts}); the rule held to brute force on "
+              f"{min(20, w)} of them")
+    params, keys, w = truth["Q20"]
+    rows, _, _ = walked("Q20 (SF1)", g1, Q20, params, "CsrVarExpandOp")
+    got = np.sort(np.array([r["a"] * (1 << 32) + r["b"] for r in rows], np.int64))
+    check(np.array_equal(got, keys), "Q20 row bag differs from numpy")
+    print(f"    Q20 = {len(rows)} (a, b) rows from {w} sources, bag-identical to numpy")
+    params, und, zero, w = truth["Q21"]
+    rows, _, _ = walked("Q21 undirected (SF10)", g10, Q21_UNDIRECTED, params,
+                        "CsrVarExpandOp")
+    check(rows == [{"walks": und}], f"Q21 undirected {rows} != {und}")
+    rows, _, _ = walked("Q21 *0..2 (SF10)", g10, Q21_ZERO, params, "CsrVarExpandOp")
+    check(rows == [{"walks": zero}], f"Q21 *0..2 {rows} != {zero}")
+    print(f"    Q21 = {und} undirected *1..2 walks and {zero} directed *0..2 walks from "
+          f"{w} sources")
+    rows, _, _ = walked("loopy 2-hop count", gl, Q4, None, "CsrExpandOp",
+                        ("chain_count_final_unique",), uniq=True)
+    check(rows == [{"c": truth["loopy_chain"]}], f"loopy 2-hop {rows}")
+    rows, _, _ = walked("loopy 2-hop DISTINCT", gl, Q13, None, "DistinctOp",
+                        ("distinct_pairs_count_final_unique",), uniq=True)
+    check(rows == [{"pairs": truth["loopy_distinct"]}], f"loopy DISTINCT {rows}")
+    params, want, c = truth["loopy_forbid"]
+    rows, _, _ = walked("loopy fixed rel vs *1..2", gl, LOOPY_FORBID, params,
+                        "CsrVarExpandOp", ("rel_rows_of_ids",), uniq=True)
+    check(rows == [{"n": want}], f"loopy forbid {rows} != {want}")
+    print(f"    loopy = {truth['loopy_chain']} unique 2-hop walks, "
+          f"{truth['loopy_distinct']} distinct (a, c) over them, {want} (r, walk) rows "
+          f"with r out of {c} sources and the walk avoiding it; all by brute force")
+
+
 def run_shaping_queries(torch, run, slice_launches, g1, g10, truth):
     """Phase 4's row shaping and grouping queries, Q13-Q16: each cold, then
     five warm runs, with its warm median and peak device memory, checked
@@ -1467,9 +1906,22 @@ def run_shaping_queries(torch, run, slice_launches, g1, g10, truth):
         said = "answered (packed top-k)" if all(t is not None for t in topk) else "returned None"
         return f"order_by_limit {said} in {len(topk)} runs"
 
-    rows = shaped("Q13 (SF1)", g1, Q13, ("expand_rows",), "DistinctOp")
+    from tpu_cypher_torch.backend.cuda import jit_ops as J
+
+    calls, distinct_calls = {}, []
+    launched = slice_launches.get("expand_rows", 0)
+    with counted(J, ("distinct_pairs_count_final",), calls), \
+            recorded(CudaTable, "distinct_count", distinct_calls):
+        rows = shaped("Q13 (SF1)", g1, Q13, ("expand_rows",), "DistinctOp")
+    launched = slice_launches["expand_rows"] - launched
     check(rows == [{"pairs": truth["Q13"]}], f"Q13 {rows} != {truth['Q13']}")
-    print(f"    Q13 = {truth['Q13']} distinct (a, c) over {truth['Q13_rows']} 2-hop rows")
+    check(calls == {"distinct_pairs_count_final": 6} and not distinct_calls
+          and launched == 12,
+          f"Q13 not on the fused walk: {calls}, {len(distinct_calls)} distinct_count "
+          f"calls, {launched} expand_rows launches in six runs")
+    print(f"    Q13 = {truth['Q13']} distinct (a, c) over {truth['Q13_rows']} 2-hop rows; "
+          f"the fused walk: distinct_pairs_count_final once a run, no distinct_count, "
+          f"expand_rows twice a run")
     topk = []
     with recorded(CudaTable, "order_by_limit", topk):
         rows = shaped("Q14 (SF10)", g10, Q14, ("expand_rows",), "OrderByOp")
@@ -1651,11 +2103,22 @@ def main() -> int:
           f"in(a)) {tri10['min_lanes']}; SF1 {tri1['triangles']} triangles, "
           f"{tri1['cliques']} 4-cliques; loopy {loopy_truth} triangles "
           f"(scipy and brute force, {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    walks = walk_truth(ids1, s1, d1, ids10, s10, d10, idsl, srcl, dstl)
+    print(f"truth: Q17 {walks['Q17']} distinct (a, c) at SF10; Q18 {walks['Q18'][1]} "
+          f"walks from {walks['Q18'][2]} sources; Q19 {walks['Q19'][1]} walks from "
+          f"{walks['Q19'][2]} sources; Q20 {len(walks['Q20'][1])} rows from "
+          f"{walks['Q20'][2]} sources; Q21 {walks['Q21'][1]} undirected and "
+          f"{walks['Q21'][2]} *0..2 walks; loopy {walks['loopy_chain']} 2-hop, "
+          f"{walks['loopy_distinct']} distinct, {walks['loopy_forbid'][1]} forbid rows "
+          f"(scipy, rules and brute force, {time.perf_counter() - t0:.1f} s)")
 
     # 3. kernels against their plain versions
     report = {}
     print("kernels vs plain (exact):")
     check_expand_rows(torch, session, g1, g10, tri10["triangles"], report)
+    check_expand_rows_walks(torch, g10, walks["Q17"], walks["Q18"][0], walks["Q18"][1],
+                            report)
     check_frontier(torch, session, g10, report)
     check_segment_agg(torch, g1, truth["Q5"], truth["Q5_rows"], report)
     check_segment_agg_q15(torch, g10, truth["Q15"], report)
@@ -1796,6 +2259,8 @@ def main() -> int:
 
     # row shaping and grouping
     run_shaping_queries(torch, run, slice_launches, g1, g10, truth)
+    # the chain walk: the 2-hop DISTINCT and the var-length expand
+    run_walk_queries(torch, run, cold, slice_launches, g1, g10, gl, walks, report)
     counts = dispatch.use_counts()
     for name, c in counts.items():
         check(c["fallback"] == 0 and c["plain"] == 0, f"{name} fallbacks: {c}")

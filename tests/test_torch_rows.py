@@ -734,12 +734,14 @@ def test_snb_answers_from_numpy(snb_engines):
 
 
 def test_two_hop_distinct_takes_packed_count(snb_engines, monkeypatch):
-    """Q13 (bench.py TWO_HOP_DISTINCT) reaches ``distinct_count`` through
-    the aggregate pushdown and takes the packed values-only sort: no
-    first-occurrence factorization, no materialized distinct rows."""
+    """Q13 (bench.py TWO_HOP_DISTINCT) is answered by the aggregate
+    pushdown's deepest hook, the chain walk's DISTINCT-endpoints count: the
+    final hop counts packed (a, c) keys by a sort, and no
+    ``distinct_count``, first-occurrence factorization or materialized
+    distinct row is left."""
     port = snb_engines[0]
     calls = []
-    for name in ("distinct_count_packed", "equivalence_sort"):
+    for name in ("distinct_count_packed", "equivalence_sort", "distinct_pairs_count_final"):
         inner = getattr(PJ, name)
 
         def spy(*args, _name=name, _inner=inner, **kwargs):
@@ -749,4 +751,4 @@ def test_two_hop_distinct_takes_packed_count(snb_engines, monkeypatch):
         monkeypatch.setattr(PJ, name, spy)
     PDEV.use("cpu")
     port.cypher(Q_SNB["Q13"]).records.collect()
-    assert calls == ["distinct_count_packed"]
+    assert calls == ["distinct_pairs_count_final"]

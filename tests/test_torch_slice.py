@@ -162,8 +162,16 @@ def test_unported_spi_names_its_roadmap_item():
         t.explode(None, "y", None, {})
 
 
+# bench.py VAR_LENGTH over the first 20 persons: the var-length walk
+VAR_LENGTH = (
+    "MATCH (a:Person) WHERE a.id >= $lo AND a.id < $hi WITH a "
+    "MATCH (a)-[:KNOWS*1..3]->(b:Person) RETURN count(*) AS walks"
+)
+
+
 @pytest.mark.parametrize(
-    "qname,site", [("Q1", "expand"), ("Q3", "agg"), ("Q5", "expand")]
+    "qname,site",
+    [("Q1", "expand"), ("Q3", "agg"), ("Q5", "expand"), ("var", "var_expand")],
 )
 def test_device_fault_reaches_caller_typed(engines, qname, site):
     """A device fault is raised typed after ONE attempt on the device rung;
@@ -172,7 +180,10 @@ def test_device_fault_reaches_caller_typed(engines, qname, site):
     from tpu_cypher_torch.runtime import faults
 
     _, _, port = engines
-    result = port.cypher(QUERIES[qname][0])
+    if qname == "var":
+        result = port.cypher(VAR_LENGTH, {"lo": 0, "hi": 140})
+    else:
+        result = port.cypher(QUERIES[qname][0])
     with faults.scoped_spec(f"oom@{site}:*"):
         with pytest.raises(ERR.DeviceOOM):
             result.records

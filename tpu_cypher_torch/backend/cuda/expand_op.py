@@ -1,32 +1,41 @@
-"""Fused CSR expand operator: the CUDA backend's physical Expand.
+"""Fused CSR expand operators: the CUDA backend's physical Expand.
 
 The port of the slices' part of ``tpu_cypher/backend/tpu/expand_op.py``:
-``_FusedExpandBase`` (with ``_with_pair``), ``CsrExpandOp`` (its
-materialize half and its count chain) and the planner hooks
-``plan_expand_fastpath`` and ``plan_filter_fastpath`` (the
+``_FusedExpandBase`` (``_with_pair`` and the materializing path's
+uniqueness masks), ``CsrExpandOp`` (its materialize half, its count chain
+and its DISTINCT-endpoints count), ``CsrVarExpandOp`` (the fused bounded
+var-length expand), the chain walk they share (``_fused_chain_walk``)
+and the planner hooks ``plan_expand_fastpath``,
+``plan_var_expand_fastpath`` and ``plan_filter_fastpath`` (the
 relationship-uniqueness redundancy proof, and in-op enforcement for
+``CsrExpandOp`` chains, ``CsrVarExpandOp`` forbid pairs and
 ``wcoj.MultiwayIntersectOp``).
 
 The reference plans every ``Expand`` as relationship-scan + 2 hash joins;
-when the backend is CSR-capable the physical planner swaps in
-``CsrExpandOp``: one repeat+gather over the device-resident CSR per hop
+when the backend is CSR-capable the physical planner swaps in these
+operators: one lane-by-row merge over the device-resident CSR per hop
 (``GraphIndex``); the classic join cascade stays attached for its header
-only, and is never executed in this slice. Semantics are
-bag-identical to the classic cascade by construction (one output row per
-(input row, matching edge); the far-end node join becomes a compact-id
-row-map gather; undirected expands are a primary half plus the opposite
-half with self-loops excluded and Start/End swapped).
+only, and is never executed. Semantics are bag-identical to the classic
+cascade by construction (one output row per (input row, matching edge);
+the far-end node join becomes a compact-id row-map gather; undirected
+expands are a primary half plus the opposite half with self-loops excluded
+and Start/End swapped; var-length walks kill a path that would reuse an
+edge).
 
-Kernel tiers on this path (``hopper/``): every materialize half goes
-through ``expand_rows`` — at the bucketed size when the lattice is on, at
-the exact total otherwise (the reference's unbucketed path calls the jnp
-cascade directly; the kernel equals it on every live lane) — and a
-single unrestricted hop's count(*) through ``frontier_deg_sum``.
+Kernel tiers on this path (``hopper/``): every materialize half and every
+hop of the chain walk (``_walk_lanes``) goes through ``expand_rows`` — at
+the bucketed size when the lattice is on, at the exact total otherwise
+(the reference's unbucketed path and its walk run the jnp cascade; the
+kernel equals it on every live lane) — and a single unrestricted hop's
+count(*) through ``frontier_deg_sum``. The DISTINCT-endpoints count's
+final hop is the packed-key sort on every device (the reference's host
+bitmap variant is not ported).
 
-Later slices port ``CsrExpandIntoOp``, ``CsrOptionalExpandOp``,
-``CsrVarExpandOp``, the DISTINCT-endpoint counts, the MXU/native tiers and
-in-op uniqueness enforcement over ``CsrExpandOp`` chains (ROADMAP.md
-queue 1).
+Later slices port ``CsrExpandIntoOp``, ``CsrOptionalExpandOp`` and their
+hooks (ROADMAP.md queue 1, item 2.2), the cuBLAS counterparts of the MXU
+dense/tiled count tiers and the native host tiers (item 2.3). A
+var-length relationship list as a value needs the classic cascade, which
+needs the compiler (item 6): the operator raises there.
 """
 
 from __future__ import annotations
@@ -57,6 +66,126 @@ def _owner_name(e: E.Expr) -> Optional[str]:
 
 def _empty_i64() -> torch.Tensor:
     return torch.zeros(0, dtype=torch.int64, device=_device.get())
+
+
+def _walk_lanes(rp, ci, eo, pos, deg, size: int, nvalid, with_orig: bool):
+    """One walk hop's lane -> (row, edge) merge, the reference's
+    ``_expand_rows(rp[pos], deg, total)``, through the ``expand_rows`` gate:
+    the ``jit_ops`` walk functions' ``lanes`` list ``[row, nbr, orig,
+    live]``. ``orig`` is empty without ``with_orig``; ``live`` is None
+    unless ``nvalid`` (bucketed walks: lanes past it are dead). The caller
+    returns before an empty merge: the gate takes no empty frontier."""
+    from .hopper import expand_materialize_counted
+
+    row, nbr, orig, live = expand_materialize_counted(
+        rp, ci, eo, pos, deg, size if nvalid is None else nvalid,
+        size=size, with_orig=with_orig,
+    )
+    return [row, nbr, orig, None if nvalid is None else live]
+
+
+def _fused_chain_walk(
+    gi: GraphIndex, ctx, hops, id_col: Column, final,
+    carry_rels=frozenset(), mask_pairs=None,
+):
+    """Walk a stacked expand chain carrying only (base endpoint key, current
+    position, liveness) per partial path: the spine of the fused
+    DISTINCT-endpoints count and of the relationship-unique chain count.
+    Middle hops run ``distinct_hop_materialize``; at the outermost hop
+    (``hops[0]``) ``final(lanes, akey, mask, prevs, mask_idx)`` fuses the
+    terminal computation (``lanes`` carries ``orig`` when ``mask_idx``
+    does). Returns final's int, or 0 when any hop empties.
+
+    Relationship uniqueness (openCypher isomorphism, the per-pair
+    ``id(r_i) <> id(r_j)`` filters) is enforced inside the walk:
+    ``carry_rels`` names hops whose edge scan rows ride along per partial
+    path, and ``mask_pairs[late_rel]`` lists the carried rels that hop's
+    edge must differ from (violating paths die, as in ``varlen_hop``).
+    ``final`` receives the carried arrays (``prevs``, name-sorted per
+    ``order``) and its own ``mask_idx``."""
+    if id_col.kind == OBJ:
+        raise GraphIndexError("host-object id column")
+    gi.node_ids(ctx)
+    if gi.num_nodes == 0:
+        return 0
+    pos, present = gi.compact_of(id_col, ctx)
+    akey = pos  # base endpoint key = its compact position
+    mask_pairs = mask_pairs or {}
+    carried: Dict[str, Any] = {}
+    last = hops[0]
+    bucketed = bucketing.enabled()
+    for hop in reversed(hops):
+        rp, ci, eo = gi.csr(hop.types_key, hop.backwards, ctx)
+        mask = gi.label_mask(hop.far_labels, ctx)
+        deg, t_dev = J.expand_degrees_total(rp, pos, present)
+        total = int(t_dev)
+        if total == 0:  # before the gate: it takes no empty frontier
+            return 0
+        # bucketed: the materialize size rounds up to the lattice and the
+        # true count rides beside it (pad lanes come out dead)
+        size = bucketing.round_size(total)
+        nvalid = total if bucketed else None
+        order = tuple(sorted(carried))
+        prevs = tuple(carried[r] for r in order)
+        midx = tuple(order.index(r) for r in mask_pairs.get(hop.rel_fld, ()))
+        if hop is last:
+            return final(
+                _walk_lanes(rp, ci, eo, pos, deg, size, nvalid, bool(midx)),
+                akey, mask, prevs, midx,
+            )
+        if order or hop.rel_fld in carry_rels:
+            akey, pos, orig, prevs_out, present = J.unique_hop_materialize(
+                _walk_lanes(rp, ci, eo, pos, deg, size, nvalid, True),
+                akey, mask, prevs, mask_idx=midx,
+            )
+            carried = dict(zip(order, prevs_out))
+            if hop.rel_fld in carry_rels:
+                carried[hop.rel_fld] = orig
+        else:
+            akey, pos, present = J.distinct_hop_materialize(
+                _walk_lanes(rp, ci, eo, pos, deg, size, nvalid, False), akey, mask
+            )
+    raise AssertionError("unreachable: loop always hits hops[0]")
+
+
+def _chain_enforcement_spec(hops, pairs):
+    """Compile a set of rel-uniqueness pairs into walk enforcement:
+    ``(carry_rels, mask_pairs)``, or None when any pair cannot be enforced
+    in the fused walk (undirected hops, duplicate rel bindings, rels
+    outside the subtree, or DIFFERENT type sets — carried edge scan rows
+    are only comparable within one canonical rel scan). Each pair becomes
+    a mask at its later-executed hop. The reference's closing-relationship
+    arguments come with ``CsrExpandIntoOp`` (ROADMAP.md queue 1, item
+    2.2)."""
+    if any(h.undirected for h in hops):
+        return None
+    exec_rels = [h.rel_fld for h in reversed(hops)]  # execution order
+    if len(set(exec_rels)) != len(exec_rels):
+        return None
+    types_of = {h.rel_fld: h.types_key for h in hops}
+    pos_of = {r: i for i, r in enumerate(exec_rels)}
+    carry = set()
+    mask_pairs: Dict[str, Tuple[str, ...]] = {}
+    for ra, rb in pairs:
+        if ra == rb or ra not in types_of or rb not in types_of:
+            return None
+        if types_of[ra] != types_of[rb]:
+            return None
+        early, late = (ra, rb) if pos_of[ra] < pos_of[rb] else (rb, ra)
+        if early not in mask_pairs.get(late, ()):
+            mask_pairs[late] = mask_pairs.get(late, ()) + (early,)
+        carry.add(early)
+    return frozenset(carry), mask_pairs
+
+
+def _collected_pairs(hops, extra=()):
+    """Deduplicated uniqueness pairs attached anywhere on a fused subtree."""
+    seen = []
+    for op in list(hops) + list(extra):
+        for p in getattr(op, "enforced_pairs", ()):
+            if p not in seen:
+                seen.append(p)
+    return tuple(seen)
 
 
 class _FusedExpandBase(RelationalOperator):
@@ -99,10 +228,70 @@ class _FusedExpandBase(RelationalOperator):
             **kw,
         )
 
+    def _enforce_pair_ids(self, gi: GraphIndex, ctx, row, orig):
+        """Row-keep mask for the materializing path: for each enforced
+        pair, compare element ids — this op's own relationship reads the
+        canonical rel-scan id column at ``orig``; any other rel reads its
+        input-table id column at ``row`` (element ids are global, so the
+        comparison holds across type sets)."""
+        in_op = self.children[0]
+        in_t = in_op.table
+        rel_cols, rel_header = gi.rel_scan(self.types_key, ctx)
+        canon_id = rel_header.id_expr(rel_header.var(CANON_REL))
+        own_ids = None
+
+        def ids_of(r):
+            nonlocal own_ids
+            if r == self.rel_fld:
+                if own_ids is None:
+                    own_ids = rel_cols[rel_header.column(canon_id)].data[orig]
+                return own_ids
+            h = in_op.header
+            try:
+                col = in_t._cols[h.column(h.id_expr(h.var(r)))]
+            except (KeyError, ValueError) as exc:
+                raise GraphIndexError(f"uniqueness rel {r!r} unmapped") from exc
+            if col.kind == OBJ:
+                raise GraphIndexError("host-object id column")
+            return col.data[row]
+
+        keep = None
+        for ra, rb in self.enforced_pairs:
+            k = ids_of(ra) != ids_of(rb)
+            keep = k if keep is None else keep & k
+        return keep
+
+    def _apply_enforced_pairs(self, gi, ctx, row, orig, extras, n_out):
+        """Materializing-path enforcement: mask rows violating any enforced
+        pair and compact (``extras``: whatever tensors ride along — far
+        rows, swapped flags). Under bucketing the tensors may carry pad
+        lanes past ``n_out`` (masked dead) and the compaction itself is
+        bucket-sized."""
+        if not self.enforced_pairs or not n_out:
+            return row, orig, extras, n_out
+        # the enforcement compact syncs a count on both branches: the same
+        # site as every other mask compaction
+        fault_point("compact")
+        keep = self._enforce_pair_ids(gi, ctx, row, orig)
+        if bucketing.enabled():
+            if int(row.shape[0]) != n_out:
+                keep = keep & J.row_tail_mask(row, n_out)
+            idx, n2 = _mask_to_idx_bucketed(keep)
+            taken = J.tree_take((row, orig) + tuple(extras), idx)
+            return taken[0], taken[1], tuple(taken[2:]), n2
+        n2 = int(J.mask_sum(keep))
+        if n2 != n_out:
+            idx = J.mask_nonzero(keep, size=n2)
+            taken = J.tree_take((row, orig) + tuple(extras), idx)
+            row, orig, extras = taken[0], taken[1], tuple(taken[2:])
+            n_out = n2
+        return row, orig, extras, n_out
+
     def _compute_table(self):
         # the reference answers from the classic child when the fused path
-        # raises; the port's Table SPI cannot run that child yet (``join``
-        # is the next slice), so the error reaches the caller
+        # raises; the port never answers in the fused operator's place (a
+        # var-length child needs the compiler's list values, item 6), so
+        # the error reaches the caller
         return self._fused_table()
 
     # -- column assembly ---------------------------------------------------
@@ -248,6 +437,7 @@ class CsrExpandOp(_FusedExpandBase):
         undirected: bool,
         backwards: bool,
         far_labels: Tuple[str, ...],
+        enforced_pairs: Tuple[Tuple[str, str], ...] = (),
     ):
         super().__init__(in_plan, classic, graph_obj)
         self.frontier_fld = frontier_fld
@@ -257,14 +447,28 @@ class CsrExpandOp(_FusedExpandBase):
         self.undirected = undirected
         self.backwards = backwards
         self.far_labels = far_labels
-        # in-op relationship-uniqueness enforcement is a later slice; the
-        # relational pruner reads the (always empty) pair list
-        self.enforced_pairs: Tuple[Tuple[str, str], ...] = ()
+        self.enforced_pairs = enforced_pairs
+
+    def _ctor_kwargs(self) -> Dict[str, Any]:
+        return dict(
+            frontier_fld=self.frontier_fld,
+            rel_fld=self.rel_fld,
+            far_fld=self.far_fld,
+            types_key=self.types_key,
+            undirected=self.undirected,
+            backwards=self.backwards,
+            far_labels=self.far_labels,
+        )
 
     def _show_inner(self) -> str:
         arrow = "-" if self.undirected else ("<-" if self.backwards else "->")
         t = "|".join(self.types_key) or "*"
-        return f"({self.frontier_fld}){arrow}[{self.rel_fld}:{t}]({self.far_fld})"
+        uniq = (
+            " uniq" + ",".join(f"({a}<>{b})" for a, b in self.enforced_pairs)
+            if self.enforced_pairs
+            else ""
+        )
+        return f"({self.frontier_fld}){arrow}[{self.rel_fld}:{t}]({self.far_fld}){uniq}"
 
     def _expand_half(self, gi: GraphIndex, pos, present, reverse: bool, drop_loops: bool):
         """One CSR expand half. Returns ``(row, nbr, orig, count)`` where
@@ -325,7 +529,9 @@ class CsrExpandOp(_FusedExpandBase):
     def _count_via_chain(self, gi: GraphIndex, ctx) -> int:
         """Whole-chain count without materializing any row set: a single
         unrestricted hop is the ``frontier_deg_sum`` kernel; longer or
-        label-filtered chains are the SpMV chain (``path_count_chain``)."""
+        label-filtered chains are the SpMV chain (``path_count_chain``);
+        a chain with enforced uniqueness pairs is the edge-carrying walk
+        (``chain_count_final_unique``)."""
         hops = self._chain_hops()
         base = hops[-1]
         in_op = base.children[0]
@@ -340,6 +546,21 @@ class CsrExpandOp(_FusedExpandBase):
         # the fused count is an expand-class dispatch: its count syncs sit
         # behind the expand fault site
         fault_point("expand")
+        pairs = _collected_pairs(hops)
+        if pairs:
+            # the SpMV carries per-node multiplicities only (no edge
+            # identity), so unique chains count through the walk
+            spec = _chain_enforcement_spec(hops, pairs)
+            if spec is None:
+                raise GraphIndexError("unenforceable uniqueness pairs")
+            carry, mask_pairs = spec
+
+            def final(lanes, akey, mask, prevs, midx):
+                return int(J.chain_count_final_unique(lanes, mask, prevs, mask_idx=midx))
+
+            return _fused_chain_walk(
+                gi, ctx, hops, id_col, final, carry, mask_pairs
+            )
         if len(hops) == 1 and not self.undirected and not self.far_labels:
             # single unrestricted hop: O(frontier) degree sum
             from .hopper import csr_frontier_degree_sum
@@ -365,6 +586,67 @@ class CsrExpandOp(_FusedExpandBase):
                 num_nodes=gi.num_nodes,
             )
         )
+
+    def distinct_endpoints_count(self, fields) -> Optional[int]:
+        """count(DISTINCT endpoints) over a fused expand chain without
+        materializing any row set: per hop one size sync and one (base key,
+        position) materialize; the final hop fuses into a packed-key count
+        (``jit_ops.distinct_pairs_count_final``, a sort). Returns None when the pattern
+        doesn't fit (fields beyond the chain endpoints, undirected hops,
+        paths, pairs the walk cannot enforce, a graph the index declines):
+        the caller then takes the materialized distinct. A device fault is
+        not one of those and reaches the caller. The relational pushdown
+        hook is ``AggregateOp._compute_table``."""
+        try:
+            hops = self._chain_hops()
+            base = hops[-1]
+            want = set(fields)
+            if not want or not want <= {base.frontier_fld, self.far_fld}:
+                return None
+            if base.frontier_fld == self.far_fld:
+                return None  # ambiguous binding; keep the generic path
+            if any(h.undirected for h in hops):
+                return None
+            # named paths make the var's identity more than its id column
+            if any(self.header.has_path(f) for f in want):
+                return None
+            use_a = base.frontier_fld in want
+            use_c = self.far_fld in want
+            gi = GraphIndex.of(self.graph)
+            ctx = self.context
+            in_op = base.children[0]
+            in_t = in_op.table
+            frontier_var = in_op.header.var(base.frontier_fld)
+            id_col = in_t._cols[
+                in_op.header.column(in_op.header.id_expr(frontier_var))
+            ]
+            gi.node_ids(ctx)
+            if use_a and use_c and gi.num_nodes >= (1 << 30):
+                return None  # pos*V+pos pair key must stay below the sentinel
+            # eligible from here on: the walk syncs, so the expand fault
+            # site covers it
+            fault_point("expand")
+            pairs = _collected_pairs(hops)
+            carry, mask_pairs = frozenset(), {}
+            if pairs:
+                spec = _chain_enforcement_spec(hops, pairs)
+                if spec is None:
+                    return None  # the materialized path enforces by row masks
+                carry, mask_pairs = spec
+
+            def final(lanes, akey, mask, prevs, midx):
+                kw = dict(use_a=use_a, use_c=use_c, num_nodes=gi.num_nodes)
+                if midx:
+                    return int(J.distinct_pairs_count_final_unique(
+                        lanes, akey, mask, prevs, mask_idx=midx, **kw
+                    ))
+                return int(J.distinct_pairs_count_final(lanes, akey, mask, **kw))
+
+            return _fused_chain_walk(
+                gi, ctx, hops, id_col, final, carry, mask_pairs
+            )
+        except (GraphIndexError, TpuBackendError):
+            return None
 
     def _fused_table(self):
         from .table import CudaTable
@@ -437,10 +719,247 @@ class CsrExpandOp(_FusedExpandBase):
             n_out = 0
             if swapped is not None:
                 swapped = torch.zeros(0, dtype=torch.bool, device=_device.get())
+        extras = (far_rows,) if swapped is None else (far_rows, swapped)
+        row, orig, extras, n_out = self._apply_enforced_pairs(
+            gi, ctx, row, orig, extras, n_out
+        )
+        far_rows = extras[0]
+        if swapped is not None:
+            swapped = extras[1]
         return self._assemble(
             gi, row, orig, swapped, far_rows, self.far_labels,
             self.rel_fld, self.far_fld, n_out,
         )
+
+
+class CsrVarExpandOp(_FusedExpandBase):
+    """Fused bounded var-length expand: the frontier-loop replacement for
+    the unrolled join cascade (reference ``VarLengthExpandPlanner.scala:45-330``).
+    Each hop is one ``expand_rows`` materialize carrying (origin row,
+    current node, walked edge scan rows); edge reuse kills a path through
+    a mask (no compaction mid-chain); every length in [lower, upper] emits
+    its surviving rows, which are compacted per level and concatenated once
+    at the end.
+
+    The fused path assembles input pass-through columns and target-node
+    columns. A required relationship-list column raises: the reference
+    answers it from the classic cascade, which the port cannot run yet
+    (ROADMAP.md queue 1, item 6)."""
+
+    def __init__(
+        self,
+        in_plan: RelationalOperator,
+        classic: RelationalOperator,
+        graph_obj,
+        *,
+        source_fld: str,
+        rel_fld: str,
+        target_fld: str,
+        types_key: Tuple[str, ...],
+        lower: int,
+        upper: Optional[int],
+        far_labels: Tuple[str, ...],
+        undirected: bool = False,
+        enforced_pairs: Tuple[Tuple[str, str], ...] = (),
+    ):
+        super().__init__(in_plan, classic, graph_obj)
+        self.source_fld = source_fld
+        self.rel_fld = rel_fld
+        self.target_fld = target_fld
+        self.types_key = types_key
+        self.lower = lower
+        self.upper = upper
+        self.far_labels = far_labels
+        self.undirected = undirected
+        # (rel_fld, fixed_rel) pairs: the walk must avoid the fixed rel's
+        # edge — ``none(x IN rel_fld WHERE id(x) = id(fixed))`` enforced as
+        # an initial forbidden entry of the walked-edge masks
+        self.enforced_pairs = enforced_pairs
+
+    def _ctor_kwargs(self) -> Dict[str, Any]:
+        return dict(
+            source_fld=self.source_fld,
+            rel_fld=self.rel_fld,
+            target_fld=self.target_fld,
+            types_key=self.types_key,
+            lower=self.lower,
+            upper=self.upper,
+            far_labels=self.far_labels,
+            undirected=self.undirected,
+            enforced_pairs=self.enforced_pairs,
+        )
+
+    def _show_inner(self) -> str:
+        t = "|".join(self.types_key) or "*"
+        arrow = "-" if self.undirected else "->"
+        uniq = (
+            " uniq" + ",".join(f"({a}<>{b})" for a, b in self.enforced_pairs)
+            if self.enforced_pairs
+            else ""
+        )
+        upper = "" if self.upper is None else self.upper
+        return (
+            f"({self.source_fld})-[{self.rel_fld}:{t}*{self.lower}.."
+            f"{upper}]{arrow}({self.target_fld}){uniq}"
+        )
+
+    def _forbid_arrays(self, gi: GraphIndex, ctx):
+        """Per-input-row forbidden canonical scan rows (one int64 tensor per
+        enforced pair, -1 = unconstrained): fixed-rel global ids from the
+        input table, bridged into this walk's scan-row space. Seeding the
+        walk's ``prev_edges`` with them makes the walked-edge masks enforce
+        the fixed-versus-var-length isomorphism."""
+        if not self.enforced_pairs:
+            return ()
+        in_op = self.children[0]
+        in_t = in_op.table
+        h = in_op.header
+        sorted_ids, perm = gi.rel_row_index(self.types_key, ctx)
+        out = []
+        for ra, rb in self.enforced_pairs:
+            other = rb if ra == self.rel_fld else ra
+            if other == self.rel_fld:
+                raise GraphIndexError("forbid pair does not name a fixed rel")
+            try:
+                col = in_t._cols[h.column(h.id_expr(h.var(other)))]
+            except (KeyError, ValueError) as exc:
+                raise GraphIndexError(
+                    f"uniqueness rel {other!r} unmapped"
+                ) from exc
+            if col.kind == OBJ:
+                raise GraphIndexError("host id column in forbid pair")
+            out.append(J.rel_rows_of_ids(sorted_ids, perm, col.data, col.valid))
+        return tuple(out)
+
+    def _resolved_upper(self, ci) -> int:
+        """Unbounded '*' resolves to the matching-edge count: relationship
+        isomorphism bounds any walk by the number of edges, and the walk
+        exits at the empty frontier long before that in practice."""
+        if self.upper is not None:
+            return self.upper
+        return max(int(ci.shape[0]), self.lower, 1)
+
+    def _fused_table(self):
+        from .table import CudaTable
+
+        fault_point("var_expand")
+        in_op = self.children[0]
+        header = self.header
+        for e in header.expressions:
+            if _owner_name(e) == self.rel_fld:
+                raise GraphIndexError(
+                    "var-length rel list required: the classic cascade "
+                    "builds it (ROADMAP.md queue 1, item 6)"
+                )
+        count_only = not header.expressions
+        gi = GraphIndex.of(self.graph)
+        ctx = self.context
+        in_t = in_op.table
+        frontier_var = in_op.header.var(self.source_fld)
+        id_col = in_t._cols[in_op.header.column(in_op.header.id_expr(frontier_var))]
+        if id_col.kind == OBJ:
+            raise GraphIndexError("host-object id column")
+        gi.node_ids(ctx)
+        if gi.num_nodes == 0:
+            return CudaTable({}, 0) if count_only else self._assemble_levels(gi, [])
+        pos, present = gi.compact_of(id_col, ctx)
+        if self.undirected:
+            # both-orientation CSR: one walk replaces the classic planner's
+            # per-step orientation cascade; the shared edge_orig makes the
+            # walked-edge masks direction-agnostic
+            rp, ci, eo = gi.csr_undirected(self.types_key, ctx)
+        else:
+            rp, ci, eo = gi.csr(self.types_key, False, ctx)
+        _, _, row_map = gi.node_scan(self.far_labels, ctx)
+        row0 = None
+        # forbidden edges seed the walked-edge masks: the walk's own
+        # ``orig != prev`` checks then enforce fixed-vs-var-length
+        # relationship isomorphism
+        prev_edges: Tuple[Any, ...] = self._forbid_arrays(gi, ctx)
+        total_count = 0
+        levels: List[Tuple[Any, Any]] = []
+        if self.lower == 0:
+            # length 0: the target is the source node (it must carry the
+            # far labels) — the identity frontier before the walk's levels
+            row00, far, keep, k_dev = J.varlen_zero(pos, present, row_map)
+            if count_only:
+                total_count += int(k_dev)
+            else:
+                k = int(k_dev)
+                if k:
+                    idx = J.mask_nonzero(keep, size=k)
+                    levels.append(J.tree_take((row00, far), idx))
+        bucketed = bucketing.enabled()
+        for level in range(1, self._resolved_upper(ci) + 1):
+            fault_point("var_expand")
+            deg, t_dev = J.expand_degrees_total(rp, pos, present)
+            total = int(t_dev)
+            if total == 0:  # before the gate: it takes no empty frontier
+                break
+            # pre-flight: each hop lane carries (row0, nbr, orig) plus one
+            # walked-edge lane per uniqueness mask, padded on the lattice
+            bucketing.admit(
+                total, 8 * (3 + len(prev_edges) + 1), "var_expand"
+            )
+            row0, nbr, orig, prev_edges, iso = J.varlen_hop(
+                _walk_lanes(
+                    rp, ci, eo, pos, deg, bucketing.round_size(total),
+                    total if bucketed else None, True,
+                ),
+                row0, prev_edges,
+            )
+            if level >= self.lower:
+                far, keep, k_dev = J.varlen_emit(nbr, iso, row_map)
+                if count_only:
+                    total_count += int(k_dev)
+                else:
+                    k = int(k_dev)
+                    if k:
+                        # exact emission gather: pad lanes would enter the
+                        # levels' concat as live rows
+                        idx = J.mask_nonzero(keep, size=k)
+                        levels.append(J.tree_take((row0, far), idx))
+            pos, present = nbr, iso
+        if count_only:
+            return CudaTable({}, total_count)
+        return self._assemble_levels(gi, levels)
+
+    def _assemble_levels(self, gi: GraphIndex, levels):
+        """Concat per-level (origin row, far row) frames and gather output
+        columns: input pass-throughs by origin row, target-var columns from
+        the far-label canonical node scan."""
+        from .table import CudaTable
+
+        ctx = self.context
+        in_op = self.children[0]
+        in_t = in_op.table
+        header = self.header
+        if not levels:
+            row0 = far = _empty_i64()
+        elif len(levels) == 1:
+            row0, far = levels[0]
+        else:
+            row0, far = J.concat_rows(tuple(levels))
+        n_out = int(row0.shape[0])
+        node_cols, node_header, _ = gi.node_scan(self.far_labels, ctx)
+        canon_node = E.Var(CANON_NODE)
+        plan: Dict[str, Tuple[Column, str]] = {}
+        for e in header.expressions:
+            col = header.column(e)
+            if col in plan:
+                continue
+            if e in in_op.header:
+                plan[col] = (in_t._cols[in_op.header.column(e)], "row")
+                continue
+            if _owner_name(e) == self.target_fld:
+                key = rekey_element_expr(e, canon_node)
+                if key is None or key not in node_header:
+                    raise GraphIndexError(f"unmapped var-expand target expr {e!r}")
+                plan[col] = (node_cols[node_header.column(key)], "far")
+                continue
+            raise GraphIndexError(f"unmapped var-expand expr {e!r}")
+        out = self._gather_plan(plan, {"row": row0, "far": far})
+        return CudaTable(out, n_out)
 
 
 def plan_expand_fastpath(planner, op, lhs, rhs, classic) -> Optional[RelationalOperator]:
@@ -479,6 +998,41 @@ def plan_expand_fastpath(planner, op, lhs, rhs, classic) -> Optional[RelationalO
     )
 
 
+def plan_var_expand_fastpath(planner, op, lhs, rhs, classic) -> Optional[RelationalOperator]:
+    """Swap the unrolled var-length join cascade for ``CsrVarExpandOp`` when
+    statically safe; None keeps the classic plan. Directed and undirected
+    steps and zero-length lower bounds all fuse (undirected walks ride the
+    both-orientation CSR); named-path capture and pre-bound endpoints keep
+    the general machinery."""
+    from ...logical import ops as L
+
+    if op.direction not in (">", "-") or getattr(op, "capture_path_nodes", False):
+        return None
+    lhs_vars = {v.name for v in lhs.header.vars}
+    if op.rel in lhs_vars or op.source not in lhs_vars or op.target in lhs_vars:
+        return None
+    if {v.name for v in rhs.header.vars} != {op.target}:
+        return None
+    if not isinstance(op.rhs, L.NodeScan):
+        return None
+    m = op.rhs.node_type.material
+    far_labels = tuple(sorted(getattr(m, "labels", ()) or ()))
+    types = getattr(op.rel_type.material, "types", frozenset()) or frozenset()
+    return CsrVarExpandOp(
+        lhs,
+        classic,
+        rhs.graph,
+        source_fld=op.source,
+        rel_fld=op.rel,
+        target_fld=op.target,
+        types_key=GraphIndex.types_key(types),
+        lower=op.lower,
+        upper=op.upper,
+        far_labels=far_labels,
+        undirected=op.direction == "-",
+    )
+
+
 def _rel_neq_pair(pred) -> Optional[Tuple[str, str]]:
     """Recognize a relationship-uniqueness predicate id(a) <> id(b) over two
     relationship variables (the shape ``ir.builder`` emits)."""
@@ -497,6 +1051,43 @@ def _rel_neq_pair(pred) -> Optional[Tuple[str, str]]:
         if t is None or not isinstance(t.material, T.CTRelationshipType):
             return None
     return lv.name, rv.name
+
+
+def _rel_list_none_pair(pred) -> Optional[Tuple[str, str]]:
+    """Recognize the fixed-vs-var-length isomorphism predicate
+    ``none(x IN rs WHERE id(x) = id(r))`` (the shape ``ir.builder`` emits
+    for a var-length rel list ``rs`` vs a fixed rel ``r``); returns
+    (list_var, fixed_var) or None."""
+    from ...api import types as T
+
+    if not isinstance(pred, E.Quantified) or pred.kind != "none":
+        return None
+    lst = pred.list_expr
+    if not isinstance(lst, E.Var):
+        return None
+    lt = getattr(lst, "cypher_type", None)
+    if lt is None or not isinstance(lt.material, T.CTListType):
+        return None
+    if not isinstance(lt.material.inner.material, T.CTRelationshipType):
+        return None
+    eq = pred.predicate
+    if not isinstance(eq, E.Equals):
+        return None
+    l, r = eq.lhs, eq.rhs
+    if not (isinstance(l, E.Id) and isinstance(r, E.Id)):
+        return None
+    lv, rv = l.expr, r.expr
+    if not (isinstance(lv, E.Var) and isinstance(rv, E.Var)):
+        return None
+    names = {lv.name, rv.name}
+    if pred.var.name not in names or len(names) != 2:
+        return None
+    (other,) = names - {pred.var.name}
+    for v in (lv, rv):
+        t = getattr(v, "cypher_type", None)
+        if t is None or not isinstance(t.material, T.CTRelationshipType):
+            return None
+    return lst.name, other
 
 
 def _graph_loop_free(graph_obj, types_key, ctx) -> bool:
@@ -561,57 +1152,79 @@ def _rel_uniqueness_redundant(rel_ends, ra, rb, graph_obj, ctx) -> bool:
 
 
 def plan_filter_fastpath(planner, op, child) -> Optional[RelationalOperator]:
-    """Resolve a relationship-uniqueness filter over a fused subtree, so a
-    count(*) keeps its whole-plan fusion:
+    """Resolve a relationship-uniqueness filter over a fused subtree, so
+    count(*) and DISTINCT chains keep their whole-plan fusion (the openCypher
+    isomorphism predicates ``ir.builder`` adds would otherwise force the
+    chain to materialize just to compare edge ids):
 
     1. PROOF: ``_rel_uniqueness_redundant`` — equality would force a
-       self-loop of a loop-free type set: drop the filter outright;
-    2. ENFORCEMENT (``MultiwayIntersectOp`` only): drop the filter and
-       clone the op with the pair in ``enforced_pairs``; its materializing
-       path compares global element ids;
-    3. otherwise keep the generic FilterOp plan (in-op enforcement over a
-       ``CsrExpandOp`` chain is a later slice)."""
+       self-loop of a loop-free type set: drop the filter outright (the
+       SpMV count stays available);
+    2. ENFORCEMENT: drop the filter and clone the subtree's top operator
+       with the pair in ``enforced_pairs``. A ``CsrExpandOp`` chain needs
+       the same type set on both rels (its walks carry edge scan rows; its
+       materializing path compares element ids); ``MultiwayIntersectOp``
+       compares global element ids; a ``CsrVarExpandOp`` takes a
+       ``none(x IN rs WHERE id(x) = id(r))`` pair as a forbidden edge;
+    3. otherwise keep the generic FilterOp plan.
+
+    The ``CsrExpandIntoOp`` branch waits for that operator (ROADMAP.md
+    queue 1, item 2.2)."""
     from ...relational.ops import CacheOp
     from .wcoj import MultiwayIntersectOp
 
     pair = _rel_neq_pair(op.predicate)
-    if pair is None:
+    list_pair = _rel_list_none_pair(op.predicate) if pair is None else None
+    if pair is None and list_pair is None:
         return None
     wraps = 0
     node = child
     while isinstance(node, CacheOp):
         node = node.children[0]
         wraps += 1
-    if isinstance(node, MultiwayIntersectOp):
-        # the multiway op enforces pairs by comparing GLOBAL element ids
-        # (canonical rel scans / input id columns), so it needs no
-        # same-type-set restriction
-        rel_ends = node._rel_ends()
-        if rel_ends is None:
+
+    def rewrap(n: RelationalOperator) -> RelationalOperator:
+        for _ in range(wraps):
+            n = CacheOp(n)
+        return n
+
+    if list_pair is not None:
+        # fixed-vs-var-length isomorphism: push the fixed rel into the fused
+        # walk as a forbidden edge (a seeded walked-edge mask)
+        rs, r = list_pair
+        if not isinstance(node, CsrVarExpandOp) or node.rel_fld != rs:
             return None
-        key = tuple(sorted(pair))
-        if not set(key) <= set(rel_ends):
+        in_vars = {v.name for v in node.children[0].header.vars}
+        if r not in in_vars or r == node.rel_fld:
             return None
+        key = tuple(sorted((rs, r)))
         if key in node.enforced_pairs:
             return child  # duplicate predicate: already enforced below
-        if _rel_uniqueness_redundant(
-            rel_ends, key[0], key[1], node._graph_obj, node.context
-        ):
-            return child
-        out: RelationalOperator = node._with_pair(key, op.predicate)
-        for _ in range(wraps):
-            out = CacheOp(out)
-        return out
-    if not isinstance(node, CsrExpandOp):
+        return rewrap(node._with_pair(key, op.predicate))
+
+    if isinstance(node, MultiwayIntersectOp):
+        # the multiway op compares GLOBAL element ids, so it needs no
+        # same-type-set restriction
+        rel_ends = node._rel_ends()
+    elif isinstance(node, CsrExpandOp):
+        rel_ends = _chain_rel_ends(node._chain_hops())
+    else:
         return None
-    rel_ends = _chain_rel_ends(node._chain_hops())
     if rel_ends is None:
         return None
     key = tuple(sorted(pair))
     if not set(key) <= set(rel_ends):
         return None
+    if key in node.enforced_pairs:
+        return child  # duplicate predicate: already enforced below
     if _rel_uniqueness_redundant(
         rel_ends, key[0], key[1], node._graph_obj, node.context
     ):
         return child
+    if isinstance(node, MultiwayIntersectOp) or (
+        rel_ends[key[0]][2] == rel_ends[key[1]][2]
+    ):
+        # carried edge scan rows are only comparable within one canonical
+        # rel scan, so chain enforcement needs identical type sets
+        return rewrap(node._with_pair(key, op.predicate))
     return None

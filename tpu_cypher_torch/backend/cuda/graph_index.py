@@ -13,8 +13,12 @@ query (``GraphIndex.of(graph)`` hangs the cache off the graph object):
 * per label set: the canonical node scan plus ``row_map`` taking a compact
   id to its row in that scan (-1 = node lacks the labels)
 
-Keys by canonical row, bitmaps, dense forms and the undirected var-length
-CSR belong to operators that later slices port (ROADMAP.md queue 1).
+* per type set: ``rel_row_index`` (relationship ids sorted, with the
+  canonical scan row of each) and ``csr_undirected`` (the
+  both-orientation CSR of the var-length walk)
+
+Keys by canonical row, bitmaps and dense forms belong to operators that
+later slices port (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -91,6 +95,10 @@ class GraphIndex:
         self._rel_sizes: Dict[Tuple[str, ...], int] = {}
         # (types_key, reverse) -> (row_ptr, col_idx, edge_orig) device tensors
         self._csr: Dict[Tuple[Tuple[str, ...], bool], Tuple[Any, Any, Any]] = {}
+        # types_key -> both-orientation (row_ptr, col_idx, edge_orig)
+        self._csr_und: Dict[Tuple[str, ...], Tuple[Any, Any, Any]] = {}
+        # types_key -> (sorted int64 rel ids, canonical scan row of each)
+        self._rel_id_index: Dict[Tuple[str, ...], Tuple[Any, Any]] = {}
         # (types_key, reverse) -> sorted int64 edge keys
         self._edge_keys: Dict[Tuple[Tuple[str, ...], bool], Any] = {}
         # types_key -> device int64[num_nodes] self-loop counts
@@ -182,6 +190,22 @@ class GraphIndex:
         self._rel_sizes[types_key] = op.table.size
         return out
 
+    def rel_row_index(self, types_key: Tuple[str, ...], ctx):
+        """(sorted int64 relationship ids, int64 canonical scan row of each)
+        device tensors: the bridge from a relationship element id to the
+        scan row that ``csr``'s ``edge_orig`` carries, how a fixed rel of
+        the input becomes a forbidden edge of a fused var-length walk."""
+        got = self._rel_id_index.get(types_key)
+        if got is None:
+            cols, header = self.rel_scan(types_key, ctx)
+            n = self._rel_sizes[types_key]
+            id_col = cols[header.column(header.id_expr(header.var(CANON_REL)))]
+            ids = _host_logical(id_col, n)
+            order = np.argsort(ids, kind="stable").astype(np.int64)
+            got = (to_device(ids[order]), to_device(order))
+            self._rel_id_index[types_key] = got
+        return got
+
     def _edge_endpoints(self, types_key: Tuple[str, ...], ctx):
         """Resolve one type set's relationships to compact endpoint
         positions: (src_pos int64, dst_pos int64, num_nodes) — validates
@@ -262,6 +286,35 @@ class GraphIndex:
                 np.bincount(loops, minlength=n).astype(np.int64)
             )
         return out
+
+    def csr_undirected(self, types_key: Tuple[str, ...], ctx):
+        """(row_ptr, col_idx, edge_orig) of the both-orientation graph of one
+        type set: every relationship contributes an edge from each endpoint
+        (a self-loop once), and both orientations carry the same canonical
+        scan row in ``edge_orig``, so the walked-edge masks of a var-length
+        walk (``orig != prev``) keep relationships unique across
+        directions."""
+        got = self._csr_und.get(types_key)
+        if got is not None:
+            return got
+        with _obs_trace.span("csr_build", kind="index", undirected=True):
+            s, d, n = self._edge_endpoints(types_key, ctx)
+            nrel = len(s)
+            nonloop = s != d
+            a = np.concatenate([s, d[nonloop]])
+            b = np.concatenate([d, s[nonloop]])
+            if len(a) >= 2**31:
+                raise GraphIndexError("edge count exceeds the int32 CSR")
+            rows = np.arange(nrel, dtype=np.int64)
+            eo = np.concatenate([rows, rows[nonloop]])
+            row_ptr, order, _ = self._sorted_csr(a, b, n)
+            got = (
+                to_device(row_ptr),
+                to_device(b[order].astype(np.int32)),
+                to_device(eo[order]),
+            )
+        self._csr_und[types_key] = got
+        return got
 
     def loop_count(self, types_key: Tuple[str, ...], ctx):
         """Device int64[num_nodes]: self-loop edges per node."""

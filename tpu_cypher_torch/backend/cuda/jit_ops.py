@@ -477,6 +477,181 @@ def path_count_chain(dev_ids, ids, valid, hops, num_nodes: int):
 
 
 # ---------------------------------------------------------------------------
+# the chain walk: per-hop (base key, position, liveness) frontiers for the
+# fused var-length expand, the DISTINCT-endpoints count and the
+# relationship-unique chain count. Each function takes one hop's merged
+# ``lanes``, the list ``[row, nbr, orig, live]`` of ``expand_rows``
+# (``orig`` empty where the walk reads no edge; ``live`` None at the exact
+# lane count, the lane < nvalid mask on the bucket lattice), and computes
+# what the reference's computes after its ``_expand_rows`` merge: the
+# gathers, masks, keys and sort.
+# ---------------------------------------------------------------------------
+
+
+def _ones(n: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.ones(n, dtype=torch.bool, device=like.device)
+
+
+def _lane_mask(live, mask, nbr):
+    """Lanes alive after the far-label mask, or None when every lane is."""
+    present = mask[nbr] if mask is not None else None
+    if live is not None:
+        present = live if present is None else (present & live)
+    return present
+
+
+def rel_rows_of_ids(sorted_ids, perm, q, valid):
+    """Canonical rel-scan row per queried global relationship id, or -1
+    when the id is not in the scan (or the query row is null): a binary
+    search over ``GraphIndex.rel_row_index``, the id-space bridge of the
+    var-length walk's forbidden edges."""
+    n = sorted_ids.shape[0]
+    if n == 0:
+        return torch.full(q.shape, -1, dtype=torch.int64, device=q.device)
+    i = torch.clamp(torch.searchsorted(sorted_ids, q), 0, n - 1)
+    hit = sorted_ids[i] == q
+    if valid is not None:
+        hit = hit & valid
+    return torch.where(hit, perm[i], torch.full_like(perm[i], -1))
+
+
+def varlen_hop(lanes, row0, prev_edges):
+    """One hop of a var-length expansion. State per partial path: origin
+    input row ``row0`` (None on the first hop: the expansion row is the
+    origin), current node ``nbr`` and the edge scan rows walked so far
+    (``prev_edges``). A path that would reuse an edge gets ``iso`` False:
+    it emits nothing and expands no further, as the unrolled planner's
+    ``id(step_i) <> id(step_j)`` filters."""
+    row, nbr, orig, live = lanes
+    new_row0 = row0[row] if row0 is not None else row
+    new_prev = tuple(pe[row] for pe in prev_edges)
+    iso = _ones(row.shape[0], row) if live is None else live
+    for pe in new_prev:
+        iso = iso & (orig != pe)
+    return new_row0, nbr, orig, new_prev + (orig,), iso
+
+
+def varlen_emit(nbr, iso, row_map):
+    """Emission at one path length: far-node scan row (-1 = target labels
+    missing), surviving-row mask, surviving count."""
+    far = row_map[nbr]
+    keep = iso & (far >= 0)
+    return far, keep, torch.sum(keep, dtype=torch.int64)
+
+
+def varlen_zero(pos, present, row_map):
+    """Length-0 emission: each input row whose source node is present and
+    carries the target labels emits itself once (target = source)."""
+    far = row_map[pos]
+    keep = present & (far >= 0)
+    return _arange(pos.shape[0], pos), far, keep, torch.sum(keep, dtype=torch.int64)
+
+
+def concat_rows(parts):
+    """Concatenate per-level (row0, far) pairs into one output frame."""
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+_KEY_SENTINEL = (1 << 62) - 1  # sorts after every valid endpoint key
+
+
+def distinct_hop_materialize(lanes, akey, mask):
+    """One middle hop of a distinct-endpoints chain: expand (pos, akey)
+    into per-edge (akey', pos', present'), keeping only the base key and
+    the current node. ``mask``: far-label node mask or None."""
+    row, nbr, _, live = lanes
+    present = _lane_mask(live, mask, nbr)
+    return akey[row], nbr, _ones(row.shape[0], row) if present is None else present
+
+
+def _endpoint_key(akey, row, nbr, use_a: bool, use_c: bool, num_nodes: int):
+    """The packed endpoint key per lane, always a tensor of its own (never
+    ``akey`` itself), which ``_run_count`` may overwrite."""
+    if use_a and use_c:
+        key = akey[row]
+        return key.mul_(num_nodes).add_(nbr)
+    if use_a:
+        return akey[row]
+    return nbr.clone()
+
+
+def _run_count(key, present):
+    """Distinct keys among the present lanes: absent lanes take the
+    sentinel, which sorts after every endpoint key, then the run boundaries
+    among the first ``valid_n`` sorted keys (the reference's count of
+    boundaries under ``valid_n``). ``key`` is overwritten in place."""
+    if present is not None:
+        key.masked_fill_(~present, _KEY_SENTINEL)
+        valid_n = int(torch.sum(present, dtype=torch.int64))
+    else:
+        valid_n = int(key.shape[0])
+    if valid_n == 0:
+        return torch.zeros((), dtype=torch.int64, device=key.device)
+    s = torch.sort(key).values[:valid_n]
+    return torch.sum(s[1:] != s[:-1], dtype=torch.int64) + 1
+
+
+def distinct_pairs_count_final(lanes, akey, mask, use_a: bool, use_c: bool,
+                               num_nodes: int):
+    """Final hop fused with the distinct count: the last expansion's (base
+    key, far position) pairs packed into one int64 key, sorted, and the
+    run boundaries counted. Masked-out lanes sort to a sentinel tail.
+    ``lanes`` is emptied, so the sort's peak holds the keys alone."""
+    row, nbr, _, live = lanes
+    lanes.clear()
+    present = _lane_mask(live, mask, nbr)
+    key = _endpoint_key(akey, row, nbr, use_a, use_c, num_nodes)
+    del row, nbr, live
+    return _run_count(key, present)
+
+
+def unique_hop_materialize(lanes, akey, mask, prevs, mask_idx: tuple):
+    """``distinct_hop_materialize`` carrying walked-edge scan rows for
+    relationship uniqueness: (akey', pos', edge', prevs', present').
+    ``mask_idx`` names the carried arrays the new edge must differ from;
+    violating lanes come out present'=False (their next-hop degrees are
+    zero), the same mechanism as ``varlen_hop``."""
+    row, nbr, orig, live = lanes
+    prevs_out = tuple(p[row] for p in prevs)
+    present = _lane_mask(live, mask, nbr)
+    if present is None:
+        present = _ones(row.shape[0], row)
+    for i in mask_idx:
+        present = present & (orig != prevs_out[i])
+    return akey[row], nbr, orig, prevs_out, present
+
+
+def chain_count_final_unique(lanes, mask, prevs, mask_idx: tuple):
+    """Final hop of a relationship-unique chain count(*): the last
+    expansion's liveness, summed (the SpMV chain carries no edge
+    identity, so unique chains count through the walk)."""
+    row, nbr, orig, live = lanes
+    ok = _lane_mask(live, mask, nbr)
+    if ok is None:
+        ok = _ones(row.shape[0], row)
+    for i in mask_idx:
+        ok = ok & (orig != prevs[i][row])
+    return torch.sum(ok, dtype=torch.int64)
+
+
+def distinct_pairs_count_final_unique(lanes, akey, mask, prevs, use_a: bool,
+                                      use_c: bool, num_nodes: int, mask_idx: tuple):
+    """``distinct_pairs_count_final`` with walked-edge uniqueness masks:
+    lanes whose final edge equals a carried chain edge sort to the
+    sentinel tail (they are not paths under relationship isomorphism).
+    ``lanes`` is emptied, as there."""
+    row, nbr, orig, live = lanes
+    lanes.clear()
+    present = _lane_mask(live, mask, nbr)
+    for i in mask_idx:
+        ne = orig != prevs[i][row]
+        present = ne if present is None else (present & ne)
+    key = _endpoint_key(akey, row, nbr, use_a, use_c, num_nodes)
+    del row, nbr, orig, live
+    return _run_count(key, present)
+
+
+# ---------------------------------------------------------------------------
 # grouped aggregation: the plain version of the segment_agg kernel
 # ---------------------------------------------------------------------------
 

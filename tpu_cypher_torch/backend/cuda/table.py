@@ -741,6 +741,12 @@ class CudaTable(Table):
         return plan_multiway_intersect_fastpath(planner, op, in_plan, classic)
 
     @staticmethod
+    def plan_var_expand_fastpath(planner, op, lhs, rhs, classic):
+        from .expand_op import plan_var_expand_fastpath
+
+        return plan_var_expand_fastpath(planner, op, lhs, rhs, classic)
+
+    @staticmethod
     def plan_filter_fastpath(planner, op, child):
         from .expand_op import plan_filter_fastpath
 

@@ -90,12 +90,12 @@ def _mention_enforced_pairs(m: Set[E.Expr], op, h) -> None:
 
 def _local_mentions(op: O.RelationalOperator) -> Set[E.Expr]:
     """What this operator itself reads from its children's tables."""
-    from ..backend.cuda.expand_op import CsrExpandOp
+    from ..backend.cuda.expand_op import CsrExpandOp, CsrVarExpandOp
     from ..backend.cuda.wcoj import MultiwayIntersectOp
 
-    # not ported yet (ROADMAP.md queue 1): no plan holds these operators,
-    # and an empty class tuple never matches an isinstance check
-    CsrExpandIntoOp = CsrOptionalExpandOp = CsrVarExpandOp = ()
+    # not ported yet (ROADMAP.md queue 1, item 2.2): no plan holds these
+    # operators, and an empty class tuple never matches an isinstance check
+    CsrExpandIntoOp = CsrOptionalExpandOp = ()
 
     m: Set[E.Expr] = set()
     if isinstance(op, O.FilterOp):
@@ -179,11 +179,11 @@ def _local_mentions(op: O.RelationalOperator) -> Set[E.Expr]:
                 m.update(h.expressions)
         _mention_enforced_pairs(m, op, h)
     elif isinstance(op, CsrVarExpandOp):
-        # the fused path reads only the source id, but the classic SHADOW
-        # cascade ends in a SelectOp whose plan-time field list names every
-        # lhs var — pruning them away upstream would break the shadow's
-        # header (and the fallback). Var-length therefore pins its whole
-        # input header; fixed-hop expands upstream stay un-pruned.
+        # the fused path reads only the source id, but the classic cascade
+        # that defines its header ends in a SelectOp whose plan-time field
+        # list names every lhs var — pruning them away upstream would break
+        # that header. Var-length therefore pins its whole input header;
+        # fixed-hop expands upstream stay un-pruned.
         m.update(op.children[0].header.expressions)
     return m
 
