@@ -28,7 +28,15 @@ Phases (any failure exits non-zero and prints no result line):
             ``expand_rows`` to its plain version at the chain walk's
             shapes (Q17's final hop, about 197M lanes without orig, and
             Q18's third hop with orig, captured from a run of each) and
-            times them, with Q17's final hop whole and its sort;
+            times them, with Q17's final hop whole and its sort; holds
+            ``intersect`` to its plain version at Q22's two probes (the
+            final hop's lanes over the SF10 KNOWS keys, one a
+            orientation) and times the first, holds the optional lane merge (the ``expand_rows``
+            kernel tier and its placement) to its plain version at Q25's
+            and Q26's frontiers (every lane's row and match flag, every
+            matched lane's edge) and times it, and times
+            ``into_materialize_counted`` (torch ops) at Q24's first probe
+            half;
 4. slice  — runs the slices' queries through ``CypherSession.cuda()``
             on the LDBC-SNB-shaped graphs (SF1: 10,000 persons, SF10:
             100,000 persons, seed 42): Q1-Q5 on the CSR expand path, Q6-Q8
@@ -47,12 +55,24 @@ Phases (any failure exits non-zero and prints no result line):
             queries on the chain walk (the 2-hop DISTINCT at SF10,
             bench.py VAR_LENGTH, BASELINE.md config 4's *1..4, a
             materializing *1..2 at SF1, an undirected *1..2 and a *0..2,
-            and relationship uniqueness enforced inside the chain), each
-            cold and five times warm with its peak device memory. The
-            walk counts' truth honours relationship uniqueness: by rule
-            (the homomorphic count less the walks that reuse an edge),
-            each rule held to a brute-force enumeration on 20 sources,
-            or by the enumeration itself. It checks every
+            and relationship uniqueness enforced inside the chain), and
+            Q22-Q26 and five loopy-graph queries on the closing
+            ExpandInto and the fused OPTIONAL expand (the triangle closed
+            by an undirected KNOWS at SF10, counted by
+            ``CsrExpandIntoOp``'s fused close count in both orientations,
+            and at SF1 grouped by a: its materialize path, both probe
+            halves on ``intersect``; Q6 under ``TPU_CYPHER_WCOJ=off``: the
+            fused close count; OPTIONAL MATCH forward over SF10's persons
+            and backward, its first 100,000 rows in order, on SF10's
+            persons with the KNOWS into half of them; on the loopy graph
+            the triangle and the 2-cycle under ``off``, their pairs
+            enforced inside the close count, the undirected close, and
+            OPTIONAL rows forward and backward), each cold and five times
+            warm with its peak device memory. The walk counts' truth
+            honours relationship uniqueness: by rule (the homomorphic
+            count less the walks that reuse an edge), each rule held to a
+            brute-force enumeration on 20 sources, or by the enumeration
+            itself. It checks every
             answer against numpy/scipy ground truth computed from the
             generator's arrays, and checks that each query ran on the
             device rung once with no kernel fallback, launched its kernels
@@ -65,9 +85,10 @@ Phases (any failure exits non-zero and prints no result line):
             Q11 and Q12 warm on the ``join_probe`` kernel tier against the
             plain version called in the gate's place, and the triangle
             count on the WCOJ tier (``force``) against the binary plan
-            (``off``) on three graphs, ABBA-interleaved, every answer
-            checked; and the ``segment_agg`` gate's ``min`` at Q14's group
-            ids (about 100,000 groups: the ``fallback`` tier).
+            (``off``: ``CsrExpandIntoOp``'s fused close count, Q23) on four
+            graphs up to SF10, ABBA-interleaved, every answer checked; and
+            the ``segment_agg`` gate's ``min`` at Q14's group ids (about
+            100,000 groups: the ``fallback`` tier).
 
 The kernel launch counts are zeroed just before phase 4 and read just after
 it; the comparisons of phase 3 and the runs of phase 5 do not count. The line before the last is
@@ -187,6 +208,31 @@ LOOPY_FORBID = (
     "MATCH (x)-[r:KNOWS]->(y:Person), (c:Person)-[rs:KNOWS*1..2]->(d:Person) "
     "RETURN count(*) AS n"
 )
+
+# the closing ExpandInto and the fused OPTIONAL expand: the triangle closed
+# by an undirected KNOWS (LDBC SNB treats KNOWS as undirected), Q6 under
+# TPU_CYPHER_WCOJ=off (the reference's binary plan: the fused close count),
+# the undirected close grouped by its a, and OPTIONAL MATCH forward (every
+# person, counted) and backward (the first page of rows, in (b, a) order,
+# on a graph where half the persons have no incoming KNOWS)
+MATCH_CLOSE = "MATCH (a:Person)-[:KNOWS]->(b:Person)-[:KNOWS]->(c:Person)-[:KNOWS]-(a) "
+Q22 = MATCH_CLOSE + "RETURN count(*) AS t"
+Q23 = Q6  # under TPU_CYPHER_WCOJ=off
+Q24 = MATCH_CLOSE + "RETURN a.id AS a, count(*) AS n"
+Q25 = (
+    "MATCH (a:Person) OPTIONAL MATCH (a)-[:KNOWS]->(b) "
+    "RETURN count(*) AS rows, count(b.id) AS matched"
+)
+Q26_ROWS = 100_000
+Q26 = (
+    "MATCH (b:Person) OPTIONAL MATCH (a)-[:KNOWS]->(b) RETURN b.id AS b, a.id AS a "
+    f"ORDER BY b, a LIMIT {Q26_ROWS}"
+)
+# on the loopy graph: the 2-cycle under off (the close is the chain's only
+# hop), and OPTIONAL MATCH rows forward and backward
+LOOPY_2CYCLE = "MATCH (a:Person)-[:KNOWS]->(b:Person)-[:KNOWS]->(a) RETURN count(*) AS c"
+LOOPY_OPT_FWD = "MATCH (a:Person) OPTIONAL MATCH (a)-[:KNOWS]->(b) RETURN a.id AS a, b.id AS b"
+LOOPY_OPT_BWD = "MATCH (b:Person) OPTIONAL MATCH (a)-[:KNOWS]->(b) RETURN b.id AS b, a.id AS a"
 
 
 class SmokeFailure(Exception):
@@ -865,9 +911,26 @@ def check_intersect(torch, g10, tri10, report):
           f"empty query list did not take the fallback tier: {before} -> {after}")
     print("  intersect empty query list: fallback tier, no launch")
 
-    # timing at Q6's arm 0: the kernel, its plain version and the two
-    # torch.searchsorted calls alone
-    keys, q, qvalid = calls[0]
+    # timing at Q6's arm 0
+    ms, plain_ms, lib_ms, b_ms, b_by, hits = time_intersect(torch, *calls[0])
+    nk, nq = int(calls[0][0].shape[0]), int(calls[0][1].shape[0])
+    report["intersect"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms,
+        library_call="torch.searchsorted (left and right)",
+        shape=f"Q6 arm 0 at SF10: {nq} queries over {nk} keys, {hits} hits",
+    )
+    print(f"  intersect timing at Q6 arm 0: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, two torch.searchsorted {lib_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})")
+
+
+def time_intersect(torch, keys, q, qvalid):
+    """The kernel, its plain version and the two torch.searchsorted calls
+    alone on one call's inputs (mean of 10, CUDA events), and the bound.
+    Returns (ms, plain_ms, library_ms, bound_ms, bound_by, hit lanes)."""
+    from tpu_cypher_torch.backend.cuda.hopper import intersect as KI
+
     ms = time_ms(torch, lambda: KI.range_count_cuda(keys, q, qvalid), iters=10)
     plain_ms = time_ms(torch, lambda: KI.range_count_plain(keys, q, qvalid), iters=10)
     lib_ms = time_ms(torch, lambda: (
@@ -888,15 +951,7 @@ def check_intersect(torch, g10, tri10, report):
     run_bits = int(torch.sum(torch.floor(torch.log2(hit.double())) + 1)) if hit.numel() else 0
     ops = nq * (7 * (nk - 1).bit_length() + 7) + 14 * run_bits
     b_ms, b_by = bound(nbytes, ops)
-    report["intersect"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms,
-        library_call="torch.searchsorted (left and right)",
-        shape=f"Q6 arm 0 at SF10: {nq} queries over {nk} keys, {int(hit.numel())} hits",
-    )
-    print(f"  intersect timing at Q6 arm 0: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, two torch.searchsorted {lib_ms:.4f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by})")
+    return ms, plain_ms, lib_ms, b_ms, b_by, int(hit.numel())
 
 
 def q11_join_probe_calls(g10, want):
@@ -1306,6 +1361,103 @@ def time_materializes(torch, g1, g10, q11_truth, q7_rows):
           f"{int(lo.shape[0])} queries: {ms7:.4f} ms, byte bound {b7_ms:.4f} ms")
 
 
+def check_close_shapes(torch, g1, g10, g10h, truth, report):
+    """The closing ExpandInto's and the fused OPTIONAL expand's shapes, on
+    inputs captured from an extra run of each query: ``intersect`` at
+    Q22's probes (the final hop's lanes over the KNOWS keys, both
+    orientations) held to its plain version bit for bit and timed as at
+    Q6; the optional lane merge (``expand_op._optional_lanes``: the
+    ``expand_rows`` kernel tier, then ``optional_place``) at Q25's and
+    Q26's frontiers held to ``jit_ops.optional_expand_materialize`` bit
+    for bit on every lane's row and match flag and every matched lane's
+    neighbour and edge (an unmatched lane's are masked null downstream)
+    and timed (mean of 20; the plain version of 3) against its byte
+    bound; and ``into_materialize_counted`` (torch ops) at Q24's first
+    probe half against its byte bound."""
+    from tpu_cypher_torch.backend.cuda import expand_op as PX
+    from tpu_cypher_torch.backend.cuda import hopper
+    from tpu_cypher_torch.backend.cuda import jit_ops as J
+    from tpu_cypher_torch.backend.cuda.hopper import intersect as KI
+
+    calls, rows = q_hooked_calls(g10, Q22, hopper, "intersect_range_count")
+    check(rows == [{"t": truth["Q22"]}] and len(calls) == 2,
+          f"Q22 (hooked) {rows} != {truth['Q22']}, {len(calls)} probes")
+    err = report["intersect"]["max_abs_err"]
+    for j, ((keys, q, qvalid), _) in enumerate(calls):
+        lo, counts = KI.range_count_cuda(keys, q, qvalid)
+        e = tuple_err(torch, (lo, counts, torch.sum(counts)),
+                      KI.range_count_plain(keys, q, qvalid))
+        del lo, counts
+        err = max(err, e)
+        check(e == 0.0, f"intersect at Q22's probe {j} disagrees with its plain version")
+        print(f"  intersect Q22 SF10 orientation {j}: keys={int(keys.shape[0])} "
+              f"queries={int(q.shape[0])} max_abs_err={e}")
+    (keys, q, qvalid), _ = calls[0]
+    ms, plain_ms, lib_ms, b_ms, b_by, hits = time_intersect(torch, keys, q, qvalid)
+    shape = f"Q22's first probe at SF10: {int(q.shape[0])} queries over " \
+            f"{int(keys.shape[0])} keys, {hits} hits"
+    report["intersect"].update(
+        max_abs_err=err, q22_ms=ms, q22_plain_ms=plain_ms, q22_library_ms=lib_ms,
+        q22_bound_ms=b_ms, q22_bound_by=b_by, q22_shape=shape,
+    )
+    print(f"  intersect timing at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"two torch.searchsorted {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    del calls, keys, q, qvalid
+
+    err = report["expand_rows"]["max_abs_err"]
+    for key, pg, query, ok in (
+        ("q25", g10, Q25, lambda rows: rows == [truth["Q25"]]),
+        ("q26", g10h, Q26, lambda rows: [(r["b"], r["a"]) for r in rows] == truth["Q26"]),
+    ):
+        calls, rows = q_hooked_calls(pg, query, PX, "_optional_lanes")
+        check(ok(rows) and len(calls) == 1, f"{key.upper()} (hooked) gave other rows")
+        args = calls[0][0]
+        rp, ci, eo, pos, deg, counts, total, matched_total = args
+        got = PX._optional_lanes(*args)
+        want = J.optional_expand_materialize(rp, ci, eo, pos, deg, counts, total)
+        hit = want[3]
+        e = tuple_err(torch, (got[0], got[3], got[1][hit], got[2][hit]),
+                      (want[0], want[3], want[1][hit], want[2][hit]))
+        del got, want, hit
+        err = max(err, e)
+        f = int(pos.shape[0])
+        shape = (f"F={f}, {total} lanes, {matched_total} matched, "
+                 f"{total - matched_total} null-padded")
+        check(e == 0.0, f"the optional lane merge at {key.upper()} ({shape}) disagrees "
+              f"with its plain version")
+        ms = time_ms(torch, lambda: PX._optional_lanes(*args))
+        plain_ms = time_ms(torch, lambda: J.optional_expand_materialize(
+            rp, ci, eo, pos, deg, counts, total), iters=3, warmup=1)
+        cum = torch.cumsum(counts, 0)
+        lanes = torch.arange(total, device=cum.device)
+        lib_ms = time_ms(torch, lambda: torch.searchsorted(cum, lanes, right=True))
+        del cum, lanes
+        # per frontier row pos, deg, counts and rp[pos] (28 B); per matched
+        # lane ci and eo (12 B); per lane row, nbr, orig and matched (25 B)
+        b_ms, b_by = bound(28 * f + 12 * matched_total + 25 * total, 0)
+        report["expand_rows"].update({
+            f"{key}_merge_ms": ms, f"{key}_merge_plain_ms": plain_ms,
+            f"{key}_merge_library_ms": lib_ms, f"{key}_merge_bound_ms": b_ms,
+            f"{key}_merge_max_abs_err": e, f"{key}_merge_shape": shape,
+        })
+        print(f"  optional lane merge at {key.upper()} ({shape}): bit-identical on rows, "
+              f"match flags and matched lanes, "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.searchsorted {lib_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})")
+    report["expand_rows"]["max_abs_err"] = err
+
+    calls, rows = q_hooked_calls(g1, Q24, J, "into_materialize_counted")
+    got = {r["a"]: r["n"] for r in rows}
+    check(got == truth["Q24"] and len(calls) == 2, "Q24 (hooked into_materialize_counted)")
+    args, kw = calls[0]
+    eo, lo, _, total = args
+    ms = time_ms(torch, lambda: J.into_materialize_counted(*args, **kw), iters=10)
+    # reads: lo and counts per query, eo per lane; writes: row, orig, live
+    b_ms, _ = bound(16 * int(lo.shape[0]) + 25 * int(total), 0)
+    print(f"  into_materialize_counted at Q24's first probe half (torch ops): {int(total)} "
+          f"lanes from {int(lo.shape[0])} queries: {ms:.4f} ms, byte bound {b_ms:.4f} ms")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the slice through CypherSession.cuda()
 # ---------------------------------------------------------------------------
@@ -1313,11 +1465,13 @@ def time_materializes(torch, g1, g10, q11_truth, q7_rows):
 
 def triangle_truth(ids, src, dst, rows_and_cliques):
     """scipy ground truth over the generator's arrays, with edge
-    multiplicity: the directed triangle count trace(A^3) and the per-edge
-    sum of min(out(b), in(a)) (the count tier's expanded lanes); with
-    ``rows_and_cliques`` also the triangle rows (a, b, c, multiplicity) and
-    the 4-clique count. The graphs are loop-free (checked), so distinct
-    endpoints force distinct relationships."""
+    multiplicity: the directed triangle count trace(A^3), the per-edge
+    sum of min(out(b), in(a)) (the count tier's expanded lanes), and per
+    node a the 2-paths a->b->c closed by an undirected c-a edge (A^2 o A^T
+    plus A^2 o A, by row: Q22 and Q24); with ``rows_and_cliques`` also the
+    triangle rows (a, b, c, multiplicity) and the 4-clique count. The
+    graphs are loop-free (checked), so distinct endpoints force distinct
+    relationships, and no undirected close is a self-loop."""
     import numpy as np
     import scipy.sparse as sp
 
@@ -1332,9 +1486,15 @@ def triangle_truth(ids, src, dst, rows_and_cliques):
     truth = {"min_lanes": int(np.minimum(out_deg[d], in_deg[s]).sum())}
     tri = 0
     step = 4096
+    close_rows = np.zeros(n, np.int64)
     for lo in range(0, n, step):  # trace(A^3) = sum(A^2 o A^T), by row block
-        tri += int((A[lo:lo + step] @ A).multiply(AT[lo:lo + step]).sum())
+        paths = A[lo:lo + step] @ A
+        closed = np.asarray(paths.multiply(AT[lo:lo + step]).sum(axis=1)).ravel()
+        tri += int(closed.sum())
+        close_rows[lo:lo + step] = closed + np.asarray(
+            paths.multiply(A[lo:lo + step]).sum(axis=1)).ravel()
     truth["triangles"] = tri
+    truth["close_rows"] = close_rows
     if rows_and_cliques:
         pa, pb = A.nonzero()
         M = A[pb].multiply(AT[pa]).tocoo()  # per (a, b) pair: c with b->c->a
@@ -1379,6 +1539,87 @@ def loopy_triangles(src, dst) -> int:
                 if a2 == a and r0 != r1 and r0 != r2 and r1 != r2:
                     count += 1
     return count
+
+
+def loopy_closes(src, dst):
+    """Brute force on the loopy graph, relationship-unique: the 2-cycles r0:
+    a->b, r1: b->a, and the undirected closes r0: a->b, r1: b->c, r2 an
+    edge c->a or a->c (a self-loop a->a once)."""
+    from collections import defaultdict
+
+    out = defaultdict(list)
+    between = defaultdict(list)
+    for i, (s, d) in enumerate(zip(src.tolist(), dst.tolist())):
+        out[s].append((i, d))
+        between[(s, d)].append(i)
+    cycles = closes = 0
+    for r0, (a, b) in enumerate(zip(src.tolist(), dst.tolist())):
+        for r1, c in out[b]:
+            if r1 == r0:
+                continue
+            if c == a:
+                cycles += 1
+            ring = between[(c, a)] + (between[(a, c)] if a != c else [])
+            closes += sum(1 for r2 in ring if r2 != r0 and r2 != r1)
+    return cycles, closes
+
+
+def optional_rows(ids, near, far):
+    """The OPTIONAL MATCH rows (near, far) over the edges (node indices
+    ``near[i]`` -> ``far[i]`` in the expand's direction), and one (near,
+    None) row per node with no such edge, as a Counter of id pairs."""
+    from collections import Counter
+
+    import numpy as np
+
+    deg = np.bincount(near, minlength=len(ids))
+    rows = Counter(zip(ids[near].tolist(), ids[far].tolist()))
+    rows.update((int(x), None) for x in ids[deg == 0])
+    return rows
+
+
+def optional_page(ids, s, d, n_rows):
+    """The first ``n_rows`` rows of the backwards OPTIONAL MATCH (b, a) in
+    (b, a) order: each edge a->b, and one (b, None) row per b with no
+    in-edge (a null sorts last; such a b has no other row)."""
+    import numpy as np
+
+    n = len(ids)
+    lone = np.flatnonzero(np.bincount(d, minlength=n) == 0)
+    b = np.concatenate([d, lone])
+    a = np.concatenate([s, np.full(len(lone), n)])  # n: the null
+    order = np.lexsort((a, b))[:n_rows]
+    return [(int(ids[x]), None if y == n else int(ids[y]))
+            for x, y in zip(b[order].tolist(), a[order].tolist())], len(lone)
+
+
+def close_truth(ids1, tri1, ids10, s10, d10, tri10, idsl, srcl, dstl):
+    """numpy/scipy truth of Q22-Q26 and the loopy graph's closes and
+    OPTIONAL rows. Q26 runs on SF10's persons with the KNOWS into the
+    even-indexed persons only (``half``), so half the persons have no
+    in-edge."""
+    import numpy as np
+
+    out10 = np.bincount(s10, minlength=len(ids10))
+    close1 = tri1["close_rows"]
+    half = d10 % 2 == 0
+    page, lone = optional_page(ids10, s10[half], d10[half], Q26_ROWS)
+    sl, dl = np.searchsorted(idsl, srcl), np.searchsorted(idsl, dstl)
+    cycles, closes = loopy_closes(srcl, dstl)
+    return {
+        "Q22": int(tri10["close_rows"].sum()),
+        "Q23": tri10["triangles"],
+        "Q24": {int(ids1[a]): int(close1[a]) for a in np.flatnonzero(close1)},
+        "Q24_rows": int(close1.sum()),
+        "Q25": {"rows": int(np.maximum(out10, 1).sum()), "matched": int(len(s10))},
+        "Q26": page,
+        "Q26_half": half,
+        "Q26_lone": lone,
+        "loopy_2cycle": cycles,
+        "loopy_undirected": closes,
+        "loopy_opt_fwd": optional_rows(idsl, sl, dl),
+        "loopy_opt_bwd": optional_rows(idsl, dl, sl),
+    }
 
 
 def run_query(torch, pg, query, kernels, plan_op="CsrExpandOp", wcoj_tiers=(),
@@ -1885,6 +2126,90 @@ def run_walk_queries(torch, run, cold, slice_launches, g1, g10, gl, truth, repor
           f"with r out of {c} sources and the walk avoiding it; all by brute force")
 
 
+def run_close_queries(torch, run, cold, g1, g10, g10h, gl, truth, loopy_tri):
+    """Phase 4's closing ExpandInto and fused OPTIONAL queries, Q22-Q26 and
+    the loopy graph's closes and OPTIONAL rows: each cold, then five warm
+    runs, with its warm median and own peak device memory, checked against
+    ``close_truth`` and against the path it must take: the plan's
+    operator, and the plain functions each run calls (the fused close
+    count's ``into_close_queries`` or ``into_close_unique_queries``, the
+    materialize's two ``into_probe`` halves, the optional merge's
+    ``optional_place``)."""
+    from collections import Counter
+
+    from tpu_cypher_torch.backend.cuda import jit_ops as J
+
+    both = ("expand_rows", "intersect")
+
+    def closed(label, pg, q, kernels, plan_op, fns, mode=None):
+        calls = {}
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2**30
+        pinned = wcoj_mode(mode) if mode else contextlib.nullcontext()
+        with counted(J, tuple(fns), calls), pinned:
+            rows, secs, _ = run(label, pg, q, kernels, plan_op=plan_op, warm=5)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        warm = statistics.median(secs[1:])
+        print(f"    {label} cold {secs[0] * 1e3:.3f} ms, warm median {warm * 1e3:.3f} ms "
+              f"over {len(secs) - 1} runs (s: {[round(x, 6) for x in secs[1:]]}); peak "
+              f"device memory {peak:.3f} GiB, of which {held:.3f} GiB held before the "
+              f"query ({peak - held:.3f} GiB its own)")
+        for name, per_run in fns.items():
+            check(calls.get(name, 0) == per_run * len(secs),
+                  f"{label}: {name} called {calls.get(name, 0)} times in {len(secs)} runs")
+        return [dict(r) for r in rows]
+
+    def fused_at_top(label):
+        rel = cold[label].plans.split("=== Relational plan ===")[1].strip().splitlines()
+        return rel[1].strip().startswith("CsrExpandIntoOp(") and " uniq(" in rel[1]
+
+    rows = closed("Q22 (SF10)", g10, Q22, both, "CsrExpandIntoOp",
+                  {"into_close_queries": 1, "into_probe": 0})
+    check(rows == [{"t": truth["Q22"]}], f"Q22 {rows} != {truth['Q22']}")
+    print(f"    Q22 = {truth['Q22']} 2-paths a->b->c closed by an undirected c-a edge "
+          f"(scipy A^2 o (A + A^T)); {truth['Q23']} of them directed triangles; the "
+          f"fused close count, both orientations")
+    rows = closed("Q23 (SF10, off)", g10, Q23, both, "CsrExpandIntoOp",
+                  {"into_close_queries": 1, "into_probe": 0}, mode="off")
+    check(rows == [{"triangles": truth["Q23"]}], f"Q23 {rows} != {truth['Q23']}")
+    print(f"    Q23 = {truth['Q23']} triangles on the fused close count (Q6's truth)")
+    rows = closed("Q24 (SF1)", g1, Q24, both, "CsrExpandIntoOp", {"into_probe": 2})
+    check({r["a"]: r["n"] for r in rows} == truth["Q24"] and len(rows) == len(truth["Q24"]),
+          "Q24 rows differ from scipy")
+    print(f"    Q24 = {len(rows)} groups over {truth['Q24_rows']} closed 2-paths, equal to "
+          f"scipy group for group")
+    rows = closed("Q25 (SF10)", g10, Q25, ("expand_rows",), "CsrOptionalExpandOp",
+                  {"optional_place": 1})
+    check(rows == [truth["Q25"]], f"Q25 {rows} != {truth['Q25']}")
+    print(f"    Q25 = {rows[0]}")
+    rows = closed("Q26 (SF10 half)", g10h, Q26, ("expand_rows",), "CsrOptionalExpandOp",
+                  {"optional_place": 1})
+    got = [(r["b"], r["a"]) for r in rows]
+    check(got == truth["Q26"], f"Q26 rows differ from numpy: {got[:3]} ...")
+    nulls = sum(1 for _, a in got if a is None)
+    print(f"    Q26 = {len(rows)} (b, a) rows in order, {nulls} of them null-padded, equal "
+          f"to numpy row for row ({truth['Q26_lone']} persons with no in-edge)")
+    fns_u = {"into_close_unique_queries": 1, "into_close_count_unique": 1, "into_probe": 0}
+    rows = closed("loopy triangles (off)", gl, Q6, both, "CsrExpandIntoOp", fns_u, mode="off")
+    check(rows == [{"triangles": loopy_tri}], f"loopy triangles (off) {rows}")
+    check(fused_at_top("loopy triangles (off)"), "loopy triangle close has a FilterOp above")
+    rows = closed("loopy 2-cycle (off)", gl, LOOPY_2CYCLE, both, "CsrExpandIntoOp", fns_u,
+                  mode="off")
+    check(rows == [{"c": truth["loopy_2cycle"]}], f"loopy 2-cycle {rows}")
+    check(fused_at_top("loopy 2-cycle (off)"), "loopy 2-cycle close has a FilterOp above")
+    rows = closed("loopy undirected close", gl, Q22, both, "CsrExpandIntoOp",
+                  {"into_probe": 2})
+    check(rows == [{"t": truth["loopy_undirected"]}], f"loopy undirected close {rows}")
+    for name, q, keys in (("fwd", LOOPY_OPT_FWD, ("a", "b")), ("bwd", LOOPY_OPT_BWD, ("b", "a"))):
+        rows = closed(f"loopy OPTIONAL {name}", gl, q, ("expand_rows",), "CsrOptionalExpandOp",
+                      {"optional_place": 1})
+        got = Counter((r[keys[0]], r[keys[1]]) for r in rows)
+        check(got == truth[f"loopy_opt_{name}"], f"loopy OPTIONAL {name} rows differ")
+    print(f"    loopy = {loopy_tri} triangles and {truth['loopy_2cycle']} 2-cycles on the "
+          f"fused unique close count, {truth['loopy_undirected']} undirected closes, "
+          f"OPTIONAL rows forward and backward; all by brute force")
+
+
 def run_shaping_queries(torch, run, slice_launches, g1, g10, truth):
     """Phase 4's row shaping and grouping queries, Q13-Q16: each cold, then
     five warm runs, with its warm median and peak device memory, checked
@@ -2112,6 +2437,20 @@ def main() -> int:
           f"{walks['Q21'][2]} *0..2 walks; loopy {walks['loopy_chain']} 2-hop, "
           f"{walks['loopy_distinct']} distinct, {walks['loopy_forbid'][1]} forbid rows "
           f"(scipy, rules and brute force, {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    closes = close_truth(ids1, tri1, ids10, s10, d10, tri10, idsl, srcl, dstl)
+    half = closes["Q26_half"]
+
+    def half_graph():  # Q26's graph: SF10's persons, KNOWS into even indices
+        return interop.graph_from_arrays(session, ids10, {}, {"id": CTInteger.nullable},
+                                         src10[half], dst10[half])
+
+    print(f"truth: Q22 {closes['Q22']} closed 2-paths at SF10; Q24 {closes['Q24_rows']} "
+          f"in {len(closes['Q24'])} groups at SF1; Q25 {closes['Q25']}; Q26 "
+          f"{len(closes['Q26'])} rows of {int(half.sum())} KNOWS, {closes['Q26_lone']} "
+          f"persons with no in-edge; loopy {closes['loopy_2cycle']} 2-cycles, "
+          f"{closes['loopy_undirected']} undirected closes (scipy and brute force, "
+          f"{time.perf_counter() - t0:.1f} s)")
 
     # 3. kernels against their plain versions
     report = {}
@@ -2126,6 +2465,7 @@ def main() -> int:
     check_join_probe(torch, g10, truth["Q11"], report)
     check_two_streams(torch, session, g10)
     time_materializes(torch, g1, g10, truth["Q11"], tri1["triangles"])
+    check_close_shapes(torch, g1, g10, half_graph(), closes, report)
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # 4. the slice, on graphs phase 3 has not touched (no CSR built yet)
@@ -2261,6 +2601,8 @@ def main() -> int:
     run_shaping_queries(torch, run, slice_launches, g1, g10, truth)
     # the chain walk: the 2-hop DISTINCT and the var-length expand
     run_walk_queries(torch, run, cold, slice_launches, g1, g10, gl, walks, report)
+    # the closing ExpandInto and the fused OPTIONAL expand
+    run_close_queries(torch, run, cold, g1, g10, half_graph(), gl, closes, loopy_truth)
     counts = dispatch.use_counts()
     for name, c in counts.items():
         check(c["fallback"] == 0 and c["plain"] == 0, f"{name} fallbacks: {c}")
@@ -2271,8 +2613,9 @@ def main() -> int:
 
     # 5. off the main path: Q11 and Q12 warm on the kernel tier against the
     # plain version in the gate's place, and the triangle count on the WCOJ
-    # tier against the binary plan (which the reference's ``auto`` keeps
-    # under TPU_CYPHER_WCOJ_MIN_ROWS) at three graph sizes
+    # tier against the binary plan (``CsrExpandIntoOp``'s fused close count,
+    # which the reference's ``auto`` keeps under TPU_CYPHER_WCOJ_MIN_ROWS)
+    # at four graph sizes
     print("measurements off the main path (warm, ABBA-interleaved):")
     tiers = {"kernel tier": (contextlib.nullcontext, "JoinOp", None),
              "plain version": (plain_join_probe, "JoinOp", None)}
@@ -2280,7 +2623,7 @@ def main() -> int:
         torch, g10, Q11, tiers, lambda rows: rows == [{"n": truth["Q11"]}], rounds=10))
     print_times("Q12 (SF10)", warm_times(torch, g10, Q12, tiers, q12_ok, rounds=4))
     plans = {"WCOJ (force)": (lambda: wcoj_mode("force"), "MultiwayIntersectOp", None),
-             "binary plan (off)": (lambda: wcoj_mode("off"), "JoinOp",
+             "binary plan (off)": (lambda: wcoj_mode("off"), "CsrExpandIntoOp",
                                    "MultiwayIntersectOp")}
     ids_s, src_s, dst_s = loopy_arrays(100, 300)
     g01 = PropertyGraph(session, generate_snb(0.1, session, seed=SEED))
@@ -2292,6 +2635,7 @@ def main() -> int:
         ("loopy 300 nodes", gl, idsl, srcl, dstl, loopy_truth),
         ("SNB SF0.1", g01, ids01, src01, dst01,
          triangle_truth(ids01, src01, dst01, rows_and_cliques=False)["triangles"]),
+        ("SNB SF10", g10, ids10, src10, dst10, tri10["triangles"]),
     ):
         s_i, d_i = idx(ids, src), idx(ids, dst)
         out_max = int(np.bincount(s_i, minlength=len(ids)).max())

@@ -725,12 +725,17 @@ BUCKET_QUERIES = [
     "MATCH (a)-[:K]->(b)-[:K]->(c) WITH DISTINCT a, c RETURN count(*) AS c",
     "MATCH (a)-[r1:K]->(b)<-[r2:K]-(c) RETURN a.v AS x, c.v AS z",
     "MATCH (x)-[r:K]->(y), (c)-[rs:K*1..2]->(d) RETURN count(*) AS c",
+    # ExpandInto's probe over a tail-padded chain, and the fused OPTIONAL
+    # expand: both size their lanes exactly in every mode
+    "MATCH (a)-[:K]->(b)-[:K]->(c)-[:K]-(a) RETURN a.v AS a, b.v AS b, c.v AS c",
+    "MATCH (a) OPTIONAL MATCH (a)-[:K]->(b) RETURN a.v AS a, b.v AS b",
 ]
 
 
 def test_bucketed_walks_match_exact():
     """On the bucket lattice the walks' pad lanes stay dead: every answer
-    equals the exact-size one (the materializing pair masks included)."""
+    equals the exact-size one (the materializing pair masks, the closing
+    probe and the optional expand included)."""
     from tpu_cypher_torch.utils import config as PCFG
 
     create = _create(1, 14, 30)

@@ -20,11 +20,12 @@ carried across as numpy arrays:
 Rows must be bag-identical (exact: integers), the port's plan must hold
 ``MultiwayIntersectOp`` and its WCOJ tier counter must show the tier that
 answered; ``expand_rows`` and ``intersect`` run on their CPU (``plain``)
-tier with no fallback. A shape the planner hook declines (``off``,
-``auto`` under its threshold, an empty graph, an undirected close) runs the
-classic ``JoinOp`` plan and must be bag-identical to the reference with the
-same setting; a multi-close materialize raises the typed
-``NotImplementedError`` naming the ROADMAP.md item that ports it.
+tier with no fallback. A shape the planner hook declines must be
+bag-identical to the reference with the same setting: ``off`` and an
+undirected close run the binary plan, ``CsrExpandIntoOp`` (its probe on
+``intersect``), and an empty graph the classic ``JoinOp`` plan; a
+multi-close materialize raises the typed ``NotImplementedError`` naming
+the ROADMAP.md item that ports it.
 """
 
 from collections import Counter
@@ -272,9 +273,31 @@ def test_device_fault_in_wcoj_reaches_caller_typed(snb):
 
 
 # ---------------------------------------------------------------------------
-# declined shapes: the classic JoinOp plan answers, or the typed error
-# names the ROADMAP.md item that ports the shape
+# declined shapes: the binary plan (CsrExpandIntoOp) or the classic JoinOp
+# plan answers, or the typed error names the ROADMAP.md item that ports
+# the shape
 # ---------------------------------------------------------------------------
+
+
+def _check_binary_answer(result, ref_result, want=None):
+    """The declined shape ran the binary plan, ``CsrExpandIntoOp``, on the
+    device rung, with ``expand_rows`` and ``intersect`` on their CPU tiers
+    and no join, bag-identical to the reference."""
+    assert "MultiwayIntersectOp" not in result.plans
+    assert "CsrExpandIntoOp" in result.plans
+    got = _bag(result.records)
+    assert got == _bag(ref_result.records)
+    if want is not None:
+        assert got == want
+    log = result.execution_log
+    assert len(log) == 1 and log[0]["rung"] == "device" and log[0]["ok"], log
+    counts = PD.use_counts()
+    for name in ("expand_rows", "intersect"):
+        assert counts[name]["plain"] > 0, counts
+    assert counts["join_probe"]["plain"] == 0, counts
+    for name, c in counts.items():
+        assert c["fallback"] == 0 and c["kernel"] == 0, (name, c)
+    return got
 
 
 def _check_classic_answer(result, ref_result, want=None):
@@ -301,16 +324,16 @@ def test_declined_off_mode(snb):
     RCFG.WCOJ_MODE.set("off")
     rows, _ = _truth(*arrays)
     want = Counter({(("triangles", sum(rows.values())),): 1})
-    _check_classic_answer(port.cypher(TRIANGLE), ref.cypher(TRIANGLE), want)
+    _check_binary_answer(port.cypher(TRIANGLE), ref.cypher(TRIANGLE), want)
 
 
 def test_auto_under_threshold_routes_like_force(loopy):
     """The loopy graph's binary blowup (150 edges x its max degree) is far
     under ``TPU_CYPHER_WCOJ_MIN_ROWS``, where the reference's ``auto``
     keeps its binary plan. The port's ``auto`` routes it to WCOJ as
-    ``force`` does (the WCOJ count beat the binary plan on the H100 at
-    every size measured), and answers as the reference's binary plan
-    does."""
+    ``force`` does (a rule set when the WCOJ count beat the join cascade
+    on the H100 at every size measured), and answers as the reference's
+    binary plan does."""
     ref, _, port, arrays = loopy
     for cfg in (PCFG, RCFG):
         cfg.WCOJ_MODE.set("auto")
@@ -330,14 +353,14 @@ def test_declined_empty_node_space():
 
 
 def test_declined_undirected_close(snb):
-    """The classic plan scans the undirected close as the union of both
-    orientations (``union_all``)."""
+    """The binary plan probes the undirected close in both orientations
+    (``CsrExpandIntoOp``'s fused close count)."""
     ref, _, port, _ = snb
     query = (
         "MATCH (a:Person)-[:KNOWS]->(b:Person)-[:KNOWS]->(c:Person)-[:KNOWS]-(a) "
         "RETURN count(*) AS t"
     )
-    _check_classic_answer(port.cypher(query), ref.cypher(query))
+    _check_binary_answer(port.cypher(query), ref.cypher(query))
 
 
 @pytest.mark.parametrize("graph,query", [

@@ -1,15 +1,19 @@
 """Fused CSR expand operators: the CUDA backend's physical Expand.
 
 The port of the slices' part of ``tpu_cypher/backend/tpu/expand_op.py``:
-``_FusedExpandBase`` (``_with_pair`` and the materializing path's
-uniqueness masks), ``CsrExpandOp`` (its materialize half, its count chain
-and its DISTINCT-endpoints count), ``CsrVarExpandOp`` (the fused bounded
-var-length expand), the chain walk they share (``_fused_chain_walk``)
-and the planner hooks ``plan_expand_fastpath``,
+``_FusedExpandBase`` (``_with_pair``, the materializing path's
+uniqueness masks, the outer-join gathers), ``CsrExpandOp`` (its
+materialize half, its count chain and its DISTINCT-endpoints count),
+``CsrExpandIntoOp`` (the closing probe: its fused close count over a
+whole chain and its materialize path), ``CsrOptionalExpandOp`` (OPTIONAL
+MATCH of one hop as one left-outer expand), ``CsrVarExpandOp`` (the
+fused bounded var-length expand), the chain walk they share
+(``_fused_chain_walk``) and the planner hooks ``plan_expand_fastpath``,
+``plan_expand_into_fastpath``, ``plan_optional_expand_fastpath``,
 ``plan_var_expand_fastpath`` and ``plan_filter_fastpath`` (the
 relationship-uniqueness redundancy proof, and in-op enforcement for
-``CsrExpandOp`` chains, ``CsrVarExpandOp`` forbid pairs and
-``wcoj.MultiwayIntersectOp``).
+``CsrExpandOp`` chains, ``CsrExpandIntoOp`` closes, ``CsrVarExpandOp``
+forbid pairs and ``wcoj.MultiwayIntersectOp``).
 
 The reference plans every ``Expand`` as relationship-scan + 2 hash joins;
 when the backend is CSR-capable the physical planner swaps in these
@@ -22,20 +26,26 @@ expands are a primary half plus the opposite half with self-loops excluded
 and Start/End swapped; var-length walks kill a path that would reuse an
 edge).
 
-Kernel tiers on this path (``hopper/``): every materialize half and every
-hop of the chain walk (``_walk_lanes``) goes through ``expand_rows`` — at
-the bucketed size when the lattice is on, at the exact total otherwise
-(the reference's unbucketed path and its walk run the jnp cascade; the
-kernel equals it on every live lane) — and a single unrestricted hop's
-count(*) through ``frontier_deg_sum``. The DISTINCT-endpoints count's
-final hop is the packed-key sort on every device (the reference's host
-bitmap variant is not ported).
+Kernel tiers on this path (``hopper/``): every materialize half, every
+hop of the chain walk (``_walk_lanes``) and the optional expand's matched
+lanes (``_optional_lanes``) go through ``expand_rows`` — at the bucketed
+size when the lattice is on, at the exact total otherwise (the
+reference's unbucketed path and its walk run the jnp cascade; the kernel
+equals it on every live lane) — every closing probe through
+``intersect`` (the reference's two searchsorted calls: the same
+function), and a single unrestricted hop's count(*) through
+``frontier_deg_sum``. The DISTINCT-endpoints count's final hop is the
+packed-key sort and the closing probe the sorted-key range count on
+every device (the reference's host bitmap variants are not ported).
 
-Later slices port ``CsrExpandIntoOp``, ``CsrOptionalExpandOp`` and their
-hooks (ROADMAP.md queue 1, item 2.2), the cuBLAS counterparts of the MXU
-dense/tiled count tiers and the native host tiers (item 2.3). A
-var-length relationship list as a value needs the classic cascade, which
-needs the compiler (item 6): the operator raises there.
+Where the reference answers from the classic child after a fused
+operator raises, the port has no such shadow: its planner hooks decline
+what the operators do not answer (an empty graph), and an operator
+returns before a gate call that would be empty. Later slices port the
+cuBLAS counterparts of the MXU dense/tiled close counts and the native
+host tiers (ROADMAP.md queue 1, item 2.3). A var-length relationship list
+as a value needs the classic cascade, which needs the compiler (item 6):
+the operator raises there.
 """
 
 from __future__ import annotations
@@ -84,9 +94,31 @@ def _walk_lanes(rp, ci, eo, pos, deg, size: int, nvalid, with_orig: bool):
     return [row, nbr, orig, None if nvalid is None else live]
 
 
+def _optional_lanes(rp, ci, eo, pos, deg, counts, total: int, matched_total: int):
+    """The optional expand's lane merge, laid out as
+    ``jit_ops.optional_expand_materialize`` lays it out: the matched lanes
+    (``matched_total`` of them) through the ``expand_rows`` gate over
+    ``deg``, then placed beside each unmatched row's one lane in the
+    ``counts`` scan (``jit_ops.optional_place``). An unmatched row's lane
+    never reaches the gate, where it would read past ``ci`` for the last
+    node or an empty type set; its ``nbr`` and ``orig`` are 0 (masked
+    null downstream). Returns (row, nbr, orig, matched)."""
+    from .hopper import expand_materialize_counted
+
+    if total == 0:  # before the gate: it takes no empty frontier
+        z = _empty_i64()
+        return z, z, z, torch.zeros(0, dtype=torch.bool, device=z.device)
+    lanes = None
+    if matched_total:
+        lanes = expand_materialize_counted(
+            rp, ci, eo, pos, deg, matched_total, size=matched_total
+        )[:3]
+    return J.optional_place(deg, counts, total, lanes)
+
+
 def _fused_chain_walk(
     gi: GraphIndex, ctx, hops, id_col: Column, final,
-    carry_rels=frozenset(), mask_pairs=None,
+    carry_rels=frozenset(), mask_pairs=None, final_orig: bool = False,
 ):
     """Walk a stacked expand chain carrying only (base endpoint key, current
     position, liveness) per partial path: the spine of the fused
@@ -94,15 +126,17 @@ def _fused_chain_walk(
     Middle hops run ``distinct_hop_materialize``; at the outermost hop
     (``hops[0]``) ``final(lanes, akey, mask, prevs, mask_idx)`` fuses the
     terminal computation (``lanes`` carries ``orig`` when ``mask_idx``
-    does). Returns final's int, or 0 when any hop empties.
+    does, or ``final_orig`` asks for it). Returns final's int, or 0 when
+    any hop empties.
 
     Relationship uniqueness (openCypher isomorphism, the per-pair
     ``id(r_i) <> id(r_j)`` filters) is enforced inside the walk:
     ``carry_rels`` names hops whose edge scan rows ride along per partial
     path, and ``mask_pairs[late_rel]`` lists the carried rels that hop's
     edge must differ from (violating paths die, as in ``varlen_hop``).
-    ``final`` receives the carried arrays (``prevs``, name-sorted per
-    ``order``) and its own ``mask_idx``."""
+    ``final`` receives the carried arrays (``prevs``, sorted by rel name:
+    every rel of ``carry_rels`` but the final hop's) and its own
+    ``mask_idx``."""
     if id_col.kind == OBJ:
         raise GraphIndexError("host-object id column")
     gi.node_ids(ctx)
@@ -130,7 +164,8 @@ def _fused_chain_walk(
         midx = tuple(order.index(r) for r in mask_pairs.get(hop.rel_fld, ()))
         if hop is last:
             return final(
-                _walk_lanes(rp, ci, eo, pos, deg, size, nvalid, bool(midx)),
+                _walk_lanes(rp, ci, eo, pos, deg, size, nvalid,
+                            bool(midx) or final_orig),
                 akey, mask, prevs, midx,
             )
         if order or hop.rel_fld in carry_rels:
@@ -148,34 +183,48 @@ def _fused_chain_walk(
     raise AssertionError("unreachable: loop always hits hops[0]")
 
 
-def _chain_enforcement_spec(hops, pairs):
+def _chain_enforcement_spec(hops, pairs, close_rel=None, close_types=None):
     """Compile a set of rel-uniqueness pairs into walk enforcement:
-    ``(carry_rels, mask_pairs)``, or None when any pair cannot be enforced
-    in the fused walk (undirected hops, duplicate rel bindings, rels
-    outside the subtree, or DIFFERENT type sets — carried edge scan rows
-    are only comparable within one canonical rel scan). Each pair becomes
-    a mask at its later-executed hop. The reference's closing-relationship
-    arguments come with ``CsrExpandIntoOp`` (ROADMAP.md queue 1, item
-    2.2)."""
+    ``(carry_rels, mask_pairs, close_partners)``, or None when any pair
+    cannot be enforced in the fused walk (undirected hops, duplicate rel
+    bindings, rels outside the subtree, or DIFFERENT type sets — carried
+    edge scan rows are only comparable within one canonical rel scan).
+
+    ``close_partners`` lists chain rels that must differ from the closing
+    relationship ``close_rel`` (``into_close_count_unique`` subtracts them
+    from the probe range); chain-chain pairs become a mask at the
+    later-executed hop."""
     if any(h.undirected for h in hops):
         return None
     exec_rels = [h.rel_fld for h in reversed(hops)]  # execution order
     if len(set(exec_rels)) != len(exec_rels):
         return None
     types_of = {h.rel_fld: h.types_key for h in hops}
+    if close_rel is not None:
+        if close_rel in types_of:
+            return None
+        types_of[close_rel] = close_types
     pos_of = {r: i for i, r in enumerate(exec_rels)}
     carry = set()
     mask_pairs: Dict[str, Tuple[str, ...]] = {}
+    close_partners: List[str] = []
     for ra, rb in pairs:
         if ra == rb or ra not in types_of or rb not in types_of:
             return None
         if types_of[ra] != types_of[rb]:
             return None
+        if close_rel is not None and close_rel in (ra, rb):
+            other = rb if ra == close_rel else ra
+            if other not in close_partners:
+                close_partners.append(other)
+            if other != exec_rels[-1]:
+                carry.add(other)
+            continue
         early, late = (ra, rb) if pos_of[ra] < pos_of[rb] else (rb, ra)
         if early not in mask_pairs.get(late, ()):
             mask_pairs[late] = mask_pairs.get(late, ()) + (early,)
         carry.add(early)
-    return frozenset(carry), mask_pairs
+    return frozenset(carry), mask_pairs, tuple(close_partners)
 
 
 def _collected_pairs(hops, extra=()):
@@ -300,31 +349,38 @@ class _FusedExpandBase(RelationalOperator):
         self,
         plan: Dict[str, Tuple[Column, str]],
         idx_by_tag: Dict[str, Any],
+        null_mask_by_tag: Optional[Dict[str, Any]] = None,
         count: Optional[int] = None,
     ) -> Dict[str, Column]:
         """Execute a tagged gather plan: one batched gather per index
-        source for the device columns, host gathers for OBJ columns.
-        ``count``: the bucketed true row count — index tensors longer than
-        it carry pad lanes, and device rows gathered there come out
-        invalid."""
+        source for the device columns, host gathers for OBJ columns. A tag
+        with an entry in ``null_mask_by_tag`` gathers outer-join style:
+        rows where the mask is False come out null; an empty source column
+        (a zero-row scan) takes ``Column.take_or_null``, which emits
+        all-null rows instead of gathering from an empty axis. ``count``:
+        the bucketed true row count — index tensors longer than it carry
+        pad lanes, and device rows gathered there come out invalid."""
+        masks = null_mask_by_tag or {}
         out: Dict[str, Column] = {}
         for tag, idx in idx_by_tag.items():
             group = {c: s for c, (s, t) in plan.items() if t == tag}
             if not group:
                 continue
+            mask = masks.get(tag)
             size = int(idx.shape[0])
-            counted = count is not None and size != count
+            counted = count is not None and mask is None and size != count
             dev = {
                 c: (s.data, s.valid, s.int_flag)
                 for c, s in group.items()
-                if s.kind != OBJ
+                if s.kind != OBJ and not (mask is not None and len(s) == 0)
             }
             if dev:
-                taken = (
-                    J.cols_take_counted(dev, idx, count)
-                    if counted
-                    else J.cols_take(dev, idx)
-                )
+                if counted:
+                    taken = J.cols_take_counted(dev, idx, count)
+                elif mask is None:
+                    taken = J.cols_take(dev, idx)
+                else:
+                    taken = J.cols_take_or_null(dev, idx, mask)
                 for c, (d, v, i) in taken.items():
                     s = group[c]
                     if counted:
@@ -336,7 +392,11 @@ class _FusedExpandBase(RelationalOperator):
                     else:
                         out[c] = Column(s.kind, d, v, s.vocab, int_flag=i)
             for c, s in group.items():
-                if c not in out:
+                if c in out:
+                    continue
+                if mask is not None:
+                    out[c] = s.take_or_null(idx, mask)
+                else:
                     out[c] = s.take(idx[:count] if counted else idx)
         return out
 
@@ -553,7 +613,7 @@ class CsrExpandOp(_FusedExpandBase):
             spec = _chain_enforcement_spec(hops, pairs)
             if spec is None:
                 raise GraphIndexError("unenforceable uniqueness pairs")
-            carry, mask_pairs = spec
+            carry, mask_pairs, _ = spec
 
             def final(lanes, akey, mask, prevs, midx):
                 return int(J.chain_count_final_unique(lanes, mask, prevs, mask_idx=midx))
@@ -632,7 +692,7 @@ class CsrExpandOp(_FusedExpandBase):
                 spec = _chain_enforcement_spec(hops, pairs)
                 if spec is None:
                     return None  # the materialized path enforces by row masks
-                carry, mask_pairs = spec
+                carry, mask_pairs, _ = spec
 
             def final(lanes, akey, mask, prevs, midx):
                 kw = dict(use_a=use_a, use_c=use_c, num_nodes=gi.num_nodes)
@@ -730,6 +790,307 @@ class CsrExpandOp(_FusedExpandBase):
             gi, row, orig, swapped, far_rows, self.far_labels,
             self.rel_fld, self.far_fld, n_out,
         )
+
+
+class CsrExpandIntoOp(_FusedExpandBase):
+    """Fused ExpandInto: both endpoints bound; the closing relationships are
+    found by a range probe over the sorted ``src*N + dst`` edge keys, on
+    the ``intersect`` gate."""
+
+    def __init__(
+        self,
+        in_plan: RelationalOperator,
+        classic: RelationalOperator,
+        graph_obj,
+        *,
+        source_fld: str,
+        rel_fld: str,
+        target_fld: str,
+        types_key: Tuple[str, ...],
+        undirected: bool,
+        enforced_pairs: Tuple[Tuple[str, str], ...] = (),
+    ):
+        super().__init__(in_plan, classic, graph_obj)
+        self.source_fld = source_fld
+        self.rel_fld = rel_fld
+        self.target_fld = target_fld
+        self.types_key = types_key
+        self.undirected = undirected
+        self.enforced_pairs = enforced_pairs
+
+    def _ctor_kwargs(self) -> Dict[str, Any]:
+        return dict(
+            source_fld=self.source_fld,
+            rel_fld=self.rel_fld,
+            target_fld=self.target_fld,
+            types_key=self.types_key,
+            undirected=self.undirected,
+        )
+
+    def _show_inner(self) -> str:
+        arrow = "-" if self.undirected else "->"
+        t = "|".join(self.types_key) or "*"
+        uniq = (
+            " uniq" + ",".join(f"({a}<>{b})" for a, b in self.enforced_pairs)
+            if self.enforced_pairs
+            else ""
+        )
+        return (
+            f"({self.source_fld})-[{self.rel_fld}:{t}]{arrow}"
+            f"({self.target_fld}) into{uniq}"
+        )
+
+    def _probe(self, gi: GraphIndex, keys, s_pos, t_pos, ok, drop_loops: bool):
+        """Closing-edge probe on the ``intersect`` gate, then the
+        materialize, sized exactly in every bucketing mode (as
+        ``wcoj.MultiwayIntersectOp``'s). Returns ``(row, orig)``."""
+        from .hopper import intersect_range_count
+
+        if int(keys.shape[0]) == 0 or int(s_pos.shape[0]) == 0:
+            # nothing to probe: the gate takes no empty key or query list
+            z = _empty_i64()
+            return z, z
+        _, _, eo = gi.csr(self.types_key, False, self.context)
+        q, q_ok = J.into_probe(s_pos, t_pos, ok, gi.num_nodes, drop_loops=drop_loops)
+        lo, counts, total_dev = intersect_range_count(keys, q, q_ok)
+        del q, q_ok
+        row, orig, _ = J.into_materialize_counted(
+            eo, lo, counts, total_dev, size=bucketing.exact_size(total_dev)
+        )
+        return row, orig
+
+    def _chain_close_count(self) -> Optional[int]:
+        """count(*) over ExpandInto(fused expand chain) without materializing
+        the chain's row set: walk the chain with (base key, position) state
+        (as ``distinct_endpoints_count`` does), then fuse the closing-edge
+        probe into the final hop (``jit_ops.into_close_queries``, the
+        ``intersect`` gate). The classic plan materializes the whole k-hop
+        table first: at SF10 the 2-hop set alone is about 2*10^8 rows.
+        None = the shape doesn't fit (a non-chain input, undirected chain
+        hops, endpoint vars not the chain's ends, pairs the walk cannot
+        enforce): the caller materializes. A device fault is not one of
+        those and reaches the caller."""
+        from ...relational.ops import CacheOp
+        from .hopper import intersect_range_count
+
+        in_op = self.children[0]
+        while isinstance(in_op, CacheOp):
+            in_op = in_op.children[0]
+        if (
+            not isinstance(in_op, CsrExpandOp)
+            or in_op._graph_obj is not self._graph_obj
+        ):
+            return None
+        try:
+            hops = in_op._chain_hops()
+            base = hops[-1]
+            ends = {base.frontier_fld, in_op.far_fld}
+            if (
+                {self.source_fld, self.target_fld} != ends
+                or self.source_fld == self.target_fld
+                or base.frontier_fld == in_op.far_fld
+            ):
+                return None
+            if any(h.undirected for h in hops):
+                return None
+            gi = GraphIndex.of(self.graph)
+            ctx = self.context
+            base_in = base.children[0]
+            frontier_var = base_in.header.var(base.frontier_fld)
+            id_col = base_in.table._cols[
+                base_in.header.column(base_in.header.id_expr(frontier_var))
+            ]
+            # eligible from here on: the walk and the probe sync
+            fault_point("expand")
+            keys = gi.edge_keys(self.types_key, ctx)
+            if int(keys.shape[0]) == 0:
+                return 0  # no closing edge; the gate takes no empty key list
+            src_is_base = self.source_fld == base.frontier_fld
+            n = gi.num_nodes
+            pairs = _collected_pairs(hops, (self,))
+            if pairs:
+                if self.undirected:
+                    return None  # dual-orientation probe: materialize
+                spec = _chain_enforcement_spec(
+                    hops, pairs, close_rel=self.rel_fld, close_types=self.types_key
+                )
+                if spec is None:
+                    return None  # the materialized path enforces by row masks
+                carry, mask_pairs, close_partners = spec
+                kbo = gi.edge_keys_by_orig(self.types_key, ctx)
+                exec_last = hops[0].rel_fld
+                sub_cur = exec_last in close_partners
+                # the walk hands the final hop its carried edges sorted by
+                # rel name, and carries every rel of ``carry``
+                order = tuple(sorted(carry))
+                sub_idx = tuple(
+                    order.index(r) for r in sorted(close_partners) if r != exec_last
+                )
+
+                def final_u(lanes, akey, mask, prevs, midx):
+                    probe, ok, orig, prevs_r = J.into_close_unique_queries(
+                        lanes, akey, mask, prevs, src_is_base=src_is_base,
+                        num_nodes=n, mask_idx=midx,
+                    )
+                    _, counts, _ = intersect_range_count(keys, probe, ok)
+                    return int(J.into_close_count_unique(
+                        counts, probe, ok, orig, prevs_r, kbo,
+                        sub_idx=sub_idx, sub_cur=sub_cur,
+                    ))
+
+                return _fused_chain_walk(
+                    gi, ctx, hops, id_col, final_u, carry, mask_pairs,
+                    final_orig=True,
+                )
+
+            def final(lanes, akey, mask, prevs, midx):
+                queries = J.into_close_queries(
+                    lanes, akey, mask, src_is_base=src_is_base, num_nodes=n,
+                    undirected=self.undirected,
+                )
+                total = 0
+                while queries:  # each probe freed before the next is counted
+                    q, ok = queries.pop(0)
+                    total += int(intersect_range_count(keys, q, ok)[2])
+                    del q, ok
+                return total
+
+            return _fused_chain_walk(gi, ctx, hops, id_col, final)
+        except (GraphIndexError, TpuBackendError):
+            return None
+
+    def _fused_table(self):
+        from .table import CudaTable
+
+        if not self.header.expressions:
+            # pure-multiplicity consumer (a pruned count(*) plan): the
+            # whole-chain fused close count first
+            n = self._chain_close_count()
+            if n is not None:
+                return CudaTable({}, n)
+        in_op = self.children[0]
+        in_t = in_op.table
+        gi = GraphIndex.of(self.graph)
+        ctx = self.context
+        h = in_op.header
+        s_col = in_t._cols[h.column(h.id_expr(h.var(self.source_fld)))]
+        t_col = in_t._cols[h.column(h.id_expr(h.var(self.target_fld)))]
+        if s_col.kind == OBJ or t_col.kind == OBJ:
+            raise GraphIndexError("host-object id column")
+        s_pos, s_ok = gi.compact_of(s_col, ctx)
+        t_pos, t_ok = gi.compact_of(t_col, ctx)
+        ok = s_ok & t_ok
+        keys = gi.edge_keys(self.types_key, ctx)
+        row, orig = self._probe(gi, keys, s_pos, t_pos, ok, drop_loops=False)
+        swapped = None
+        if self.undirected:
+            row2, orig2 = self._probe(gi, keys, t_pos, s_pos, ok, drop_loops=True)
+            row, orig, swapped = J.concat_into_halves(row, orig, row2, orig2)
+        n_out = int(row.shape[0])
+        extras = () if swapped is None else (swapped,)
+        row, orig, extras, n_out = self._apply_enforced_pairs(
+            gi, ctx, row, orig, extras, n_out
+        )
+        if swapped is not None:
+            swapped = extras[0]
+        return self._assemble(
+            gi, row, orig, swapped, None, (), self.rel_fld, None, n_out
+        )
+
+
+class CsrOptionalExpandOp(_FusedExpandBase):
+    """Fused OPTIONAL MATCH (frontier)-[rel]->(far): the reference plans
+    Optional as a left outer join of the optional subtree
+    (``RelationalPlanner.scala:298``); here matched frontier rows emit
+    their expansions and unmatched rows emit ONE null-padded row, in one
+    lane merge (``_optional_lanes``). Unlabeled directed single-hop
+    patterns only (labels, undirected steps and WHERE keep the classic
+    outer join)."""
+
+    def __init__(
+        self,
+        in_plan: RelationalOperator,
+        classic: RelationalOperator,
+        graph_obj,
+        *,
+        frontier_fld: str,
+        rel_fld: str,
+        far_fld: str,
+        types_key: Tuple[str, ...],
+        backwards: bool,
+    ):
+        super().__init__(in_plan, classic, graph_obj)
+        self.frontier_fld = frontier_fld
+        self.rel_fld = rel_fld
+        self.far_fld = far_fld
+        self.types_key = types_key
+        self.backwards = backwards
+
+    def _show_inner(self) -> str:
+        arrow = "<-" if self.backwards else "->"
+        t = "|".join(self.types_key) or "*"
+        return f"optional ({self.frontier_fld}){arrow}[{self.rel_fld}:{t}]({self.far_fld})"
+
+    def _fused_table(self):
+        from .table import CudaTable
+
+        gi = GraphIndex.of(self.graph)
+        ctx = self.context
+        in_op = self.children[0]
+        in_t = in_op.table
+        frontier_var = in_op.header.var(self.frontier_fld)
+        id_col = in_t._cols[in_op.header.column(in_op.header.id_expr(frontier_var))]
+        if id_col.kind == OBJ:
+            raise GraphIndexError("host-object id column")
+        # the planner hook declined an empty graph: the compact id space
+        # has a node
+        pos, present = gi.compact_of(id_col, ctx)
+        rp, ci, eo = gi.csr(self.types_key, self.backwards, ctx)
+        # bucket pad rows are not input rows: they must emit NOTHING (an
+        # unmatched real row emits one null row; a pad row none)
+        nrows = in_t.size if int(pos.shape[0]) != in_t.size else None
+        deg, counts, t_dev = J.optional_expand_degrees(rp, pos, present, nrows=nrows)
+        total, matched_total = torch.stack((t_dev, torch.sum(deg))).tolist()
+        bucketing.exact_size(total)  # the lanes on the trace span and counters
+        row, nbr, orig, matched = _optional_lanes(
+            rp, ci, eo, pos, deg, counts, total, matched_total
+        )
+        _, _, row_map = gi.node_scan((), ctx)
+        far_rows, _ = J.far_lookup(row_map, nbr)
+        # assembly: input pass-throughs by row; rel/far columns null-masked
+        # where unmatched
+        rel_cols, rel_header = gi.rel_scan(self.types_key, ctx)
+        node_cols, node_header, _ = gi.node_scan((), ctx)
+        canon_rel = E.Var(CANON_REL)
+        canon_node = E.Var(CANON_NODE)
+        plan: Dict[str, Tuple[Column, str]] = {}
+        for e in self.header.expressions:
+            col = self.header.column(e)
+            if col in plan:
+                continue
+            if e in in_op.header:
+                plan[col] = (in_t._cols[in_op.header.column(e)], "row")
+                continue
+            owner = _owner_name(e)
+            if owner == self.rel_fld:
+                key = rekey_element_expr(e, canon_rel)
+                if key is None or key not in rel_header:
+                    raise GraphIndexError(f"unmapped rel expr {e!r}")
+                plan[col] = (rel_cols[rel_header.column(key)], "orig")
+                continue
+            if owner == self.far_fld:
+                key = rekey_element_expr(e, canon_node)
+                if key is None or key not in node_header:
+                    raise GraphIndexError(f"unmapped node expr {e!r}")
+                plan[col] = (node_cols[node_header.column(key)], "far")
+                continue
+            raise GraphIndexError(f"unmapped optional-expand expr {e!r}")
+        out = self._gather_plan(
+            plan,
+            {"row": row, "orig": orig, "far": far_rows},
+            null_mask_by_tag={"orig": matched, "far": matched},
+        )
+        return CudaTable(out, total)
 
 
 class CsrVarExpandOp(_FusedExpandBase):
@@ -998,6 +1359,104 @@ def plan_expand_fastpath(planner, op, lhs, rhs, classic) -> Optional[RelationalO
     )
 
 
+def plan_expand_into_fastpath(planner, op, in_plan, classic) -> Optional[RelationalOperator]:
+    """Swap the classic ExpandInto join for ``CsrExpandIntoOp`` when both
+    endpoints are bound; None keeps the classic plan. Declines a graph
+    with no node (the classic join answers it: the reference answers it
+    from its classic child) and one whose ``src*N + dst`` keys could pass
+    int64."""
+    if op.direction not in (">", "-"):
+        return None
+    in_vars = {v.name for v in in_plan.header.vars}
+    if op.rel in in_vars or op.source not in in_vars or op.target not in in_vars:
+        return None
+    if not _node_space_fits(in_plan.graph, in_plan.context):
+        return None
+    types = getattr(op.rel_type.material, "types", frozenset()) or frozenset()
+    return CsrExpandIntoOp(
+        in_plan,
+        classic,
+        in_plan.graph,
+        source_fld=op.source,
+        rel_fld=op.rel,
+        target_fld=op.target,
+        types_key=GraphIndex.types_key(types),
+        undirected=op.direction == "-",
+    )
+
+
+def plan_optional_expand_fastpath(planner, op, lhs, rhs_planned, classic) -> Optional[RelationalOperator]:
+    """Swap Optional(single unlabeled directed Expand) for the fused
+    left-outer expand; None keeps the classic outer join. The optional
+    subtree must be exactly Expand(NodeScan, NodeScan) — any Filter (WHERE
+    inside OPTIONAL), labels, or undirected step keeps the general plan,
+    and so does a graph with no node (the reference answers it from its
+    classic child)."""
+    from ...logical import ops as L
+
+    e = op.rhs
+    if not isinstance(e, L.Expand) or e.direction != ">":
+        return None
+    if not isinstance(e.lhs, L.NodeScan) or not isinstance(e.rhs, L.NodeScan):
+        return None
+    lhs_vars = {v.name for v in lhs.header.vars}
+    bound = {e.source, e.rel, e.target} & lhs_vars
+    if e.rel in bound:
+        return None
+    if bound == {e.source}:
+        frontier, far, backwards = e.source, e.target, False
+    elif bound == {e.target}:
+        frontier, far, backwards = e.target, e.source, True
+    else:
+        return None
+    # the logical planner always puts the BOUND side at Expand.lhs and the
+    # newly scanned far side at Expand.rhs, regardless of direction
+    frontier_scan, far_scan = e.lhs, e.rhs
+    # far-side labels change which rows match (keep the classic join);
+    # frontier labels are fine only when the bound variable's TYPE already
+    # guarantees them (the planner stamps the binding's labels onto the
+    # optional scan — semantically redundant there)
+    if getattr(far_scan.node_type.material, "labels", None):
+        return None
+    scan_labels = frozenset(
+        getattr(frontier_scan.node_type.material, "labels", None) or ()
+    )
+    if scan_labels:
+        try:
+            bt = lhs.header.var(frontier).cypher_type.material
+            bound_labels = frozenset(getattr(bt, "labels", None) or ())
+        except Exception:  # fault-ok: plan-time header probe (no device
+            # work); None keeps the classic plan
+            return None
+        if not scan_labels <= bound_labels:
+            return None
+    graph_obj = getattr(rhs_planned, "graph", None)
+    if graph_obj is None or not _node_space_fits(graph_obj, lhs.context):
+        return None
+    types = getattr(e.rel_type.material, "types", frozenset()) or frozenset()
+    return CsrOptionalExpandOp(
+        lhs,
+        classic,
+        graph_obj,
+        frontier_fld=frontier,
+        rel_fld=e.rel,
+        far_fld=far,
+        types_key=GraphIndex.types_key(types),
+        backwards=backwards,
+    )
+
+
+def _node_space_fits(graph_obj, ctx) -> bool:
+    """The graph has a node and fewer than 2**30, so a ``src*N + dst``
+    key fits int64 (as ``wcoj.plan_multiway_intersect_fastpath`` checks)."""
+    try:
+        gi = GraphIndex.of(graph_obj)
+        gi.node_ids(ctx)
+        return 0 < gi.num_nodes < (1 << 30)
+    except (GraphIndexError, TpuBackendError):
+        return False
+
+
 def plan_var_expand_fastpath(planner, op, lhs, rhs, classic) -> Optional[RelationalOperator]:
     """Swap the unrolled var-length join cascade for ``CsrVarExpandOp`` when
     statically safe; None keeps the classic plan. Directed and undirected
@@ -1151,6 +1610,27 @@ def _rel_uniqueness_redundant(rel_ends, ra, rb, graph_obj, ctx) -> bool:
     return False
 
 
+def _undirected_close_filter(node, rel_ends, pair, child):
+    """A uniqueness pair over an undirected ``CsrExpandIntoOp``: the close
+    binds its edge in either orientation, so the pair drops only when the
+    redundancy proof holds for both; the operator enforces no pair of an
+    undirected close, so otherwise the FilterOp stays. The reference keeps
+    every such FilterOp, and its count then materializes the chain and
+    both probe halves; on a loop-free type set the port drops them and
+    counts both orientations in the walk (``into_close_queries``)."""
+    key = tuple(sorted(pair))
+    if not set(key) <= set(rel_ends):
+        return None
+    flipped = dict(rel_ends)
+    flipped[node.rel_fld] = (node.target_fld, node.source_fld, node.types_key)
+    if all(
+        _rel_uniqueness_redundant(ends, key[0], key[1], node._graph_obj, node.context)
+        for ends in (rel_ends, flipped)
+    ):
+        return child
+    return None
+
+
 def plan_filter_fastpath(planner, op, child) -> Optional[RelationalOperator]:
     """Resolve a relationship-uniqueness filter over a fused subtree, so
     count(*) and DISTINCT chains keep their whole-plan fusion (the openCypher
@@ -1168,8 +1648,11 @@ def plan_filter_fastpath(planner, op, child) -> Optional[RelationalOperator]:
        ``none(x IN rs WHERE id(x) = id(r))`` pair as a forbidden edge;
     3. otherwise keep the generic FilterOp plan.
 
-    The ``CsrExpandIntoOp`` branch waits for that operator (ROADMAP.md
-    queue 1, item 2.2)."""
+    A ``CsrExpandIntoOp`` over a fused chain adds its closing relationship
+    to the chain's endpoint map, so a chain-versus-close pair is proven or,
+    for a directed close, enforced the same way
+    (``into_close_count_unique``); an undirected close takes the proof in
+    both orientations (``_undirected_close_filter``)."""
     from ...relational.ops import CacheOp
     from .wcoj import MultiwayIntersectOp
 
@@ -1206,6 +1689,20 @@ def plan_filter_fastpath(planner, op, child) -> Optional[RelationalOperator]:
         # the multiway op compares GLOBAL element ids, so it needs no
         # same-type-set restriction
         rel_ends = node._rel_ends()
+    elif isinstance(node, CsrExpandIntoOp):
+        in_op = node.children[0]
+        while isinstance(in_op, CacheOp):
+            in_op = in_op.children[0]
+        if not (
+            isinstance(in_op, CsrExpandOp) and in_op._graph_obj is node._graph_obj
+        ):
+            return None
+        rel_ends = _chain_rel_ends(in_op._chain_hops())
+        if rel_ends is None or node.rel_fld in rel_ends:
+            return None
+        rel_ends[node.rel_fld] = (node.source_fld, node.target_fld, node.types_key)
+        if node.undirected:
+            return _undirected_close_filter(node, rel_ends, pair, child)
     elif isinstance(node, CsrExpandOp):
         rel_ends = _chain_rel_ends(node._chain_hops())
     else:

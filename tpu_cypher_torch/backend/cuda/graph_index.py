@@ -14,11 +14,15 @@ query (``GraphIndex.of(graph)`` hangs the cache off the graph object):
   id to its row in that scan (-1 = node lacks the labels)
 
 * per type set: ``rel_row_index`` (relationship ids sorted, with the
-  canonical scan row of each) and ``csr_undirected`` (the
-  both-orientation CSR of the var-length walk)
+  canonical scan row of each), ``csr_undirected`` (the both-orientation
+  CSR of the var-length walk) and ``edge_keys_by_orig`` (the ``src*N +
+  dst`` key of each canonical scan row, for the closing probe's
+  relationship uniqueness)
 
-Keys by canonical row, bitmaps and dense forms belong to operators that
-later slices port (ROADMAP.md queue 1).
+The reference's host edge bitmap (``edge_bitmap``) is not ported: the
+closing probe keeps the sorted-key form on every device, so the CPU runs
+the path the card runs. The dense forms (``dense_adj``, ``dense_tiles``)
+belong to ROADMAP.md queue 1, item 2.3.
 """
 
 from __future__ import annotations
@@ -101,6 +105,8 @@ class GraphIndex:
         self._rel_id_index: Dict[Tuple[str, ...], Tuple[Any, Any]] = {}
         # (types_key, reverse) -> sorted int64 edge keys
         self._edge_keys: Dict[Tuple[Tuple[str, ...], bool], Any] = {}
+        # types_key -> int64 (src*N + dst) key of each canonical rel-scan row
+        self._keys_by_orig: Dict[Tuple[str, ...], Any] = {}
         # types_key -> device int64[num_nodes] self-loop counts
         self._loop_count: Dict[Tuple[str, ...], Any] = {}
         # labels_key -> device bool[num_nodes] or None (unrestricted)
@@ -328,6 +334,21 @@ class GraphIndex:
         if (types_key, reverse) not in self._edge_keys:
             self.csr(types_key, reverse, ctx)
         return self._edge_keys[(types_key, reverse)]
+
+    def edge_keys_by_orig(self, types_key: Tuple[str, ...], ctx):
+        """int64[num_rels] device tensor: the (src*N + dst) probe key of each
+        canonical rel-scan row, sized exactly. ``into_close_count_unique``
+        subtracts a carried chain edge from a probe range exactly when its
+        key equals the probe key (same key <=> same endpoints; the range
+        covers every edge of the type set, so the carried edge is in it iff
+        the keys match)."""
+        got = self._keys_by_orig.get(types_key)
+        if got is None:
+            s, d, n = self._edge_endpoints(types_key, ctx)
+            got = self._keys_by_orig[types_key] = to_device(
+                s.astype(np.int64) * n + d.astype(np.int64)
+            )
+        return got
 
     # -- id -> compact mapping --------------------------------------------
 

@@ -429,6 +429,98 @@ def far_lookup(row_map, nbr):
 
 
 # ---------------------------------------------------------------------------
+# the left-outer expand and the ExpandInto probe
+# ---------------------------------------------------------------------------
+
+
+def optional_expand_degrees(rp, pos, present, nrows=None):
+    """Row counts for a LEFT-OUTER expand: matched rows emit their degree,
+    unmatched (or absent-frontier) rows exactly ONE null-padded row.
+    ``nrows``: the table's logical row count; rows past it (bucket pads)
+    are not input rows and emit NOTHING (a pad row is not an unmatched
+    row). Returns (deg, counts, total)."""
+    deg = (rp[pos + 1] - rp[pos]).to(torch.int64)
+    zero = torch.zeros_like(deg)
+    deg = torch.where(present, deg, zero)
+    counts = torch.clamp(deg, min=1)
+    if nrows is not None:
+        real = _arange(counts.shape[0], counts) < nrows
+        deg = torch.where(real, deg, zero)
+        counts = torch.where(real, counts, zero)
+    return deg, counts, torch.sum(counts)
+
+
+def optional_expand_materialize(rp, ci, eo, pos, deg, counts, total: int):
+    """(row, nbr, orig, matched) of a left-outer expand: the reference's
+    repeat cascade over ``counts``, the plain version of the optional lane
+    merge (``expand_op._optional_lanes``). An unmatched row's one lane
+    reads the clipped edge at its row start (masked null downstream)."""
+    starts = rp[pos].to(torch.int64)
+    row, flat = _expand_rows(starts, counts, total)
+    matched = (flat - starts[row]) < deg[row]
+    nedges = int(ci.shape[0])
+    if nedges == 0:
+        return (row, torch.zeros(total, dtype=torch.int64, device=row.device),
+                torch.zeros(total, dtype=torch.int64, device=row.device), matched)
+    safe = torch.clamp(flat, 0, nedges - 1)
+    return row, ci[safe].to(torch.int64), eo[safe], matched
+
+
+def optional_place(deg, counts, total: int, lanes):
+    """The tail of the optional lane merge: ``lanes`` (row, nbr, orig) are
+    the matched lanes merged over ``deg`` (None when no row matched). When
+    every row matched they are the answer as they stand; otherwise each
+    goes to its offset in the ``counts`` scan, moved up by the unmatched
+    rows before its row, and each unmatched row gets one lane at its row
+    start with ``nbr`` and ``orig`` 0 (masked null downstream). The
+    layout of ``optional_expand_materialize`` on every lane's row and
+    ``matched``, and on every matched lane's ``nbr`` and ``orig``."""
+    dev = counts.device
+    if lanes is not None and int(lanes[0].shape[0]) == total:
+        return (*lanes, torch.ones(total, dtype=torch.bool, device=dev))
+    unmatched = counts - deg  # 1 for an unmatched input row, else 0
+    # an unmatched row writes its lane at its row start; every other row
+    # writes to a dump slot past the end
+    at = torch.where(unmatched > 0, _exclusive_cumsum(counts),
+                     torch.full_like(counts, total))
+    row = torch.empty(total + 1, dtype=torch.int64, device=dev)
+    row.index_copy_(0, at, _arange(counts.shape[0], counts))
+    row = row[:total]
+    nbr = torch.zeros(total, dtype=torch.int64, device=dev)
+    orig = torch.zeros(total, dtype=torch.int64, device=dev)
+    matched = torch.zeros(total, dtype=torch.bool, device=dev)
+    if lanes is not None:
+        row_m = lanes[0]
+        to = _arange(row_m.shape[0], row_m) + _exclusive_cumsum(unmatched)[row_m]
+        for buf, vals in zip((row, nbr, orig), lanes):
+            buf[to] = vals
+        matched[to] = True
+    return row, nbr, orig, matched
+
+
+def into_probe(s_pos, t_pos, ok, n: int, drop_loops: bool):
+    """ExpandInto's probe queries: the ``src*N + dst`` key of each (source,
+    target) row and its validity, loop rows dropped for the swapped half
+    of an undirected close. The caller range-counts them over the sorted
+    edge keys on the ``intersect`` gate: with it, the reference's
+    ``into_probe`` (two searchsorted calls)."""
+    probe = s_pos * n + t_pos
+    if drop_loops:
+        ok = ok & (s_pos != t_pos)
+    return probe, ok
+
+
+def concat_into_halves(row1, orig1, row2, orig2):
+    """Undirected ExpandInto: the primary half, then the swapped half with
+    Start/End reported swapped."""
+    swapped = torch.cat([
+        torch.zeros(row1.shape[0], dtype=torch.bool, device=row1.device),
+        torch.ones(row2.shape[0], dtype=torch.bool, device=row2.device),
+    ])
+    return torch.cat([row1, row2]), torch.cat([orig1, orig2]), swapped
+
+
+# ---------------------------------------------------------------------------
 # fused count chain: scan -> expand^k -> count(*) without materializing
 # ---------------------------------------------------------------------------
 
@@ -649,6 +741,84 @@ def distinct_pairs_count_final_unique(lanes, akey, mask, prevs, use_a: bool,
     key = _endpoint_key(akey, row, nbr, use_a, use_c, num_nodes)
     del row, nbr, orig, live
     return _run_count(key, present)
+
+
+def into_close_queries(lanes, akey, mask, src_is_base: bool, num_nodes: int,
+                       undirected: bool):
+    """The final hop of a count(*) cycle chain up to its closing probe: per
+    lane the ``src*N + dst`` key of the (base, far) pair in the closing
+    relationship's orientation and its validity; an undirected close adds
+    the swapped orientation with loops dropped. Returns a list of (probe,
+    ok); the caller range-counts each over the sorted edge keys on the
+    ``intersect`` gate and sums the totals: the reference's
+    ``into_close_count``. ``lanes`` is emptied, so the probes outlive no
+    row or nbr."""
+    row, nbr, _, live = lanes
+    lanes.clear()
+    ok = _lane_mask(live, mask, nbr)
+    if ok is None:
+        ok = _ones(row.shape[0], row)
+    a = akey[row]
+    del row, live
+    out = []
+    if undirected:
+        s, t = (a, nbr) if src_is_base else (nbr, a)
+        out.append((t * num_nodes + s, ok & (s != t)))
+        del s, t
+    # ``a`` is this function's own gather: the forward probe may reuse it
+    probe = a.mul_(num_nodes).add_(nbr) if src_is_base else nbr * num_nodes + a
+    return [(probe, ok)] + out
+
+
+def into_close_unique_queries(lanes, akey, mask, prevs, src_is_base: bool,
+                              num_nodes: int, mask_idx: tuple):
+    """``into_close_queries`` for a directed close with relationship
+    uniqueness: a lane whose final edge equals a carried chain edge named
+    by ``mask_idx`` is invalid. Returns (probe, ok, orig, the carried
+    edges at the lanes) for ``into_close_count_unique``. ``lanes`` is
+    emptied."""
+    row, nbr, orig, live = lanes
+    lanes.clear()
+    ok = _lane_mask(live, mask, nbr)
+    if ok is None:
+        ok = _ones(row.shape[0], row)
+    prevs_r = tuple(p[row] for p in prevs)
+    for i in mask_idx:
+        ok = ok & (orig != prevs_r[i])
+    a = akey[row]
+    probe = a * num_nodes + nbr if src_is_base else nbr * num_nodes + a
+    return probe, ok, orig, prevs_r
+
+
+def into_close_count_unique(counts, probe, ok, orig, prevs_r, keys_by_orig,
+                            sub_idx: tuple, sub_cur: bool):
+    """The close count of a relationship-unique chain from its probe's
+    per-lane range counts (``counts``, the ``intersect`` gate's over the
+    sorted edge keys): the reference's ``into_close_count_unique`` after
+    its searchsorted calls.
+
+    ``sub_cur`` / ``sub_idx``: closing-rel-vs-chain-rel pairs (the final
+    hop's own edge, carried edges by index into ``prevs_r``). The probe
+    range counts every type-set edge with key (s, t); a chain edge is in
+    that range iff its own ``src*N + dst`` key (``keys_by_orig``) equals
+    the probe key, so subtracting the key-match indicator removes exactly
+    that edge from the closing candidates. Two forbidden rels may bind the
+    SAME edge, so each subtraction is gated on differing from every edge
+    already subtracted: each distinct forbidden in-range edge subtracts
+    once (parallel edges keep distinct scan rows)."""
+    cnt = counts
+    subbed = []
+    if sub_cur:
+        cnt = cnt - (keys_by_orig[orig] == probe).to(torch.int64)
+        subbed.append(orig)
+    for i in sub_idx:
+        p = prevs_r[i]
+        ind = keys_by_orig[p] == probe
+        for e in subbed:
+            ind = ind & (p != e)
+        cnt = cnt - ind.to(torch.int64)
+        subbed.append(p)
+    return torch.sum(torch.where(ok, cnt, torch.zeros_like(cnt)))
 
 
 # ---------------------------------------------------------------------------

@@ -735,6 +735,18 @@ class CudaTable(Table):
         return plan_expand_fastpath(planner, op, lhs, rhs, classic)
 
     @staticmethod
+    def plan_expand_into_fastpath(planner, op, in_plan, classic):
+        from .expand_op import plan_expand_into_fastpath
+
+        return plan_expand_into_fastpath(planner, op, in_plan, classic)
+
+    @staticmethod
+    def plan_optional_expand_fastpath(planner, op, lhs, rhs, classic):
+        from .expand_op import plan_optional_expand_fastpath
+
+        return plan_optional_expand_fastpath(planner, op, lhs, rhs, classic)
+
+    @staticmethod
     def plan_multiway_intersect_fastpath(planner, op, in_plan, classic):
         from .wcoj import plan_multiway_intersect_fastpath
 

@@ -34,16 +34,21 @@ Differences by design from the reference (ROADMAP.md queue 3):
   has no native or MXU tier);
 * ``auto`` routes every structural fit, as ``force`` does: the
   reference's blowup estimate (``_est_binary_blowup`` against
-  ``TPU_CYPHER_WCOJ_MIN_ROWS``) keeps the binary plan on small graphs,
-  but on the H100 the WCOJ count beat the binary plan at every size
-  measured, from a 300-edge graph (under the threshold) up (PERF.md);
+  ``TPU_CYPHER_WCOJ_MIN_ROWS``) keeps the binary plan on small graphs.
+  The rule was set when the port's binary plan was the ``JoinOp``
+  cascade, which the WCOJ count beat at every size measured; against
+  the reference's binary plan, ``CsrExpandIntoOp``'s fused close count,
+  WCOJ loses up to SNB SF0.1 and wins at SF10 on the H100 (PERF.md), so
+  the rule is open (ROADMAP.md);
 * no bucket lattice: the lanes are sized exactly whatever
   ``TPU_CYPHER_BUCKET`` says (eager PyTorch compiles no program per
   shape for the lattice to save);
 * no shadow: ``_compute_table`` catches nothing, so a ``GraphIndexError``
-  reaches the caller. A shape the planner hook declines (``off`` mode,
-  an empty graph, an undirected close) keeps the classic ``JoinOp`` plan,
-  which answers through ``CudaTable.join``.
+  reaches the caller. A shape the planner hook declines (``off`` mode, an
+  undirected close) goes to ``expand_op.CsrExpandIntoOp``, the
+  reference's binary plan; an empty graph, which that hook declines too,
+  keeps the classic ``JoinOp`` plan, which answers through
+  ``CudaTable.join``.
 """
 
 from __future__ import annotations

@@ -90,12 +90,13 @@ def _mention_enforced_pairs(m: Set[E.Expr], op, h) -> None:
 
 def _local_mentions(op: O.RelationalOperator) -> Set[E.Expr]:
     """What this operator itself reads from its children's tables."""
-    from ..backend.cuda.expand_op import CsrExpandOp, CsrVarExpandOp
+    from ..backend.cuda.expand_op import (
+        CsrExpandIntoOp,
+        CsrExpandOp,
+        CsrOptionalExpandOp,
+        CsrVarExpandOp,
+    )
     from ..backend.cuda.wcoj import MultiwayIntersectOp
-
-    # not ported yet (ROADMAP.md queue 1, item 2.2): no plan holds these
-    # operators, and an empty class tuple never matches an isinstance check
-    CsrExpandIntoOp = CsrOptionalExpandOp = ()
 
     m: Set[E.Expr] = set()
     if isinstance(op, O.FilterOp):
