@@ -21,7 +21,9 @@ Phases (any failure exits non-zero and prints no result line):
             kernel tier, at Q5's second hop and Q6's arm 0); then launches
             ``segment_agg``, ``frontier_deg_sum`` and ``expand_rows`` on
             two side streams at once, each answer held to its plain
-            version, and times ``join_materialize`` (Q11) and
+            version (``intersect`` beside them: its index tables are
+            allocated on the launch's stream), and times
+            ``join_materialize`` (Q11) and
             ``into_materialize_counted`` (Q7), torch ops, against their
             byte bounds; holds ``segment_agg`` to its plain version at
             Q15's own group ids (k = 256) and times it there; holds
@@ -29,9 +31,18 @@ Phases (any failure exits non-zero and prints no result line):
             shapes (Q17's final hop, about 197M lanes without orig, and
             Q18's third hop with orig, captured from a run of each) and
             times them, with Q17's final hop whole and its sort; holds
-            ``intersect`` to its plain version at Q22's two probes (the
-            final hop's lanes over the SF10 KNOWS keys, one a
-            orientation) and times the first, holds the optional lane merge (the ``expand_rows``
+            ``intersect`` (its index kernels, which build a bucket-start
+            table and bucket records over the keys, and its search
+            kernel) to its plain version
+            at Q6's two calls and at edge shapes (a hub, keys all equal,
+            one key, queries outside the keys, negative keys over a span
+            of 2**64 - 1, runs on bucket starts, one far key), each at
+            the real bucket count and at 2 and 16 buckets, and
+            ``intersect`` at Q22's two probes (the final
+            hop's lanes over the SF10 KNOWS keys, one a orientation) and
+            at Q23's, and times it at Q6's arm 0, Q22's first probe and
+            Q23's against its bound and a full search's bound; holds the
+            optional lane merge (the ``expand_rows``
             kernel tier and its placement) to its plain version at Q25's
             and Q26's frontiers (every lane's row and match flag, every
             matched lane's edge) and times it, and times
@@ -851,7 +862,71 @@ def q6_range_count_calls(torch, g10, want):
     return calls
 
 
+def intersect_edge_cases(np, rng):
+    """(label, keys, q, qvalid) of the range count's edge shapes, the CPU
+    tests' at small size: queries at and past the max of a sentinel-free
+    power-of-two key list (the case the TPU kernel's completion half-step
+    exists for), runs of duplicates, a hub holding most keys, all keys
+    equal, one key, queries below kmin and above kmax, negative keys over
+    a span of 2**64 - 1, runs on and beside bucket starts, a cluster and
+    one far key (empty buckets between them), and keys at a
+    bucket's last offset at shift 14, the widest with offsets inline."""
+    i64 = np.iinfo(np.int64)
+    keys = np.sort(rng.integers(0, 1 << 40, 1 << 20)).astype(np.int64)
+    top = int(keys[-1])
+    q = np.concatenate([
+        np.array([top, top + 1, top + (1 << 30), 1 << 61, 1 << 62], np.int64),
+        keys[rng.integers(0, keys.shape[0], 1 << 20)],
+        rng.integers(-5, top + 5, 1 << 20).astype(np.int64),
+    ])
+    yield "2^20 keys, queries past the max", keys, q, rng.random(q.shape[0]) < 0.9
+    dup = np.sort(np.repeat(rng.integers(0, 5000, 20000), rng.integers(1, 40, 20000)))
+    q = rng.integers(-3, 5003, 3_000_000).astype(np.int64)
+    yield "duplicate runs", dup.astype(np.int64), q, rng.random(q.shape[0]) < 0.8
+    hub = np.sort(np.concatenate([
+        (7 << 20) + rng.integers(0, 4000, 300_000), rng.integers(0, 1 << 40, 20_000),
+    ])).astype(np.int64)
+    q = np.concatenate([hub[rng.integers(0, hub.shape[0], 500_000)],
+                        rng.integers(-5, (1 << 40) + 5, 500_000)]).astype(np.int64)
+    yield "a hub holding most keys", hub, q, rng.random(q.shape[0]) < 0.8
+    q = np.array([i64.min, 0, 41, 42, 42, 43, i64.max], np.int64)
+    yield ("all keys equal", np.full(777, 42, np.int64), q,
+           np.array([True, True, True, True, False, True, True]))
+    yield ("one key", np.array([-9], np.int64),
+           np.array([i64.min, -10, -9, -9, -8, i64.max], np.int64),
+           np.array([True, True, True, False, True, True]))
+    keys = np.sort(rng.integers(10**6, 2 * 10**6, 50_000)).astype(np.int64)
+    q = np.concatenate([np.array([i64.min, i64.max, 10**6 - 1, 2 * 10**6], np.int64),
+                        rng.integers(-(10**7), 10**6, 50_000),
+                        rng.integers(2 * 10**6, 10**7, 50_000)])
+    yield "queries below kmin and above kmax", keys, q, rng.random(q.shape[0]) < 0.9
+    body = np.sort(rng.integers(i64.min, i64.max, 100_000, dtype=np.int64))
+    keys = np.concatenate([[i64.min, i64.min], body, [i64.max - 1, i64.max]])
+    q = np.concatenate([keys[rng.integers(0, keys.shape[0], 100_000)],
+                        rng.integers(i64.min, i64.max, 100_000, dtype=np.int64),
+                        np.array([i64.min, i64.max, -1, 0, 1], np.int64)])
+    yield "negative keys, span 2^64 - 1", keys, q, rng.random(q.shape[0]) < 0.9
+    edges = np.arange(1, 256, dtype=np.int64) << 12
+    vals = np.concatenate([[0, (1 << 20) - 1], edges, edges - 1, edges + 1])
+    keys = np.sort(np.repeat(vals, rng.integers(1, 12, vals.shape[0])))
+    q = np.concatenate([vals, vals + 2, rng.integers(-3, (1 << 20) + 3, 100_000)])
+    yield "runs on and beside bucket starts", keys, q, rng.random(q.shape[0]) < 0.85
+    keys = np.sort(np.concatenate([rng.integers(0, 500_000, 300_000), [2**50, 2**50]]))
+    q = np.concatenate([keys, rng.integers(-5, 2**50 + 5, 200_000), [2**49, 2**50 - 1]])
+    yield "a cluster and one far key", keys.astype(np.int64), q.astype(np.int64), \
+        rng.random(q.shape[0]) < 0.9
+    top = np.arange(16, dtype=np.int64) * 2**14 + 2**14 - 1
+    keys = np.sort(np.concatenate([[0], top, top[::3], rng.integers(0, 2**18, 15)]))
+    q = np.concatenate([top, top - 1, top + 1, keys, [2**18, -1]])
+    yield "keys at a bucket's last offset (shift 14)", keys, q, rng.random(q.shape[0]) < 0.9
+
+
 def check_intersect(torch, g10, tri10, report):
+    """``intersect`` held to its plain version bit for bit: lo, counts and
+    the total at Q6's two count-tier calls (their own inputs, captured),
+    at the edge shapes, each at the real bucket count and at 2 and 16
+    buckets; all lanes invalid; an empty query list on the gate's fallback
+    tier. Then times it at Q6's arm 0."""
     import numpy as np
 
     from tpu_cypher_torch.backend.cuda.hopper import dispatch
@@ -864,37 +939,26 @@ def check_intersect(torch, g10, tri10, report):
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    def compare(label, keys, q, qvalid):
+    def compare(label, keys, q, qvalid, bits_list=(None,)):
         nonlocal err
-        lo, counts = KI.range_count_cuda(keys, q, qvalid)
-        got = (lo, counts, torch.sum(counts))
         want = KI.range_count_plain(keys, q, qvalid)
-        torch.cuda.synchronize()
-        e = tuple_err(torch, got, want)
-        err = max(err, e)
-        print(f"  intersect {label}: keys={int(keys.shape[0])} queries="
-              f"{int(q.shape[0])} matches={int(want[2])} max_abs_err={e}")
-        check(e == 0.0, f"intersect {label} disagrees with its plain version")
+        for bits in bits_list:
+            lo, counts = KI.range_count_cuda(keys, q, qvalid, bits)
+            nb = KI.bucket_bits(int(keys.shape[0])) if bits is None else bits
+            e = tuple_err(torch, (lo, counts, torch.sum(counts)), want)
+            torch.cuda.synchronize()
+            err = max(err, e)
+            print(f"  intersect {label}: keys={int(keys.shape[0])} queries="
+                  f"{int(q.shape[0])} matches={int(want[2])} buckets=2^{nb} "
+                  f"max_abs_err={e}")
+            check(e == 0.0, f"intersect {label} (2^{nb} buckets) disagrees with its "
+                  f"plain version")
 
     calls = q6_range_count_calls(torch, g10, tri10)
     for j, call in enumerate(calls):
         compare(f"Q6 SF10 arm {j}", *call)
-    # a sentinel-free power-of-two key list, queries at and past its max:
-    # the case the TPU kernel's completion half-step exists for
-    keys = np.sort(rng.integers(0, 1 << 40, 1 << 20)).astype(np.int64)
-    top = int(keys[-1])
-    q = np.concatenate([
-        np.array([top, top + 1, top + (1 << 30), 1 << 61, 1 << 62], np.int64),
-        keys[rng.integers(0, keys.shape[0], 1 << 20)],
-        rng.integers(-5, top + 5, 1 << 20).astype(np.int64),
-    ])
-    compare("2^20 keys, queries past the max", t(keys), t(q),
-            t(rng.random(q.shape[0]) < 0.9))
-    # runs of duplicate keys (parallel edges), hit and missed
-    dup = np.sort(np.repeat(rng.integers(0, 5000, 20000), rng.integers(1, 40, 20000)))
-    q = rng.integers(-3, 5003, 3_000_000).astype(np.int64)
-    compare("duplicate runs", t(dup.astype(np.int64)), t(q),
-            t(rng.random(q.shape[0]) < 0.8))
+    for label, keys, q, qvalid in intersect_edge_cases(np, rng):
+        compare(label, t(keys), t(q), t(qvalid), (None, 1, 4))
     # all lanes invalid: counts zero, insertion points still written
     keys_r, q_r, _ = calls[0]
     compare("all-invalid lanes", keys_r, q_r[:1_000_000],
@@ -911,47 +975,97 @@ def check_intersect(torch, g10, tri10, report):
           f"empty query list did not take the fallback tier: {before} -> {after}")
     print("  intersect empty query list: fallback tier, no launch")
 
-    # timing at Q6's arm 0
-    ms, plain_ms, lib_ms, b_ms, b_by, hits = time_intersect(torch, *calls[0])
-    nk, nq = int(calls[0][0].shape[0]), int(calls[0][1].shape[0])
     report["intersect"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms,
-        library_call="torch.searchsorted (left and right)",
-        shape=f"Q6 arm 0 at SF10: {nq} queries over {nk} keys, {hits} hits",
+        max_abs_err=err, library_call="torch.searchsorted (left and right)",
+        **time_intersect(torch, "Q6 arm 0 at SF10", *calls[0]),
     )
-    print(f"  intersect timing at Q6 arm 0: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, two torch.searchsorted {lib_ms:.4f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by})")
 
 
-def time_intersect(torch, keys, q, qvalid):
-    """The kernel, its plain version and the two torch.searchsorted calls
-    alone on one call's inputs (mean of 10, CUDA events), and the bound.
-    Returns (ms, plain_ms, library_ms, bound_ms, bound_by, hit lanes)."""
+def time_intersect(torch, label, keys, q, qvalid, prefix=""):
+    """The kernel (index and search), its plain version and the two
+    torch.searchsorted calls alone on one call's inputs (mean of 10, CUDA
+    events), the index's device time (the kernels of the same call with
+    one query lane, ``device_ms``), the bound, and as a yardstick the
+    bound of a lower-bound search over all keys a query, as report fields
+    named with ``prefix``."""
     from tpu_cypher_torch.backend.cuda.hopper import intersect as KI
 
     ms = time_ms(torch, lambda: KI.range_count_cuda(keys, q, qvalid), iters=10)
+    index_ms = device_ms(torch, lambda: KI.range_count_cuda(keys, q[:1], qvalid[:1]), iters=20)
     plain_ms = time_ms(torch, lambda: KI.range_count_plain(keys, q, qvalid), iters=10)
     lib_ms = time_ms(torch, lambda: (
         torch.searchsorted(keys, q, side="left"),
         torch.searchsorted(keys, q, side="right"),
     ), iters=10)
     nk, nq = int(keys.shape[0]), int(q.shape[0])
-    nbytes = 8 * nk + 25 * nq
-    # int32 operations, counted from range_count.cu, of what the function
-    # needs: per lane one lower-bound search of ceil(log2(nk)) rounds at 7
-    # each (the halving shift, the index add, the int64 compare at 2, the
-    # select, the length update and the loop test), then 7 (the last
-    # step's compare and add, the validity, bounds and equality tests).
-    # A hit lane adds its run's search: about 2 * bit_length(run) rounds
-    # at 7 each (this run's data decides how many lanes hit)
+    bits = KI.bucket_bits(nk)
+    nb = 1 << bits
+    start = KI.bucket_start_plain(keys, bits)
+    kmin, kmax = int(keys[0]), int(keys[-1])
+    shift = max(0, (kmax - kmin).bit_length() - bits)
+    inside = (q >= kmin) & (q <= kmax)
+    b = (q[inside] - kmin) >> shift  # these shapes' spans are far below 2^63
+    size = start[b + 1] - start[b]
+    inline = (size <= 6) if shift <= 14 else torch.zeros_like(size, dtype=torch.bool)
+    slow = size[~inline].double()
+    n_inline, n_valid_inline = int(inline.sum()), int((inline & qvalid[inside]).sum())
     _, want_counts, _ = KI.range_count_plain(keys, q, qvalid)
     hit = want_counts[want_counts > 0]
     run_bits = int(torch.sum(torch.floor(torch.log2(hit.double())) + 1)) if hit.numel() else 0
-    ops = nq * (7 * (nk - 1).bit_length() + 7) + 14 * run_bits
+    # the index's passes: pass 1 fills a run of at most 32 buckets from a
+    # key's side and leaves a longer run (a gap) unset; pass 2 searches all
+    # keys for each unset bucket, once on its own thread and once on its
+    # predecessor's
+    kb = (keys - kmin) >> shift
+    run = torch.diff(kb, prepend=kb.new_full((1,), -1))
+    filled, gap = int(run[run <= 32].sum()), int(run[run > 32].sum())
+    bsize = start[1:] - start[:-1]
+    inline_keys = int(bsize[bsize <= 6].sum()) if shift <= 14 else 0
+    # int32 operations, counted from range_count.cu, of what the function
+    # needs on these inputs, a 64-bit add, compare or shift at 2 and a
+    # search round at 7 (the half, the index add, the load's address, the
+    # int64 compare, the select, the count). The index: per key 16 (its
+    # two loads, two bucket numbers, the run test), per bucket pass 1
+    # fills 3 (the loop test, the store, the step); per bucket 14 in pass
+    # 2 (its two start loads and tests, the inline test, the record's
+    # store), per key of an inline bucket 6 (its load, offset, lane and
+    # merge), and per search of all keys 8 and ceil(log2(nk)) rounds. The
+    # search: per lane 14 (the query load, the two int64 range tests, the
+    # bucket's unsigned subtract and shift, the record's load, the
+    # stores); an inline lane 31 (its offset, the subtract, shift and
+    # mask of 3 words, their sums, lo), 14 more if valid (the count); a
+    # lane that searches its bucket 10 (the flag, the end, the last step
+    # and the hit test) and ceil(log2(its bucket's keys)) rounds; a hit in
+    # such a bucket its run's gallop, about 2 * bit_length(run) rounds
+    # (all hits are counted so)
+    rounds = torch.where(slow > 1, torch.floor(torch.log2((slow - 1).clamp(min=1))) + 1,
+                         torch.zeros_like(slow))
+    index_ops = (16 * nk + 3 * filled + 14 * nb + 6 * inline_keys
+                 + 2 * gap * (8 + 7 * (nk - 1).bit_length()))
+    ops = (index_ops + 14 * nq + 31 * n_inline + 14 * n_valid_inline
+           + 10 * int(slow.numel()) + 7 * int(rounds.sum()) + 14 * run_bits)
+    nbytes = 8 * nk + 25 * nq
     b_ms, b_by = bound(nbytes, ops)
-    return ms, plain_ms, lib_ms, b_ms, b_by, int(hit.numel())
+    # the yardstick: a search over all keys a query, its own bytes
+    full_ms, full_by = bound(8 * nk + 25 * nq, nq * (7 * (nk - 1).bit_length() + 7)
+                           + 14 * run_bits)
+    n_in = int(inside.sum())
+    shape = (f"{label}: {nq} queries over {nk} keys, {int(hit.numel())} hits, "
+             f"2^{bits} buckets of 2^{shift} values; of the {n_in} queries inside the "
+             f"keys' range {n_inline} in a bucket with its keys inline, "
+             f"mean bucket {float(size.double().mean()) if n_in else 0.0:.2f} keys, "
+             f"{gap} buckets searched for in pass 2")
+    print(f"  intersect timing at {shape}: kernel {ms:.4f} ms (device time of the index "
+          f"with one query lane {index_ms} ms), plain {plain_ms:.4f} ms, two torch.searchsorted "
+          f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; bytes "
+          f"{nbytes / MEM_BYTES_PER_S * 1e3:.4f} ms, operations "
+          f"{ops / INT32_OPS_PER_S * 1e3:.4f} ms, of them the index's "
+          f"{index_ops / INT32_OPS_PER_S * 1e3:.4f} ms; a full search's bound {full_ms:.4f} ms, "
+          f"{full_by})")
+    return {f"{prefix}ms": ms, f"{prefix}index_ms": index_ms, f"{prefix}plain_ms": plain_ms,
+            f"{prefix}library_ms": lib_ms, f"{prefix}bound_ms": b_ms,
+            f"{prefix}bound_by": b_by, f"{prefix}full_search_bound_ms": full_ms,
+            f"{prefix}full_search_bound_by": full_by, f"{prefix}shape": shape}
 
 
 def q11_join_probe_calls(g10, want):
@@ -1248,10 +1362,12 @@ def check_expand_rows_walks(torch, g10, q17_truth, q18_params, q18_truth, report
 
 def check_two_streams(torch, session, g10, rounds=30):
     """``segment_agg``, ``frontier_deg_sum`` and ``expand_rows``, whose
-    launches keep tickets and partials in a scratch buffer, launched at once
-    on two side streams with different inputs for ``rounds`` rounds: every
-    answer must equal its plain version. Each stream compares its own
-    answers as it goes, so the check holds only two rounds in memory."""
+    launches keep tickets and partials in a scratch buffer, and
+    ``intersect``, whose index table each launch allocates on its own
+    stream, launched at once on two side streams with different inputs
+    for ``rounds`` rounds: every answer must equal its plain version. Each
+    stream compares its own answers as it goes, so the check holds only
+    two rounds in memory."""
     import numpy as np
 
     from tpu_cypher_torch.backend.cuda import jit_ops as J
@@ -1259,6 +1375,7 @@ def check_two_streams(torch, session, g10, rounds=30):
     from tpu_cypher_torch.backend.cuda.hopper import aggregate as KA
     from tpu_cypher_torch.backend.cuda.hopper import expand as KX
     from tpu_cypher_torch.backend.cuda.hopper import frontier as KF
+    from tpu_cypher_torch.backend.cuda.hopper import intersect as KI
 
     dev = backend_device()
     rng = np.random.default_rng(SEED + 1)
@@ -1280,24 +1397,29 @@ def check_two_streams(torch, session, g10, rounds=30):
         pos = t(rng.integers(0, v, v))
         deg, total = J.expand_degrees_total(rp, pos, t(rng.random(v) < density))
         ex = (rp, ci, eo, pos, deg, int(total), int(total))
+        keys = torch.sort(t(rng.integers(0, 1 << 34, f))).values
+        iq = torch.cat([keys[t(rng.integers(0, f, n // 2))], t(rng.integers(0, 1 << 34, n // 2))])
+        rc = (keys, iq, t(rng.random(n) < density))
         want = (
             J.segment_aggregate(seg[0], seg[1], None, seg[2], name, "i64", 256),
             KF.deg_sum_plain(*fr),
             J.expand_materialize_counted(*ex),
+            KI.range_count_plain(*rc)[:2],
         )
-        work.append((seg, fr, ex, want))
+        work.append((seg, fr, ex, rc, want))
     torch.cuda.synchronize()
     streams = [torch.cuda.Stream(device=dev) for _ in work]
     bad = [torch.zeros((), dtype=torch.bool, device=dev) for _ in work]
     for _ in range(rounds):
-        for i, (stream, (seg, fr, ex, want)) in enumerate(zip(streams, work)):
+        for i, (stream, (seg, fr, ex, rc, want)) in enumerate(zip(streams, work)):
             with torch.cuda.stream(stream):
                 got = (
                     KA._segment_aggregate_cuda(seg[0], seg[1], seg[2], *seg[3:]),
                     (KF.deg_sum_cuda(*fr),),
                     KX.expand_materialize_counted_cuda(*ex),
+                    KI.range_count_cuda(*rc),
                 )
-                for g_t, w_t in zip(got, (want[0], (want[1],), want[2])):
+                for g_t, w_t in zip(got, (want[0], (want[1],), want[2], want[3])):
                     for a, b in zip(g_t, w_t):
                         if a is None or b is None:
                             check(a is None and b is None, "two streams: a missing output")
@@ -1309,8 +1431,8 @@ def check_two_streams(torch, session, g10, rounds=30):
     check(not any(bool(b) for b in bad),
           f"two streams: an answer differs from its plain version ({[bool(b) for b in bad]})")
     print(f"  two side streams, {rounds} rounds each of segment_agg (k=256, {n} rows), "
-          f"frontier_deg_sum (F={f}) and expand_rows (F={v}) on different inputs: "
-          f"every answer equal to its plain version")
+          f"frontier_deg_sum (F={f}), expand_rows (F={v}) and intersect ({n} queries "
+          f"over {f} keys) on different inputs: every answer equal to its plain version")
 
 
 def q_hooked_calls(pg, query, module, name, params=None):
@@ -1365,8 +1487,9 @@ def check_close_shapes(torch, g1, g10, g10h, truth, report):
     """The closing ExpandInto's and the fused OPTIONAL expand's shapes, on
     inputs captured from an extra run of each query: ``intersect`` at
     Q22's probes (the final hop's lanes over the KNOWS keys, both
-    orientations) held to its plain version bit for bit and timed as at
-    Q6; the optional lane merge (``expand_op._optional_lanes``: the
+    orientations) and at Q23's (the reference's own plan: Q6 under
+    ``off``) held to its plain version bit for bit and timed as at Q6 at
+    Q22's first probe and Q23's; the optional lane merge (``expand_op._optional_lanes``: the
     ``expand_rows`` kernel tier, then ``optional_place``) at Q25's and
     Q26's frontiers held to ``jit_ops.optional_expand_materialize`` bit
     for bit on every lane's row and match flag and every matched lane's
@@ -1382,27 +1505,28 @@ def check_close_shapes(torch, g1, g10, g10h, truth, report):
     calls, rows = q_hooked_calls(g10, Q22, hopper, "intersect_range_count")
     check(rows == [{"t": truth["Q22"]}] and len(calls) == 2,
           f"Q22 (hooked) {rows} != {truth['Q22']}, {len(calls)} probes")
+    with wcoj_mode("off"):
+        calls23, rows = q_hooked_calls(g10, Q23, hopper, "intersect_range_count")
+    check(rows == [{"triangles": truth["Q23"]}] and len(calls23) == 1,
+          f"Q23 (hooked) {rows} != {truth['Q23']}, {len(calls23)} probes")
     err = report["intersect"]["max_abs_err"]
-    for j, ((keys, q, qvalid), _) in enumerate(calls):
+    probes = [(f"Q22 SF10 orientation {j}", call) for j, (call, _) in enumerate(calls)]
+    probes.append(("Q23 SF10 (off)", calls23[0][0]))
+    for label, (keys, q, qvalid) in probes:
         lo, counts = KI.range_count_cuda(keys, q, qvalid)
         e = tuple_err(torch, (lo, counts, torch.sum(counts)),
                       KI.range_count_plain(keys, q, qvalid))
         del lo, counts
         err = max(err, e)
-        check(e == 0.0, f"intersect at Q22's probe {j} disagrees with its plain version")
-        print(f"  intersect Q22 SF10 orientation {j}: keys={int(keys.shape[0])} "
+        check(e == 0.0, f"intersect at {label}'s probe disagrees with its plain version")
+        print(f"  intersect {label}: keys={int(keys.shape[0])} "
               f"queries={int(q.shape[0])} max_abs_err={e}")
-    (keys, q, qvalid), _ = calls[0]
-    ms, plain_ms, lib_ms, b_ms, b_by, hits = time_intersect(torch, keys, q, qvalid)
-    shape = f"Q22's first probe at SF10: {int(q.shape[0])} queries over " \
-            f"{int(keys.shape[0])} keys, {hits} hits"
-    report["intersect"].update(
-        max_abs_err=err, q22_ms=ms, q22_plain_ms=plain_ms, q22_library_ms=lib_ms,
-        q22_bound_ms=b_ms, q22_bound_by=b_by, q22_shape=shape,
-    )
-    print(f"  intersect timing at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"two torch.searchsorted {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    del calls, keys, q, qvalid
+    report["intersect"]["max_abs_err"] = err
+    report["intersect"].update(time_intersect(
+        torch, "Q22's first probe at SF10", *calls[0][0], prefix="q22_"))
+    report["intersect"].update(time_intersect(
+        torch, "Q23's probe at SF10", *calls23[0][0], prefix="q23_"))
+    del calls, calls23, probes, keys, q, qvalid
 
     err = report["expand_rows"]["max_abs_err"]
     for key, pg, query, ok in (

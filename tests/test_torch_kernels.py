@@ -852,6 +852,358 @@ def test_intersect_ineligible_cuda_call_takes_fallback_tier(monkeypatch, case):
     assert PD.use_counts()["intersect"] == {"kernel": 0, "plain": 0, "fallback": 1}
 
 
+def _lower_bound_emulated(k, b, n, x, probes):
+    """``range_count.cu``'s branchless lower bound of each ``x`` in
+    ``k[b, b + n)``, vectorised; every probed index goes to ``probes``."""
+    b, n = b.copy(), n.copy()
+    while (n > 1).any():
+        m = n > 1
+        half = n >> 1
+        idx = np.where(m, b + half, 0)
+        probes.append((idx[m], b[m], (b + n)[m]))
+        b = np.where(m & (k[idx] < x), b + half, b)
+        n = np.where(m, n - half, n)
+    m = n >= 1
+    idx = np.where(m, b, 0)
+    probes.append((idx[m], b[m], (b + n)[m]))
+    return b + (m & (k[idx] < x))
+
+
+class _RangeCountKernelEmulation:
+    """``range_count.cu`` in torch and numpy, reading the wrapper's raw
+    ctypes arguments as its index and search kernels read them. The
+    bucket starts: the unsigned span and shift, then per key the buckets
+    from its predecessor's (runs of at most 32) into the start table,
+    the rest left -1. The records: per bucket its start and the next
+    bucket's, each read from the table or, where unset, the lower bound
+    of the bucket's first value (``nk`` past kmax); then, for at most 6
+    keys and a shift of at most 14, their offsets in the bucket as 16-bit
+    lanes 0x8000 | offset (other lanes 0xFFFF), else the search flag
+    (bit 31 of the start) and the bucket's end in the second word. The
+    search: a query below kmin or above kmax takes 0 or nk; any other
+    reads its bucket's record and counts the inline offsets below and
+    equal to its own, or searches only the bucket's range [s, e), a hit
+    galloping from lo to the end of its run and never past e. Every
+    probed key index is checked to lie inside the range it searches."""
+
+    def __init__(self):
+        self.tables = []  # (shift, start, records) of each launch
+        self.inline_lanes = 0  # query lanes answered from a record's offsets
+        self.searched_lanes = 0  # query lanes that searched their bucket's keys
+        self.resolved_in_pass2 = 0  # starts the per-key pass left unset
+
+    @staticmethod
+    def _shift(k, log2b):
+        span = (int(k[-1]) - int(k[0])) % 2**64
+        return span, max(0, span.bit_length() - log2b)
+
+    def _bucket_starts(self, k, log2b, start):
+        """Pass 1 into the ``start`` buffer; the resolved starts (pass 2's
+        reads of it) returned, start[B] included."""
+        nk = len(k)
+        span, shift = self._shift(k, log2b)
+        nb = 1 << log2b
+        # pass 1, per key i: start[b] = i for b in (bucket(k[i - 1]), bucket(k[i])],
+        # runs of at most 32 buckets; the rest stays -1
+        bk = ((k.view(np.uint64) - k[:1].view(np.uint64)) >> np.uint64(shift)).astype(np.int64)
+        prev = np.concatenate([[-1], bk[:-1]])
+        run = np.where(bk - prev <= 32, bk - prev, 0)
+        out = np.full(nb + 1, -1, np.int64)
+        first_b = np.repeat(prev + 1, run)
+        out[first_b + np.arange(run.sum()) - np.repeat(np.cumsum(run) - run, run)] = \
+            np.repeat(np.arange(nk), run)
+        out[nb] = nk
+        _store(start, torch.from_numpy(out.astype(np.int32)))
+        # pass 2's reads, per bucket: an unset start is the lower bound of
+        # the bucket's first value, nk past kmax
+        st = _raw(start, ctypes.c_int32, nb + 1).numpy().astype(np.int64)
+        unset = np.flatnonzero(st[:nb] < 0)
+        off = unset.astype(np.uint64) << np.uint64(shift)
+        first = (k[:1].view(np.uint64) + off).view(np.int64)
+        probes = []
+        lb = _lower_bound_emulated(k, np.zeros(len(unset), np.int64),
+                                   np.full(len(unset), nk, np.int64), first, probes)
+        st[unset] = np.where(off <= np.uint64(span), lb, nk)
+        self.resolved_in_pass2 = len(unset)
+        return shift, st
+
+    @staticmethod
+    def _offsets(k, x, shift):
+        return ((x.view(np.uint64) - k[:1].view(np.uint64))
+                & np.uint64((1 << shift) - 1)).astype(np.int64)
+
+    def _records(self, k, shift, st, records):
+        s, e = st[:-1], st[1:]
+        n = e - s
+        small = (n <= 6) if shift <= 14 else np.zeros(len(s), bool)
+        j = np.arange(6)
+        take = small[:, None] & (j[None, :] < n[:, None])
+        pos = np.where(take, s[:, None] + j[None, :], 0)
+        lanes = np.where(take, 0x8000 | self._offsets(k, k[pos], shift), 0xFFFF)
+        words = lanes[:, 0::2] | (lanes[:, 1::2] << 16)
+        words[:, 0] = np.where(small, words[:, 0], e)
+        out = np.concatenate([(s | np.where(small, 0, 1 << 31))[:, None], words], axis=1)
+        out = out.astype(np.uint32).view(np.int32)
+        _store(records, torch.from_numpy(out))
+        self.tables.append((shift, st.astype(np.int32), out))
+
+    def range_count_launch(self, keys, nk, log2b, start, records, q, qvalid, lo_out,
+                           cnt_out, nq, stream):
+        assert 0 < nk <= 2**31 - 1 and 1 <= log2b <= 30 and nq > 0
+        k = _raw(keys, ctypes.c_int64, nk).numpy()
+        shift, st = self._bucket_starts(k, log2b, start)
+        self._records(k, shift, st, records)
+        rec = _raw(records, ctypes.c_int32, 4 << log2b).numpy().view(np.uint32)
+        rec = rec.astype(np.int64).reshape(-1, 4)
+        x = _raw(q, ctypes.c_int64, nq).numpy()
+        valid = _raw(qvalid, ctypes.c_uint8, nq).numpy() != 0
+        inside = (x >= k[0]) & (x <= k[-1])
+        xi = x[inside]
+        bk = ((xi.view(np.uint64) - k[:1].view(np.uint64)) >> np.uint64(shift)).astype(np.int64)
+        s = rec[bk, 0] & ~(1 << 31)
+        # records whose offsets are inline: count the lanes below and equal
+        fast = (rec[bk, 0] >> 31) == 0
+        e = np.where(fast, s, rec[bk, 1])  # the others read the bucket's end
+        # the kernel's word arithmetic: per word (w - x * 0x10001) >> 15
+        # keeps a 1 in each 16-bit lane whose offset is >= x
+        xo = self._offsets(k, xi, shift)[:, None]
+
+        def at_least(x):
+            d = (rec[bk, 1:] - x * 0x10001) % 2**32
+            ge = ((d >> 15) & 0x00010001).sum(axis=1)
+            return (ge & 0xFFFF) + (ge >> 16)
+
+        n_ge = at_least(xo)
+        fast_lo = s + 6 - n_ge
+        fast_cnt = n_ge - at_least(xo + 1)
+        # the others: the branchless search of the bucket's keys
+        probes = []
+        lo_in = _lower_bound_emulated(k, s, e - s, xi, probes)
+        for idx, lo_b, hi_b in probes:
+            assert ((idx >= lo_b) & (idx < hi_b)).all(), "a search left its bucket"
+        hit = ~fast & valid[inside] & (lo_in < e) & (k[np.minimum(lo_in, nk - 1)] == xi)
+        # the gallop: steps 1, 2, 4, ... while the key still equals x, then halving
+        last, step, run = lo_in.copy(), np.ones_like(lo_in), hit.copy()
+        while run.any():
+            nxt = last + step
+            run &= nxt < e
+            run[run] = k[nxt[run]] == xi[run]
+            last, step = np.where(run, nxt, last), np.where(run, step * 2, step)
+        hi = np.minimum(last + step, e)
+        while (hit & (hi - last > 1)).any():
+            m = hit & (hi - last > 1)
+            mid = last + ((hi - last) >> 1)
+            assert (mid[m] < e[m]).all(), "a gallop left its bucket"
+            eq = m & (k[np.where(m, mid, 0)] == xi)
+            last, hi = np.where(eq, mid, last), np.where(m & ~eq, mid, hi)
+        lo = np.where(x < k[0], 0, nk).astype(np.int64)
+        cnt = np.zeros(nq, np.int64)
+        lo[inside] = np.where(fast, fast_lo, lo_in)
+        cnt[inside] = np.where(fast, np.where(valid[inside], fast_cnt, 0),
+                               np.where(hit, hi - lo_in, 0))
+        self.inline_lanes += int(fast.sum())
+        self.searched_lanes += int((~fast).sum())
+        _store(lo_out, torch.from_numpy(lo))
+        _store(cnt_out, torch.from_numpy(cnt))
+        return 0
+
+
+_I64 = np.iinfo(np.int64)
+
+
+def _index_case(name):
+    """(keys, q, qvalid) for the index's edge shapes."""
+    rng = np.random.default_rng(zlib.crc32(f"index/{name}".encode()))
+    if name in ("closing_probe", "q6_neighbours"):
+        # a CSR's src*N + dst keys, parallel edges kept
+        # (the closing probe's sources uniform, Q6's zipf-skewed)
+        n = 1500
+        src = rng.integers(0, n, 20000) if name == "closing_probe" else rng.zipf(1.6, 20000) % n
+        dst = rng.integers(0, n, 20000)
+        order = np.lexsort((dst, src))
+        src, dst = src[order].astype(np.int64), dst[order].astype(np.int64)
+        keys = src * n + dst
+        rp = np.searchsorted(src, np.arange(n + 1))
+        # the 2-paths a -> b -> c, in a's order (the final hop's lanes)
+        deg = rp[dst + 1] - rp[dst]
+        a = np.repeat(src, deg)
+        c = dst[np.concatenate([np.arange(rp[b], rp[b + 1]) for b in dst])]
+        # closing probe: c*N + a (neighbouring lanes N apart); Q6: a*N + c
+        # along b's row (neighbouring lanes on neighbouring keys)
+        q = c * n + a if name == "closing_probe" else a * n + c
+        return keys, q, rng.random(q.shape[0]) < 0.9
+    if name == "hub":
+        keys = np.sort(np.concatenate([
+            np.full(3000, 7 * 2**20, np.int64) + rng.integers(0, 4000, 3000),
+            rng.integers(0, 2**40, 200),
+        ]))
+        q = np.concatenate([keys[rng.integers(0, keys.shape[0], 2000)],
+                            rng.integers(-5, 2**40 + 5, 2000)])
+        return keys, q, rng.random(q.shape[0]) < 0.8
+    if name == "all_equal":
+        keys = np.full(777, 42, np.int64)
+        q = np.array([_I64.min, 0, 41, 42, 42, 43, _I64.max], np.int64)
+        return keys, q, np.array([True, True, True, True, False, True, True])
+    if name == "one_key":
+        return np.array([-9], np.int64), np.array([_I64.min, -10, -9, -9, -8, _I64.max]), \
+            np.array([True, True, True, False, True, True])
+    if name == "outside":
+        keys = np.sort(rng.integers(10**6, 2 * 10**6, 5000)).astype(np.int64)
+        q = np.concatenate([np.array([_I64.min, _I64.max, 10**6 - 1, 2 * 10**6], np.int64),
+                            rng.integers(-(10**7), 10**6, 500),
+                            rng.integers(2 * 10**6, 10**7, 500)])
+        return keys, q, rng.random(q.shape[0]) < 0.9
+    if name == "negative_wide":
+        # negative keys and a span of 2**64 - 1: the unsigned span and shift
+        body = np.sort(rng.integers(_I64.min, _I64.max, 3000, dtype=np.int64))
+        keys = np.concatenate([[_I64.min, _I64.min], body, [_I64.max - 1, _I64.max]])
+        q = np.concatenate([keys[rng.integers(0, keys.shape[0], 1500)],
+                            rng.integers(_I64.min, _I64.max, 1500, dtype=np.int64),
+                            np.array([_I64.min, _I64.max, -1, 0, 1], np.int64)])
+        return keys, q, rng.random(q.shape[0]) < 0.9
+    if name == "bucket_edge_runs":
+        # runs of duplicates on and just below bucket starts (multiples of
+        # 2**12 over a span of 2**20: an edge at every shift up to 12)
+        edges = np.arange(1, 256, dtype=np.int64) << 12
+        vals = np.concatenate([[0, 2**20 - 1], edges, edges - 1, edges + 1])
+        keys = np.sort(np.repeat(vals, rng.integers(1, 12, vals.shape[0])))
+        q = np.concatenate([vals, vals + 2, rng.integers(-3, 2**20 + 3, 3000)])
+        return keys, q, rng.random(q.shape[0]) < 0.85
+    if name == "far_key":
+        # a cluster and one far key: the empty buckets between them are
+        # too many for the key's thread, so each is searched on its own
+        keys = np.sort(np.concatenate([rng.integers(0, 5000, 3000), [2**50, 2**50]]))
+        q = np.concatenate([keys, rng.integers(-5, 2**50 + 5, 2000), [2**49, 2**50 - 1]])
+        return keys.astype(np.int64), q.astype(np.int64), rng.random(q.shape[0]) < 0.9
+    if name == "max_offsets":
+        # a span of 2**18 in 16 buckets: shift 14, the widest with inline
+        # offsets, keys and queries at a bucket's last offset 2**14 - 1
+        top = np.arange(16, dtype=np.int64) * 2**14 + 2**14 - 1
+        keys = np.sort(np.concatenate([[0], top, top[::3], rng.integers(0, 2**18, 15)]))
+        q = np.concatenate([top, top - 1, top + 1, keys, [2**18, -1]])
+        return keys, q, rng.random(q.shape[0]) < 0.9
+    # invalid lanes: the larger range shape with most lanes invalid
+    keys, q, _ = _range_case("larger")
+    return keys, q, rng.random(q.shape[0]) < 0.1
+
+
+INDEX_SHAPES = [
+    "closing_probe", "q6_neighbours", "hub", "all_equal", "one_key", "outside",
+    "negative_wide", "bucket_edge_runs", "far_key", "max_offsets", "invalid_lanes",
+]
+
+
+def _index_want(keys, bits):
+    """``start`` and the records by their definitions, in Python
+    integers."""
+    kmin, kmax = int(keys[0]), int(keys[-1])
+    shift = max(0, (kmax - kmin).bit_length() - bits)
+    firsts = [kmin + (b << shift) for b in range(1 << bits)]
+    pos = [int(np.searchsorted(keys, f, side="left")) if f <= kmax else len(keys)
+           for f in firsts]
+    start = pos + [len(keys)]
+    records = []
+    for b in range(1 << bits):
+        s, n = start[b], start[b + 1] - start[b]
+        lanes = [0xFFFF] * 6
+        inline = n <= 6 and shift <= 14
+        if inline:
+            lanes[:n] = [0x8000 | (int(v) - kmin) % (1 << shift) for v in keys[s:s + n]]
+        words = [lanes[i] | lanes[i + 1] << 16 for i in range(0, 6, 2)]
+        if not inline:
+            words[0] = start[b + 1]
+        records.append([s | (0 if inline else 1 << 31)] + words)
+    return np.array(start, np.int32), np.array(records, np.uint32).view(np.int32)
+
+
+def _emulated_range_count(monkeypatch):
+    emu = _RangeCountKernelEmulation()
+    monkeypatch.setattr(PI, "_lib", lambda: emu)
+    monkeypatch.setattr(PI._build, "stream", lambda dev: 0)
+    return emu
+
+
+def _check_emulated(emu, keys, q, qvalid, bits, what):
+    args = (_t(keys), _t(q), _t(qvalid))
+    want = PI.range_count_plain(*args)
+    lo, counts = PI._launch(*args, bits)
+    for nm, w, g in zip(("lo", "counts", "total"), want, (lo, counts, torch.sum(counts))):
+        _same(w.numpy(), g, (what, bits, nm))
+    nbits = PI.bucket_bits(len(keys)) if bits is None else bits
+    shift, table, records = emu.tables[-1]
+    want_table, want_records = _index_want(keys, nbits)
+    assert np.array_equal(table, want_table), (what, bits, "index")
+    assert np.array_equal(records, want_records), (what, bits, "records")
+    _same(want_table, PI.bucket_start_plain(_t(keys), nbits), (what, bits, "plain index"))
+    return shift, table
+
+
+@pytest.mark.parametrize("bits", [None, 1, 4])
+@pytest.mark.parametrize("shape_name", RANGE_SHAPES[1:] + INDEX_SHAPES)
+def test_intersect_kernel_arguments_emulated_match_plain(monkeypatch, shape_name, bits):
+    """The wrapper's ctypes arguments, read by a torch emulation of the
+    index and search kernels, give ``range_count_plain``'s
+    (lo, counts, total) bit for bit, and the start table and the records
+    equal their definitions (``searchsorted(keys, kmin + (b << shift))``,
+    nk past kmax; start, and inline offsets or the end) and the start table
+    ``bucket_start_plain``, at the real bucket count and at 2 and 16
+    buckets. The kernels themselves run only on the card
+    (``chip_smoke.py`` holds them to the plain version there)."""
+    emu = _emulated_range_count(monkeypatch)
+    keys, q, qvalid = (_index_case if shape_name in INDEX_SHAPES else _range_case)(shape_name)
+    shift, table = _check_emulated(emu, keys, q, qvalid, bits, shape_name)
+    if bits is None and shape_name == "closing_probe":
+        # at the real B nearly every closing-probe query is answered from
+        # its bucket's record alone
+        assert len(table) - 1 == 1 << PI.bucket_bits(len(keys)) >= len(keys) // 8
+        assert emu.inline_lanes > 0.8 * len(q) and emu.searched_lanes > 0
+    if shape_name == "hub":
+        assert emu.searched_lanes > 0
+    if shape_name == "far_key" and bits is None:
+        assert emu.resolved_in_pass2 > 32
+    if shape_name == "max_offsets" and bits is None:
+        assert shift == 14 and emu.inline_lanes == int(((q >= keys[0]) & (q <= keys[-1])).sum())
+    if shape_name == "all_equal":
+        assert (table[1:] == len(keys)).all() and table[0] == 0
+    if shape_name == "negative_wide":
+        assert shift == 64 - (PI.bucket_bits(len(keys)) if bits is None else bits)
+
+
+def test_intersect_emulated_empty_query_list_makes_no_launch(monkeypatch):
+    emu = _emulated_range_count(monkeypatch)
+    keys, q, qvalid = _range_case("empty_q")
+    lo, counts = PI._launch(_t(keys), _t(q), _t(qvalid))
+    assert lo.shape == counts.shape == (0,) and not emu.tables
+
+
+def test_intersect_emulated_random_sorted_keys_match_plain():
+    """Random sorted key lists, duplicates and far keys mixed, queried at
+    every key, its neighbours and random values, valid or not, at the
+    real or a forced bucket count."""
+    hypothesis = pytest.importorskip("hypothesis")
+    st = pytest.importorskip("hypothesis.strategies")
+
+    @hypothesis.settings(max_examples=60, deadline=None, derandomize=True, database=None)
+    @hypothesis.given(
+        keys=st.lists(st.one_of(st.integers(-40, 40), st.integers(_I64.min, _I64.max)),
+                      min_size=1, max_size=120),
+        extra=st.lists(st.integers(_I64.min, _I64.max), max_size=20),
+        bits=st.one_of(st.none(), st.integers(1, 8)),
+        data=st.data(),
+    )
+    def check(keys, extra, bits, data):
+        with pytest.MonkeyPatch.context() as mp:
+            emu = _emulated_range_count(mp)
+            k = np.sort(np.array(keys, np.int64))
+            near = np.concatenate([k, k[k > _I64.min] - 1, k[k < _I64.max] + 1])
+            q = np.concatenate([near, np.array(extra, np.int64)])
+            qvalid = np.array(data.draw(st.lists(st.booleans(), min_size=len(q),
+                                                 max_size=len(q))), bool)
+            _check_emulated(emu, k, q, qvalid, bits, "hypothesis")
+
+    check()
+
+
 # ---------------------------------------------------------------------------
 # kernel scratch
 # ---------------------------------------------------------------------------

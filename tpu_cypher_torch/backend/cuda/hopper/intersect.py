@@ -3,14 +3,18 @@
 Replaces ``tpu_cypher/backend/tpu/pallas/intersect.py``
 (``_range_count_kernel`` / ``_range_count_pallas``; entry
 ``intersect_range_count``). The CUDA source is ``csrc/range_count.cu``;
-its note states the bound on the H100 (25 bytes per query with the keys
-L2-resident, or the search's int32 operations, whichever is larger) and
-what the design does about it.
+its note states the bound on the H100 (the keys once, 25 bytes per query
+and the index, with the keys L2-resident) and the design: a bucket-start
+table over the high bits of the keys, a 16-byte record per bucket (its
+start and, for a bucket of at most 6 keys, their 16-bit offsets, else
+its end), then a search in which each query reads its bucket's record
+and, only for a large bucket, searches that bucket's short range of keys.
 
 Beside it, the plain PyTorch version ``range_count_plain``: two
 ``torch.searchsorted`` calls, a ``where`` and a sum, the counterpart of
 the reference's ``_range_count_jnp``. The total is a ``torch.sum`` on
 either tier, as the reference sums outside its kernel too.
+``bucket_start_plain`` computes the index's bucket starts by torch ops.
 
 Eligibility is re-derived for this card. The reference caps the
 power-of-two padded key list at 2**20 because both int32 key planes must
@@ -49,23 +53,56 @@ def range_count_plain(keys, q, qvalid):
     return lo, counts, torch.sum(counts)
 
 
+def bucket_bits(nk: int) -> int:
+    """log2 of the index's bucket count B for ``nk`` keys: the largest
+    power of two at most nk/2 (2 to 4 keys a bucket over the key span, so
+    that most buckets fit their record's 6 inline keys), and at least 2
+    buckets."""
+    return min(30, max(1, (nk // 2).bit_length() - 1))
+
+
+def bucket_start_plain(keys, bits: int):
+    """The index's bucket starts, by torch ops: ``start[b]`` = the left
+    insertion point of ``kmin + (b << shift)`` for b < 2**bits (``nk``
+    where that value lies past the last key), and ``start[2**bits]`` =
+    nk, int32; ``shift`` = max(0, bit_length(kmax - kmin) - bits)."""
+    nk, nb = int(keys.shape[0]), 1 << bits
+    kmin, kmax = int(keys[0]), int(keys[-1])
+    shift = max(0, (kmax - kmin).bit_length() - bits)
+    live = ((kmax - kmin) >> shift) + 1  # buckets whose first value is <= kmax
+    b = torch.arange(live, dtype=torch.int64, device=keys.device)
+    # kmin + (b << shift) in two halves, so that no partial sum leaves int64
+    half = b << max(shift - 1, 0)
+    first = kmin + half + (half if shift else 0)
+    start = torch.full((nb + 1,), nk, dtype=torch.int32, device=keys.device)
+    start[:live] = torch.searchsorted(keys, first, side="left").to(torch.int32)
+    return start
+
+
 @functools.lru_cache(maxsize=None)
-def _launch_fn():
-    fn = _build.lib("range_count").range_count_launch
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    lib = _build.lib("range_count")
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.range_count_launch.argtypes = [p, i64, ctypes.c_int, p, p, p, p, p, p, i64, p]
+    lib.range_count_launch.restype = ctypes.c_int
+    return lib
 
 
-def range_count_cuda(keys, q, qvalid):
-    """Launch the kernel: (lo, counts) int64 for every query lane. Raises
-    on what the kernel does not take."""
+def range_count_cuda(keys, q, qvalid, bits=None):
+    """Launch the index and the search kernels: (lo, counts) int64 for
+    every query lane. ``bits`` overrides ``bucket_bits(nk)``. Raises on
+    what the kernels do not take."""
     dev = keys.device
     if dev.type != "cuda" or q.device != dev or qvalid.device != dev:
         raise ValueError("intersect: tensors must be on one CUDA device")
+    return _launch(keys, q, qvalid, bits)
+
+
+def _launch(keys, q, qvalid, bits=None):
+    """Check dtypes and shapes, allocate the outputs, the bucket starts and
+    the bucket records (torch's caching allocator, on the launch's
+    stream) and make the one ctypes call (the device check is the
+    caller's)."""
     if (keys.dtype, q.dtype, qvalid.dtype) != (torch.int64, torch.int64, torch.bool):
         raise TypeError("intersect: keys and q must be int64, qvalid bool")
     if not (keys.is_contiguous() and q.is_contiguous() and qvalid.is_contiguous()):
@@ -75,15 +112,21 @@ def range_count_cuda(keys, q, qvalid):
         raise ValueError("intersect: qvalid must have one entry per query")
     if not 0 < nk <= _INT32_MAX:
         raise ValueError("intersect: the key list must be non-empty and fit int32")
-    lo = torch.empty(nq, dtype=torch.int64, device=keys.device)
-    counts = torch.empty(nq, dtype=torch.int64, device=keys.device)
+    bits = bucket_bits(nk) if bits is None else bits
+    if not 1 <= bits <= 30:
+        raise ValueError("intersect: the index needs 2 to 2**30 buckets")
+    dev = keys.device
+    lo = torch.empty(nq, dtype=torch.int64, device=dev)
+    counts = torch.empty(nq, dtype=torch.int64, device=dev)
     if nq == 0:
         return lo, counts
-    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    start = torch.empty((1 << bits) + 1, dtype=torch.int32, device=dev)
+    records = torch.empty((1 << bits, 4), dtype=torch.int32, device=dev)
     _build.check(
-        _launch_fn()(
-            keys.data_ptr(), nk, q.data_ptr(), qvalid.data_ptr(),
-            lo.data_ptr(), counts.data_ptr(), nq, stream,
+        _lib().range_count_launch(
+            keys.data_ptr(), nk, bits, start.data_ptr(), records.data_ptr(), q.data_ptr(),
+            qvalid.data_ptr(), lo.data_ptr(), counts.data_ptr(), nq,
+            _build.stream(dev),
         ),
         "intersect",
     )
