@@ -54,7 +54,9 @@ Phases (any failure exits non-zero and prints no result line):
             (the triangle count, the triangle rows, the 4-clique count) on
             the WCOJ multiway-intersect path, and a triangle count on a
             small seeded graph with self-loops and parallel edges, whose
-            uniqueness pairs the operator enforces itself, and Q9-Q12 on
+            uniqueness pairs the operator enforces itself (under
+            ``TPU_CYPHER_WCOJ=force``; Q6-Q8 run under ``auto``, whose
+            blowup estimate routes SF1 and SF10 to WCOJ), and Q9-Q12 on
             the classic filter and equi-join path (a property-property
             WHERE, IS3 ordered by friendId, a value join and an
             OPTIONAL MATCH with WHERE; ``join_probe`` on the last two), and
@@ -78,7 +80,14 @@ Phases (any failure exits non-zero and prints no result line):
             persons with the KNOWS into half of them; on the loopy graph
             the triangle and the 2-cycle under ``off``, their pairs
             enforced inside the close count, the undirected close, and
-            OPTIONAL rows forward and backward), each cold and five times
+            OPTIONAL rows forward and backward), and Q27-Q30 at SF10 on
+            the expression compiler (a CASE band grouped with a modulo
+            sum; STARTS WITH and toInteger(substring(...)) in a WHERE, on
+            the vocab route; an OPTIONAL MATCH counted by its elements,
+            count(a), count(b) and count(DISTINCT b); type(r) grouped with
+            a CASE sum and max(abs(...))) with each run's expression spans,
+            rand() over SF10's persons (and the float % on the card against
+            IEEE fmod at its edge values), each cold and five times
             warm with its peak device memory. The walk counts' truth
             honours relationship uniqueness: by rule (the homomorphic
             count less the walks that reuse an edge), each rule held to a
@@ -97,7 +106,10 @@ Phases (any failure exits non-zero and prints no result line):
             plain version called in the gate's place, and the triangle
             count on the WCOJ tier (``force``) against the binary plan
             (``off``: ``CsrExpandIntoOp``'s fused close count, Q23) on four
-            graphs up to SF10, ABBA-interleaved, every answer checked; and
+            graphs up to SF10, ABBA-interleaved, every answer checked, and
+            under ``auto`` on the 100-node graph (the binary plan: its
+            blowup estimate lies under ``TPU_CYPHER_WCOJ_MIN_ROWS``) and
+            SF10 (WCOJ); and
             the ``segment_agg`` gate's ``min`` at Q14's group ids (about
             100,000 groups: the ``fallback`` tier).
 
@@ -244,6 +256,38 @@ Q26 = (
 LOOPY_2CYCLE = "MATCH (a:Person)-[:KNOWS]->(b:Person)-[:KNOWS]->(a) RETURN count(*) AS c"
 LOOPY_OPT_FWD = "MATCH (a:Person) OPTIONAL MATCH (a)-[:KNOWS]->(b) RETURN a.id AS a, b.id AS b"
 LOOPY_OPT_BWD = "MATCH (b:Person) OPTIONAL MATCH (a)-[:KNOWS]->(b) RETURN b.id AS b, a.id AS a"
+
+# the expression compiler and elements as values: a CASE band grouped with
+# a modulo sum, string predicates and a function chain in a WHERE, an
+# OPTIONAL MATCH counted by its elements, and type(r) grouped with a CASE
+# sum and max(abs(...)); firstnames are "p" + the person's index, ids 7k + 1
+Q27 = (
+    "MATCH (a:Person)-[:KNOWS]->(b:Person) RETURN CASE "
+    "WHEN b.birthday - a.birthday > 3650 THEN 'older' "
+    "WHEN a.birthday - b.birthday > 3650 THEN 'younger' ELSE 'peer' END AS band, "
+    "count(*) AS n, sum(b.birthday % 365) AS s ORDER BY band"
+)
+Q28 = (
+    "MATCH (a:Person)-[:KNOWS]->(b:Person) WHERE b.firstname STARTS WITH 'p1' "
+    "AND toInteger(substring(a.firstname, 1)) % 10 = 3 RETURN count(*) AS n"
+)
+Q29 = (
+    "MATCH (a:Person) WHERE a.birthday < 2000 "
+    "OPTIONAL MATCH (a)-[:KNOWS]->(b:Person) WHERE b.birthday >= 17000 "
+    "RETURN count(a) AS na, count(b) AS nb, count(DISTINCT b) AS db"
+)
+Q30 = (
+    "MATCH (a:Person)-[r:KNOWS]->(b:Person) WHERE a.id % 1000 = 1 "
+    "RETURN type(r) AS t, count(*) AS n, "
+    "sum(CASE WHEN b.birthday > a.birthday THEN 1 ELSE 0 END) AS younger, "
+    "max(abs(b.birthday - a.birthday)) AS gap"
+)
+EXPR_KERNELS = {
+    "Q27": ("expand_rows", "segment_agg"),
+    "Q28": ("expand_rows",),
+    "Q29": ("expand_rows", "join_probe", "segment_agg"),
+    "Q30": ("expand_rows", "segment_agg"),
+}
 
 
 class SmokeFailure(Exception):
@@ -1753,8 +1797,8 @@ def run_query(torch, pg, query, kernels, plan_op="CsrExpandOp", wcoj_tiers=(),
     the plan, every kernel of ``kernels`` launched and no kernel off its
     ``kernel`` tier, and each WCOJ tier of ``wcoj_tiers`` hit once. Returns
     (records rows of the last run, seconds list, per-kernel kernel-tier
-    launches, materialized lanes of the last run, the cold run's
-    result)."""
+    launches, materialized lanes of the last run, every run's result, the
+    cold run's first)."""
     from tpu_cypher_torch.backend.cuda import bucketing
     from tpu_cypher_torch.backend.cuda import wcoj as W
     from tpu_cypher_torch.backend.cuda.hopper import dispatch
@@ -1797,7 +1841,7 @@ def run_query(torch, pg, query, kernels, plan_op="CsrExpandOp", wcoj_tiers=(),
         lanes = int(bucketing._ROWS_TRUE.value() - rows0)
         out_rows = rows
         results.append(result)
-    return out_rows, secs, launches, lanes, results[0]
+    return out_rows, secs, launches, lanes, results
 
 
 @contextlib.contextmanager
@@ -2334,6 +2378,93 @@ def run_close_queries(torch, run, cold, g1, g10, g10h, gl, truth, loopy_tri):
           f"OPTIONAL rows forward and backward; all by brute force")
 
 
+def expr_truth(ids, bday, s, d):
+    """numpy truth of Q27-Q30 at SF10 from the generator's arrays (node
+    indices ``s``, ``d`` of each KNOWS edge; person i's firstname is
+    "p" + str(i))."""
+    import numpy as np
+
+    diff = bday[d] - bday[s]
+    band = np.where(diff > 3650, 0, np.where(-diff > 3650, 2, 1))
+    q27 = [{"band": name, "n": int((band == k).sum()), "s": int((bday[d][band == k] % 365).sum())}
+           for k, name in enumerate(("older", "peer", "younger")) if (band == k).any()]
+    starts = np.array([str(i).startswith("1") for i in range(len(ids))])
+    q28 = int((starts[d] & (s % 10 == 3)).sum())
+    young = bday < 2000
+    hit = young[s] & (bday[d] >= 17_000)
+    matched = np.bincount(s[hit], minlength=len(ids))
+    q29 = {"na": int(hit.sum() + (young & (matched == 0)).sum()), "nb": int(hit.sum()),
+           "db": int(len(np.unique(d[hit])))}
+    sel = ids[s] % 1000 == 1
+    q30 = [{"t": "KNOWS", "n": int(sel.sum()), "younger": int((bday[d] > bday[s])[sel].sum()),
+            "gap": int(np.abs(diff[sel]).max())}] if sel.any() else []
+    return {"Q27": q27, "Q28": [{"n": q28}], "Q29": [q29], "Q30": q30}
+
+
+def expression_seconds(result):
+    """Self seconds of the spans that evaluate expressions in one run:
+    FilterOp (WHERE), AddOp (projected expressions) and AggregateOp (the
+    aggregates' inputs, with the grouping), host wall time."""
+    out = {}
+    for sp in result.profile().trace.spans():
+        if sp.name in ("FilterOp", "AddOp", "AggregateOp"):
+            out[sp.name] = out.get(sp.name, 0.0) + sp.self_seconds
+    return out
+
+
+def run_expression_queries(torch, run, last, g10, truth):
+    """Phase 4's expression queries, Q27-Q30 at SF10: each cold, then five
+    warm runs, with its warm median and the expression spans' share of the
+    last run, checked against ``expr_truth``; then ``rand()`` over SF10's
+    persons, every value in [0, 1), and the compiler's float ``%`` on the
+    card against numpy's fmod at its edge values, bit for bit."""
+    import numpy as np
+
+    specs = (
+        ("Q27", "OrderByOp"), ("Q28", "FilterOp"), ("Q29", "JoinOp(left_outer"),
+        ("Q30", "AggregateOp"),
+    )
+    for name, plan_op in specs:
+        label = f"{name} (SF10)"
+        rows, secs, _ = run(label, g10, globals()[name], EXPR_KERNELS[name],
+                            plan_op=plan_op, warm=5)
+        rows = [dict(r) for r in rows]
+        check(rows == truth[name], f"{name} {rows[:3]} != {truth[name][:3]}")
+        res = last[label]
+        spans = expression_seconds(res)
+        total = res.profile().phase_seconds()["execute"]
+        share = sum(spans.values()) / total if total else 0.0
+        print(f"    {label} warm median {statistics.median(secs[1:]) * 1e3:.3f} ms over "
+              f"{len(secs) - 1} runs (s: {[round(x, 6) for x in secs[1:]]}); last run's "
+              f"expression spans (self s) {({k: round(v, 6) for k, v in spans.items()})}, "
+              f"{share:.3f} of its execute phase {total:.6f} s")
+        print(f"    {name} = {rows if len(rows) < 4 else len(rows)}, equal to numpy")
+    rows, _, _ = run("rand (SF10)", g10, "MATCH (a:Person) RETURN rand() AS r", (),
+                     plan_op="AddOp")
+    r = np.array([x["r"] for x in rows])
+    check(len(r) == 100_000 and bool(((r >= 0) & (r < 1)).all())
+          and len(np.unique(r)) > 99_000, "rand() out of [0, 1) or repeated")
+    print(f"    rand over {len(r)} rows: min {r.min()}, max {r.max()}, "
+          f"{len(np.unique(r))} distinct")
+    from tpu_cypher_torch.backend.cuda.column import Column
+    from tpu_cypher_torch.backend.cuda.compiler import CudaEvaluator
+    from tpu_cypher_torch.backend.cuda.table import CudaTable
+    from tpu_cypher_torch.ir import expr as E
+    from tpu_cypher_torch.relational.header import RecordHeader
+
+    a = np.array([5.5, -0.0, -5.5, 1e308, 3.0, 7.0, 0.1, np.inf, 5.0, 2.0**60 + 1, 1e300])
+    b = np.array([np.inf, 3.0, np.inf, 1e-308, -0.0, 0.1, 0.03, 2.0, np.nan, 3.0, 3.7])
+    pa, pb = (E.Property(E.Var("n"), k) for k in "ab")
+    table = CudaTable({k: Column("f64", torch.from_numpy(v).to(backend_device()), None)
+                       for k, v in (("a", a), ("b", b))}, len(a))
+    got = CudaEvaluator(table, RecordHeader({pa: "a", pb: "b"}), {}).eval(
+        E.Modulo(pa, pb)).data.cpu().numpy()
+    want = np.fmod(a, b)  # IEEE fmod, exact; the local oracle's math.fmod
+    same = (got.view(np.int64) == want.view(np.int64)) | (np.isnan(got) & np.isnan(want))
+    check(bool(same.all()), f"float % on the card {got.tolist()} != fmod {want.tolist()}")
+    print("    float % at its edge values on the card: IEEE fmod's, bit for bit")
+
+
 def run_shaping_queries(torch, run, slice_launches, g1, g10, truth):
     """Phase 4's row shaping and grouping queries, Q13-Q16: each cold, then
     five warm runs, with its warm median and peak device memory, checked
@@ -2609,8 +2740,12 @@ def main() -> int:
     slice_launches = {}
     cold = {}
 
+    last = {}
+
     def run(label, pg, q, kernels, **kw):
-        rows, secs, launches, lanes, first = run_query(torch, pg, q, kernels, **kw)
+        rows, secs, launches, lanes, results = run_query(torch, pg, q, kernels, **kw)
+        first = results[0]
+        last[label] = results[-1]
         for k, v in launches.items():
             slice_launches[k] = slice_launches.get(k, 0) + v
         phases = {k: round(v, 4) for k, v in first.profile().phase_seconds().items()}
@@ -2680,8 +2815,9 @@ def main() -> int:
     check(lanes == want_lanes, f"Q8 expanded {lanes} lanes, expected {want_lanes}")
     print(f"    Q8 = {rows[0]['cliques']}; the count tier expanded "
           f"{tri1['clique_min_lanes']} lanes over {tri1['triangles']} triangle rows")
-    rows, _, _ = run("loopy triangles", gl, Q6, wcoj, plan_op=mwi,
-                     wcoj_tiers=("materialize",))
+    with wcoj_mode("force"):  # the operator's own pair enforcement
+        rows, _, _ = run("loopy triangles", gl, Q6, wcoj, plan_op=mwi,
+                         wcoj_tiers=("materialize",))
     check([dict(r) for r in rows] == [{"triangles": loopy_truth}],
           f"loopy {rows} != brute force {loopy_truth}")
     check("uniq" in cold["loopy triangles"].plans, "loopy plan enforces no pair")
@@ -2727,6 +2863,8 @@ def main() -> int:
     run_walk_queries(torch, run, cold, slice_launches, g1, g10, gl, walks, report)
     # the closing ExpandInto and the fused OPTIONAL expand
     run_close_queries(torch, run, cold, g1, g10, half_graph(), gl, closes, loopy_truth)
+    # the expression compiler and elements as values
+    run_expression_queries(torch, run, last, g10, expr_truth(ids10, bday10, s10, d10))
     counts = dispatch.use_counts()
     for name, c in counts.items():
         check(c["fallback"] == 0 and c["plain"] == 0, f"{name} fallbacks: {c}")
@@ -2768,6 +2906,15 @@ def main() -> int:
               f"{out_max}, max in-degree {in_max}, {want} triangles")
         print_times(name, warm_times(
             torch, pg, Q6, plans, lambda rows: rows == [{"triangles": want}]))
+        if name in ("loopy 100 nodes", "SNB SF10"):
+            # auto routes as the reference does: the binary plan under
+            # TPU_CYPHER_WCOJ_MIN_ROWS, WCOJ above it
+            plan = "CsrExpandIntoOp" if name == "loopy 100 nodes" else "MultiwayIntersectOp"
+            res = pg.cypher(Q6)
+            check([dict(r) for r in res.records.collect()] == [{"triangles": want}]
+                  and plan in res.plans and ("MultiwayIntersectOp" in res.plans) ==
+                  (plan == "MultiwayIntersectOp"), f"auto on {name} did not plan {plan}")
+            print(f"    {name} auto: plans {plan}, {want} triangles")
 
     time_q14_fallback(torch, g10, truth["Q14"], report)
 

@@ -16,12 +16,12 @@
   uniqueness cases of ``tests/test_rel_uniqueness.py`` across the
   reference's ``CypherSession.tpu()``, its ``local()`` oracle and the
   port, bag-identical, with the plan operator that must answer them and
-  ``expand_rows`` on its CPU (``plain``) tier. Left out: the two
-  ``QUERIES`` that return element values ordered by ``id()``, which the
-  port's compiler cannot evaluate yet (here a property takes their place),
-  and the ``VARLEN_CASES`` that read a relationship list (two var-lengths
-  of one MATCH, a fixed rel before a var-length, ``size(rs)``), which only
-  the classic cascade builds (ROADMAP.md queue 1, item 6).
+  ``expand_rows`` on its CPU (``plain``) tier; the two ``QUERIES`` that
+  return element values ordered by ``id()`` run beside their forms that
+  return a property. Left out: the ``VARLEN_CASES`` that read a
+  relationship list (two var-lengths of one MATCH, a fixed rel before a
+  var-length, ``size(rs)``), which only the classic cascade builds
+  (ROADMAP.md queue 1, item 6.3).
 * ``bench.py``'s ``TWO_HOP_DISTINCT`` and ``VAR_LENGTH`` and the other
   walk queries of ``chip_smoke.py`` at ``generate_snb(0.02)``, and the
   walk truths ``chip_smoke.py`` holds the card to, against the engines
@@ -55,6 +55,7 @@ from tpu_cypher_torch.backend.cuda.hopper import dispatch as PD
 from tpu_cypher_torch.backend.cuda.table import CudaTable
 from tpu_cypher_torch.io.ldbc import generate_snb as port_generate_snb
 from tpu_cypher_torch.relational.session import PropertyGraph
+from tpu_cypher_torch.utils import config as PCFG
 
 torch.set_num_threads(1)
 
@@ -336,8 +337,17 @@ def test_graph_index_walk_arrays_match_reference(loopy):
 # ---------------------------------------------------------------------------
 
 
+def _value(v):
+    """An element as its kind, id and printed form: the two packages'
+    element classes never compare equal to each other."""
+    if type(v).__name__ in ("Node", "Relationship"):
+        return (type(v).__name__, v.id, repr(v))
+    return v
+
+
 def _bag(result):
-    return Counter(tuple(sorted(dict(r).items())) for r in result.records.collect())
+    return Counter(tuple(sorted((c, _value(v)) for c, v in dict(r).items()))
+                   for r in result.records.collect())
 
 
 def _three(port, ref, local, query, params=None):
@@ -386,6 +396,7 @@ VAR_QUERIES = [
     "MATCH (a)-[:K*1..3]-(b) RETURN count(*) AS c",
     "MATCH (a:N)-[:K*1..2]-(b:M) RETURN count(*) AS c",
     "MATCH (a)-[:K*2..3]-(b) RETURN a.v AS a, b.v AS b",
+    "MATCH (a)-[:K*2..3]-(b) RETURN a, b ORDER BY id(a), id(b) LIMIT 5",
     # zero-length lower bounds (the identity frontier)
     "MATCH (a)-[:K*0..2]->(b) RETURN count(*) AS c",
     "MATCH (a:N)-[:K*0..1]-(b:N) RETURN count(*) AS c",
@@ -393,6 +404,7 @@ VAR_QUERIES = [
     # target-labelled plans
     "MATCH (a)-[:K*1..2]->(b:M) RETURN count(*) AS c",
     "MATCH (a)-[:K*1..2]->(b:M) RETURN a.v AS a, b.v AS b",
+    "MATCH (a)-[:K*1..2]->(b:M) RETURN a, b ORDER BY id(a), id(b) LIMIT 4",
     "MATCH (a)-[:K*0..2]->(b:M) RETURN count(*) AS c",
 ]
 
@@ -519,7 +531,14 @@ UNIQ_CASES = [
 
 @pytest.mark.parametrize("create,query,expected,top", UNIQ_CASES)
 def test_uniqueness_across_engines(create, query, expected, top):
-    result, got = _three(*_creates(create), query)
+    """A WCOJ case pins ``force``: under ``auto`` these tiny graphs keep the
+    binary plan, as the reference's do."""
+    if top == "MultiwayIntersectOp":
+        PCFG.WCOJ_MODE.set("force")
+    try:
+        result, got = _three(*_creates(create), query)
+    finally:
+        PCFG.WCOJ_MODE.reset()
     assert got == Counter({(("c", expected),): 1})
     assert _fused_at_top(result.plans, top), result.plans
 
@@ -590,7 +609,7 @@ def test_rel_list_value_raises_naming_roadmap_item():
     from tpu_cypher_torch.backend.cuda.graph_index import GraphIndexError
 
     port = CypherSession.cuda(device="cpu").create_graph_from_create_query(TWO_CYCLE)
-    with pytest.raises(GraphIndexError, match=r"ROADMAP.md queue 1, item 6"):
+    with pytest.raises(GraphIndexError, match=r"ROADMAP.md queue 1, item 6\.3"):
         port.cypher("MATCH (x)-[r:K]->(y), (c)-[rs:K*1..2]->(d) "
                     "RETURN count(*) AS c, min(size(rs)) AS m").records.collect()
 
@@ -736,8 +755,6 @@ def test_bucketed_walks_match_exact():
     """On the bucket lattice the walks' pad lanes stay dead: every answer
     equals the exact-size one (the materializing pair masks, the closing
     probe and the optional expand included)."""
-    from tpu_cypher_torch.utils import config as PCFG
-
     create = _create(1, 14, 30)
 
     def answers():

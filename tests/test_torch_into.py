@@ -13,12 +13,12 @@ JAX package, on the CPU.
 * The queries of ``tests/test_into_close_count.py`` and the optional test
   of ``tests/test_kernels.py`` across the reference's
   ``CypherSession.tpu()``, its ``local()`` oracle and the port,
-  bag-identical, with the operator each plan must show. The port's
-  ``auto`` sends every structural fit of a directed close to WCOJ, so the
-  closes run under ``TPU_CYPHER_WCOJ=off`` there (the reference's
-  ``auto`` keeps these small graphs on its binary plan). ``count(y)`` of an
-  element needs the compiler (ROADMAP.md queue 1, item 6): its
-  counterpart counts ``y.i``.
+  bag-identical, with the operator each plan must show. The closes run
+  under ``TPU_CYPHER_WCOJ=off``, the binary plan, which both engines'
+  ``auto`` picks on these small graphs too. The reference's
+  own forms (``count(y)``, ``count(DISTINCT a)``, ``r.w`` of a type the
+  schema lacks, ``id(r1)``) run beside the forms that count or return a
+  property in their place.
 * The empty cases (a graph with no node, a type set with no edge, a
   frontier with no row), which return before a gate call, and a device
   fault inside the close count, which reaches the caller typed.
@@ -408,14 +408,14 @@ def test_close_count_uses_fused_program(monkeypatch, seed, loopy):
         assert "uniq" not in result.plans
 
 
-def test_close_count_materializes_when_columns_needed(monkeypatch):
+@pytest.mark.parametrize("counted", ["a.v", "a"])
+def test_close_count_materializes_when_columns_needed(monkeypatch, counted):
     """A close whose columns are read takes the materialize path (both
-    endpoints probed on the intersect gate). ``count(DISTINCT a)`` of an
-    element needs the compiler (ROADMAP.md queue 1, item 6): this counts
-    ``a.v``."""
+    endpoints probed on the intersect gate): ``count(DISTINCT a)`` of the
+    reference's test, and of a property."""
     calls = {}
     _spy(monkeypatch, "into_probe", calls)
-    q = "MATCH (a:N)-[:K]->(b)-[:K]->(c)-[:K]->(a) RETURN count(DISTINCT a.v) AS t"
+    q = f"MATCH (a:N)-[:K]->(b)-[:K]->(c)-[:K]->(a) RETURN count(DISTINCT {counted}) AS t"
     result, _ = _three(_engines(_random_create(9, 25, 120)), q)
     assert "CsrExpandIntoOp" in result.plans
     assert calls["into_probe"] >= 1
@@ -442,14 +442,18 @@ def test_loopy_close_rows(query):
 
 def test_plans_show_expand_into():
     """``tests/test_tpu_backend.py``'s plan check: the triangle under ``off``
-    and the undirected close both plan ``CsrExpandIntoOp``; under ``auto``
-    the directed triangle goes to WCOJ."""
+    and under ``auto`` (this small graph's blowup estimate lies under the
+    WCOJ threshold) and the undirected close all plan ``CsrExpandIntoOp``;
+    under ``force`` the directed triangle goes to WCOJ."""
     port = CypherSession.cuda(device="cpu").create_graph_from_create_query(
         _random_create(7, 10, 30))
-    PCFG.WCOJ_MODE.set("off")
-    assert "CsrExpandIntoOp" in port.cypher(TRIANGLE).plans
-    PCFG.WCOJ_MODE.set("auto")
+    for mode in ("off", "auto"):
+        PCFG.WCOJ_MODE.set(mode)
+        plans = port.cypher(TRIANGLE).plans
+        assert "CsrExpandIntoOp" in plans and "MultiwayIntersectOp" not in plans
+    PCFG.WCOJ_MODE.set("force")
     assert "MultiwayIntersectOp" in port.cypher(TRIANGLE).plans
+    PCFG.WCOJ_MODE.set("auto")
     plans = port.cypher(UNDIRECTED).plans
     assert "CsrExpandIntoOp" in plans and "MultiwayIntersectOp" not in plans
 
@@ -470,19 +474,26 @@ def optional_graph():
     return _engines(_optional_create())
 
 
-# tests/test_kernels.py's optional test, count(y) as count(y.i)
+# tests/test_kernels.py's optional test, and each count(y) as count(y.i)
 OPTIONAL_FUSED = [
+    "MATCH (x:V) OPTIONAL MATCH (x)-[r:E]->(y) "
+    "RETURN count(*) AS rows, count(y) AS m, sum(r.w) AS s",
+    "MATCH (x:V) OPTIONAL MATCH (x)-[:E]->(y) RETURN x.i, count(y) AS c ORDER BY x.i",
+    "MATCH (x:V) OPTIONAL MATCH (x)-[r:NOPE]->(y) RETURN x.i, r.w, y.i ORDER BY x.i",
     "MATCH (x:V) OPTIONAL MATCH (x)-[r:E]->(y) RETURN x.i, y.i, r.w ORDER BY x.i, y.i, r.w",
     "MATCH (x:V) OPTIONAL MATCH (x)-[r:E]->(y) "
     "RETURN count(*) AS rows, count(y.i) AS m, sum(r.w) AS s",
     "MATCH (x:V) OPTIONAL MATCH (x)-[:E]->(y) RETURN x.i, count(y.i) AS c ORDER BY x.i",
     # backward: the bound var is the edge's target
     "MATCH (x:V) OPTIONAL MATCH (y)-[r:E]->(x) RETURN x.i, y.i, r.w ORDER BY x.i, y.i, r.w",
-    # no relationship of the requested type: every row null-padded (``r.w``
-    # of a type the schema lacks needs the compiler, item 6: left out)
+    # no relationship of the requested type: every row null-padded
     "MATCH (x:V) OPTIONAL MATCH (x)-[r:NOPE]->(y) RETURN x.i, y.i ORDER BY x.i",
 ]
 OPTIONAL_CLASSIC = [
+    "MATCH (x:V) WHERE x.i > 20 OPTIONAL MATCH (x)-[:E]->(y) RETURN x.i, count(y) AS c "
+    "ORDER BY x.i",
+    "MATCH (x:V) OPTIONAL MATCH (x)-[r:E]->(y) WHERE y.i > 10 RETURN count(y) AS c",
+    "MATCH (x:V) OPTIONAL MATCH (x)-[:E]-(y) RETURN count(y) AS c",
     # WHERE on the base match and inside OPTIONAL, an undirected pattern
     # and far labels keep the classic outer join
     "MATCH (x:V) WHERE x.i > 20 OPTIONAL MATCH (x)-[:E]->(y) RETURN x.i, count(y.i) AS c "
@@ -695,12 +706,17 @@ def test_undirected_close_pairs(monkeypatch, loopy):
         assert PD.use_counts()["intersect"]["plain"] == 2
 
 
-def test_uniqueness_expand_into_materializing():
+@pytest.mark.parametrize("ret", ["x.v AS x, y.v AS y", "id(r1) AS x, id(r2) AS y"])
+def test_uniqueness_expand_into_materializing(ret):
     """``tests/test_rel_uniqueness.py``'s ExpandInto materializing path
-    with an enforced close pair; ``id(r)`` as a value needs the compiler
-    (ROADMAP.md queue 1, item 6), so the rows read node properties."""
+    with an enforced close pair: its own rows, the two relationships' ids,
+    and the endpoints' properties."""
     create = "CREATE (a:N {v: 1})-[:K]->(b:N {v: 2}), (a)-[:K]->(b)"
-    q = "MATCH (x)-[r1:K]->(y), (x)-[r2:K]->(y) RETURN x.v AS x, y.v AS y"
+    q = f"MATCH (x)-[r1:K]->(y), (x)-[r2:K]->(y) RETURN {ret} ORDER BY x, y"
     result, got = _three(_engines(create), q)
-    assert got == Counter({(("x", 1), ("y", 2)): 2})
+    assert sum(got.values()) == 2
+    if ret.startswith("x.v"):
+        assert got == Counter({(("x", 1), ("y", 2)): 2})
+    else:
+        assert all(dict(row)["x"] != dict(row)["y"] for row in got)
     assert "CsrExpandIntoOp(" in result.plans and "uniq(r1<>r2)" in result.plans

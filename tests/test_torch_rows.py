@@ -561,9 +561,12 @@ BACKEND_QUERIES = [
     "MATCH (a:Person) RETURN a.name AS name ORDER BY name SKIP 1",
     "MATCH (a:Person) RETURN a.score ORDER BY a.score",
     "MATCH (a:Person) RETURN a.age AS age, count(*) AS c ORDER BY age",
-    # test_tpu_backend.py counts the element variables a, x and p here; an
-    # element as a value is compiler work (ROADMAP.md queue 1, item 6), so
-    # these count a property or count(*) under the same grouping
+    # test_tpu_backend.py's own forms, counting the element variables a, x
+    # and p, then the same groupings counting a property or count(*)
+    "MATCH (a:Person)-[:KNOWS]->(b) WITH b, count(a) AS fans WHERE fans > 1 RETURN b.name, fans",
+    "MATCH (a:Person) OPTIONAL MATCH (a)-[:READS]->(x) RETURN a.name, count(x) AS reads",
+    "MATCH (b:Book) OPTIONAL MATCH (p:Person) RETURN b.title, count(p) AS n",
+    "MATCH (a:Person) OPTIONAL MATCH (x:Nope) WITH DISTINCT a RETURN count(a) AS n",
     "MATCH (a:Person)-[:KNOWS]->(b) WITH b.name AS name, count(*) AS fans "
     "WHERE fans > 1 RETURN name, fans",
     "MATCH (a:Person) OPTIONAL MATCH (a)-[:READS]->(x) RETURN a.name, count(x.title) AS reads",
@@ -586,8 +589,9 @@ BACKEND_QUERIES = [
     "MATCH (a:Person)-[:KNOWS]->(b) RETURN sum(DISTINCT b.age) AS s, avg(DISTINCT b.age) AS m",
     "MATCH (a:Person)-[:KNOWS]->(b) RETURN a.name, collect(DISTINCT b.name) AS ns ORDER BY a.name",
     "MATCH (a:Person) RETURN min(DISTINCT a.name) AS lo, max(DISTINCT a.age) AS hi",
-    # test_tpu_backend.py reads x.v of an absent label (item 6): the same
-    # aggregates over no rows, and grouping keys over no rows
+    # test_tpu_backend.py's x.v of an absent label, then the same aggregates
+    # over no rows, and grouping keys over no rows
+    "MATCH (x:Nope) RETURN stDev(x.v) AS sd, percentileCont(x.v, 0.5) AS p, collect(x.v) AS c",
     "MATCH (a:Person) WHERE a.age > 99 "
     "RETURN stDev(a.age) AS sd, percentileCont(a.age, 0.5) AS p, collect(a.age) AS c",
     "MATCH (a:Person) WHERE a.age > 99 RETURN a.name AS n, count(*) AS c",

@@ -327,19 +327,23 @@ def test_declined_off_mode(snb):
     _check_binary_answer(port.cypher(TRIANGLE), ref.cypher(TRIANGLE), want)
 
 
-def test_auto_under_threshold_routes_like_force(loopy):
-    """The loopy graph's binary blowup (150 edges x its max degree) is far
-    under ``TPU_CYPHER_WCOJ_MIN_ROWS``, where the reference's ``auto``
-    keeps its binary plan. The port's ``auto`` routes it to WCOJ as
-    ``force`` does (a rule set when the WCOJ count beat the join cascade
-    on the H100 at every size measured), and answers as the reference's
-    binary plan does."""
+@pytest.mark.parametrize("min_rows,plan", [
+    (1 << 40, "CsrExpandIntoOp"), (1, "MultiwayIntersectOp"),
+])
+def test_auto_routes_by_blowup_estimate(loopy, min_rows, plan):
+    """``auto`` routes as the reference does: the loopy graph's binary
+    blowup (its edges x its max degree) under ``TPU_CYPHER_WCOJ_MIN_ROWS``
+    keeps the binary plan, ``CsrExpandIntoOp``'s fused close count; over
+    it the triangle goes to WCOJ. Either plan answers as the reference
+    does."""
     ref, _, port, arrays = loopy
     for cfg in (PCFG, RCFG):
         cfg.WCOJ_MODE.set("auto")
-        cfg.WCOJ_MIN_ROWS.set(1 << 40)
+        cfg.WCOJ_MIN_ROWS.set(min_rows)
     result = port.cypher(TRIANGLE)
-    assert "MultiwayIntersectOp" in result.plans
+    assert plan in result.plans
+    if plan == "CsrExpandIntoOp":
+        assert "MultiwayIntersectOp" not in result.plans
     want = Counter({(("triangles", sum(_loopy_brute_force(*arrays).values())),): 1})
     assert _bag(result.records) == _bag(ref.cypher(TRIANGLE).records) == want
 

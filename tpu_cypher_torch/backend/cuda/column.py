@@ -10,9 +10,9 @@ strings. Ids are int64 with the graph tag in bits 54 and up
 
 This slice carries the kinds the CSR expand path needs on device — I64,
 F64, BOOL, STR — and keeps every other value (temporal values, durations,
-lists, elements) as a host-exact OBJ column, whose expressions evaluate as
-host islands (``compiler.py``). Device temporal kinds come with a later
-slice (ROADMAP.md queue 1)."""
+lists, elements) as a host-exact OBJ column, over which the compiler
+raises ``TpuUnsupportedExpr`` (``compiler.py``). Device temporal kinds
+come with ROADMAP.md queue 1, item 7, and list values with item 6.3."""
 
 from __future__ import annotations
 

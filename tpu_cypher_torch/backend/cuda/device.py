@@ -11,11 +11,12 @@ Process-global, like the graph ingest it decides the placement of."""
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
 import torch
 
 _DEVICE: Optional[torch.device] = None
+_GENERATORS: Dict[torch.device, torch.Generator] = {}
 
 
 class DeviceUnavailable(RuntimeError):
@@ -53,3 +54,15 @@ def get() -> torch.device:
     if _DEVICE is None:
         return use(None)
     return _DEVICE
+
+
+def generator(device: torch.device) -> torch.Generator:
+    """The generator ``rand()`` draws from on ``device``: one per device,
+    seeded once from the operating system's entropy, as Python's unseeded
+    ``random`` module is."""
+    g = _GENERATORS.get(device)
+    if g is None:
+        g = torch.Generator(device=device)
+        g.seed()
+        g = _GENERATORS.setdefault(device, g)
+    return g

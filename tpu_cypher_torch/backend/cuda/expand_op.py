@@ -44,7 +44,8 @@ what the operators do not answer (an empty graph), and an operator
 returns before a gate call that would be empty. Later slices port the
 cuBLAS counterparts of the MXU dense/tiled close counts and the native
 host tiers (ROADMAP.md queue 1, item 2.3). A var-length relationship list
-as a value needs the classic cascade, which needs the compiler (item 6):
+as a value needs the classic cascade, which needs the compiler's list
+values (ROADMAP.md queue 1, item 6.3):
 the operator raises there.
 """
 
@@ -339,7 +340,7 @@ class _FusedExpandBase(RelationalOperator):
     def _compute_table(self):
         # the reference answers from the classic child when the fused path
         # raises; the port never answers in the fused operator's place (a
-        # var-length child needs the compiler's list values, item 6), so
+        # var-length child needs the compiler's list values, item 6.3), so
         # the error reaches the caller
         return self._fused_table()
 
@@ -1105,7 +1106,7 @@ class CsrVarExpandOp(_FusedExpandBase):
     The fused path assembles input pass-through columns and target-node
     columns. A required relationship-list column raises: the reference
     answers it from the classic cascade, which the port cannot run yet
-    (ROADMAP.md queue 1, item 6)."""
+    (ROADMAP.md queue 1, item 6.3)."""
 
     def __init__(
         self,
@@ -1210,7 +1211,7 @@ class CsrVarExpandOp(_FusedExpandBase):
             if _owner_name(e) == self.rel_fld:
                 raise GraphIndexError(
                     "var-length rel list required: the classic cascade "
-                    "builds it (ROADMAP.md queue 1, item 6)"
+                    "builds it (ROADMAP.md queue 1, item 6.3)"
                 )
         count_only = not header.expressions
         gi = GraphIndex.of(self.graph)

@@ -103,6 +103,9 @@ class GraphIndex:
         self._csr_und: Dict[Tuple[str, ...], Tuple[Any, Any, Any]] = {}
         # types_key -> (sorted int64 rel ids, canonical scan row of each)
         self._rel_id_index: Dict[Tuple[str, ...], Tuple[Any, Any]] = {}
+        # (types_key, reverse) -> (max degree, edge count), host ints read off
+        # the host row_ptr at build
+        self._csr_deg: Dict[Tuple[Tuple[str, ...], bool], Tuple[int, int]] = {}
         # (types_key, reverse) -> sorted int64 edge keys
         self._edge_keys: Dict[Tuple[Tuple[str, ...], bool], Any] = {}
         # types_key -> int64 (src*N + dst) key of each canonical rel-scan row
@@ -279,6 +282,9 @@ class GraphIndex:
             to_device(order.astype(np.int64)),
         )
         self._csr[(types_key, reverse)] = out
+        self._csr_deg[(types_key, reverse)] = (
+            int(np.diff(row_ptr).max()) if n else 0, int(len(s))
+        )
         # this orientation is lexsorted by (a, b), so the a*N + b keys come
         # out sorted from the same order as col_idx/edge_orig: key position
         # i is CSR position i (the WCOJ materialize reads eo[lo + k]). The
@@ -292,6 +298,15 @@ class GraphIndex:
                 np.bincount(loops, minlength=n).astype(np.int64)
             )
         return out
+
+    def csr_degree_stats(
+        self, types_key: Tuple[str, ...], reverse: bool, ctx
+    ) -> Tuple[int, int]:
+        """(max degree, edge count) of one CSR orientation, host-cached at
+        build: no device read."""
+        if (types_key, reverse) not in self._csr_deg:
+            self.csr(types_key, reverse, ctx)
+        return self._csr_deg[(types_key, reverse)]
 
     def csr_undirected(self, types_key: Tuple[str, ...], ctx):
         """(row_ptr, col_idx, edge_orig) of the both-orientation graph of one

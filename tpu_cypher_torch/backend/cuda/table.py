@@ -49,7 +49,7 @@ from .column import (
 from .compiler import CudaEvaluator, TpuUnsupportedExpr
 
 # ROADMAP.md queue 1 items that port the SPI methods this slice leaves out
-_NEXT_SLICE = "queue 1, item 6 (explode, from_rows and the rest of compiler.py)"
+_NEXT_SLICE = "queue 1, item 6.3 (explode, from_rows and list values)"
 
 
 def _not_ported(method: str, item: str = _NEXT_SLICE):
@@ -654,7 +654,8 @@ class CudaTable(Table):
                 )
                 out_cols[out_col] = Column(I64, counts, None)
                 continue
-            col = ev.eval(agg.expr)
+            # count reads an element's identity, every other aggregate a value
+            col = ev.identity(agg.expr) if name == "count" else ev.eval(agg.expr)
             if col.kind == OBJ:
                 raise TpuUnsupportedExpr("object-valued aggregation input")
             seg_a, col_a = seg_j, col
@@ -682,10 +683,11 @@ class CudaTable(Table):
             if name == "collect":
                 out_cols[out_col] = Column(OBJ, _obj_array([]), None)
                 continue
-            kind = I64 if agg.expr is None else ev.eval(agg.expr).kind
-            if name == "count":
+            if name == "count" or agg.expr is None:
                 kind = I64
-            elif name in ("avg", "stdev", "stdevp", "percentilecont"):
+            else:
+                kind = ev.eval(agg.expr).kind
+            if name in ("avg", "stdev", "stdevp", "percentilecont"):
                 kind = F64
             out_cols[out_col] = _empty_column(kind)
         return CudaTable(out_cols, 0)

@@ -32,14 +32,11 @@ Differences by design from the reference (ROADMAP.md queue 3):
   (queue 1, ``factorized.py``);
 * a pure count is never handed back to a binary counting tier (the port
   has no native or MXU tier);
-* ``auto`` routes every structural fit, as ``force`` does: the
-  reference's blowup estimate (``_est_binary_blowup`` against
-  ``TPU_CYPHER_WCOJ_MIN_ROWS``) keeps the binary plan on small graphs.
-  The rule was set when the port's binary plan was the ``JoinOp``
-  cascade, which the WCOJ count beat at every size measured; against
-  the reference's binary plan, ``CsrExpandIntoOp``'s fused close count,
-  WCOJ loses up to SNB SF0.1 and wins at SF10 on the H100 (PERF.md), so
-  the rule is open (ROADMAP.md);
+* ``auto`` routes as the reference does: only where the binary plan's
+  blowup estimate (``_est_binary_blowup``: edges times the pivot
+  orientation's max degree) passes ``optimizer.cost.prefer_wcoj``, so
+  small graphs keep the binary plan, ``CsrExpandIntoOp``'s fused close
+  count. ``force`` routes every structural fit;
 * no bucket lattice: the lanes are sized exactly whatever
   ``TPU_CYPHER_BUCKET`` says (eager PyTorch compiles no program per
   shape for the lattice to save);
@@ -510,6 +507,15 @@ class MultiwayIntersectOp(_FusedExpandBase):
 # ---------------------------------------------------------------------------
 
 
+def _est_binary_blowup(gi: GraphIndex, ctx, types_key, rev: bool) -> int:
+    """Upper bound on the binary plan's intermediate when it closes a cycle
+    over the pivot: edges(pivot types) * max degree(pivot orientation),
+    since each frontier row can expand by up to the max degree before the
+    close filters. Both factors are host-cached on the graph index."""
+    max_deg, edges = gi.csr_degree_stats(types_key, rev, ctx)
+    return edges * max(max_deg, 1)
+
+
 def plan_multiway_intersect_fastpath(
     planner, op, in_plan, classic
 ) -> Optional[RelationalOperator]:
@@ -518,9 +524,10 @@ def plan_multiway_intersect_fastpath(
     The planner only calls this when its cycle detection fired; this hook
     adds the backend half of the rule: structural fit (a directed fused
     expand to peel as the pivot, or an existing multiway op to extend with
-    one more close). ``TPU_CYPHER_WCOJ=auto`` and ``force`` route every
-    structural fit, ``off`` disables routing. A declined shape keeps
-    ``classic``."""
+    one more close) plus, in ``auto`` mode, the blowup estimate against
+    the cost model's threshold: small graphs keep the binary plan.
+    ``TPU_CYPHER_WCOJ=force`` routes every structural fit, ``off``
+    disables routing. A declined shape keeps ``classic``."""
     from ...relational.ops import CacheOp
     from ...utils.config import WCOJ_MODE
 
@@ -580,6 +587,12 @@ def plan_multiway_intersect_fastpath(
         gi.node_ids(ctx)
         if gi.num_nodes == 0 or gi.num_nodes >= (1 << 30):
             return None
+        if mode == "auto":
+            from ...optimizer.cost import prefer_wcoj
+
+            est = _est_binary_blowup(gi, ctx, node.types_key, node.backwards)
+            if not prefer_wcoj(est, graph_obj, ctx):
+                return None
     except (GraphIndexError, TpuBackendError):
         return None
     pivot = PivotSpec(

@@ -216,10 +216,30 @@ class RelationalPlanner:
         pairs: List[Tuple[E.Expr, E.Expr]] = []
         for eq in op.predicates:
             assert isinstance(eq, E.Equals)
+            ids = self._element_ids(lhs, eq.lhs, rhs, eq.rhs)
+            if ids is not None:
+                pairs.append(ids)
+                continue
             lhs, le = self._ensure_column(lhs, eq.lhs)
             rhs, re_ = self._ensure_column(rhs, eq.rhs)
             pairs.append((le, re_))
         return JoinOp(lhs, rhs, pairs, "inner")
+
+    @staticmethod
+    def _element_ids(lhs, le: E.Expr, rhs, re_: E.Expr) -> Opt[Tuple[E.Expr, E.Expr]]:
+        """Two element variables of one kind join on their id columns: two
+        elements are equal when their ids are. None for any other pair."""
+        for kind in (T.CTNodeType, T.CTRelationshipType):
+            if all(
+                isinstance(e, E.Var) and isinstance(e.cypher_type.material, kind)
+                for e in (le, re_)
+            ):
+                try:
+                    ids = lhs.header.id_expr(le), rhs.header.id_expr(re_)
+                except KeyError:
+                    return None
+                return ids if all(isinstance(i, E.Id) for i in ids) else None
+        return None
 
     def _ensure_column(
         self, plan: RelationalOperator, expr: E.Expr
