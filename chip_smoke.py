@@ -47,7 +47,9 @@ Phases (any failure exits non-zero and prints no result line):
             and Q26's frontiers (every lane's row and match flag, every
             matched lane's edge) and times it, and times
             ``into_materialize_counted`` (torch ops) at Q24's first probe
-            half;
+            half; holds ``expand_rows`` to its plain version at Q31's
+            explode (the UNWIND of 100,000 collected lists, captured from
+            a run of Q31) and times it;
 4. slice  — runs the slices' queries through ``CypherSession.cuda()``
             on the LDBC-SNB-shaped graphs (SF1: 10,000 persons, SF10:
             100,000 persons, seed 42): Q1-Q5 on the CSR expand path, Q6-Q8
@@ -87,8 +89,16 @@ Phases (any failure exits non-zero and prints no result line):
             count(a), count(b) and count(DISTINCT b); type(r) grouped with
             a CASE sum and max(abs(...))) with each run's expression spans,
             rand() over SF10's persons (and the float % on the card against
-            IEEE fmod at its edge values), each cold and five times
-            warm with its peak device memory. The walk counts' truth
+            IEEE fmod at its edge values), and Q31-Q35 on lists, maps and
+            elements as values (collect then UNWIND over SF10's KNOWS, the
+            explode on ``expand_rows``; a comprehension and a quantifier
+            over the collected lists of the persons with 60 or more
+            friends; Q20's *1..2 at SF1 grouped by size(rs), and 1,000 of
+            its rows with each relationship list decoded and chained from
+            a to b; labels(p) grouped over SF10's nodes, keys, properties,
+            a map literal and split over 1,000 persons; collect(b) of
+            elements), each cold and five times warm with its peak
+            device memory. The walk counts' truth
             honours relationship uniqueness: by rule (the homomorphic
             count less the walks that reuse an edge), each rule held to a
             brute-force enumeration on 20 sources, or by the enumeration
@@ -282,6 +292,44 @@ Q30 = (
     "sum(CASE WHEN b.birthday > a.birthday THEN 1 ELSE 0 END) AS younger, "
     "max(abs(b.birthday - a.birthday)) AS gap"
 )
+# lists, maps and elements as values: collect then UNWIND (the explode on
+# the expand_rows gate), a comprehension and a quantifier over collected
+# lists, the var-length relationship list from the walk, labels, keys,
+# properties, a map literal and split, and collect of elements
+Q31 = (
+    "MATCH (a:Person)-[:KNOWS]->(b:Person) WITH a, collect(b.birthday) AS bs "
+    "UNWIND bs AS x RETURN count(*) AS n, sum(x % 365) AS s"
+)
+Q32 = (
+    "MATCH (a:Person)-[:KNOWS]->(b:Person) WITH a, collect(b.id) AS fs "
+    "WHERE size(fs) >= 60 RETURN count(*) AS n, "
+    "sum(size([x IN fs WHERE x % 2 = 0])) AS even, "
+    "count(CASE WHEN any(x IN fs WHERE x % 1000 = 1) THEN 1 END) AS hit"
+)
+Q33 = (WALK_WINDOW + "MATCH (a)-[rs:KNOWS*1..2]->(b:Person) "
+       "RETURN size(rs) AS hops, count(*) AS c ORDER BY hops")
+Q33_ROWS = (WALK_WINDOW + "MATCH (a)-[rs:KNOWS*1..2]->(b:Person) "
+            "RETURN a.id AS a, b.id AS b, rs LIMIT 1000")
+Q34 = "MATCH (p) RETURN labels(p) AS l, count(*) AS c"
+Q34_VALUES = (
+    "MATCH (a:Person) WHERE a.id % 100 = 1 RETURN a.id AS id, keys(a) AS k, "
+    "properties(a) AS p, {id: a.id, b: a.birthday % 7} AS m, "
+    "split(a.firstname + ' ' + toString(a.birthday % 10), ' ') AS s"
+)
+Q35 = (
+    "MATCH (a:Person)-[:KNOWS]->(b:Person) WHERE a.id % 1000 = 1 "
+    "RETURN a.id AS a, collect(b) AS fs"
+)
+# (query, plan operator, kernels each run launches)
+LIST_QUERIES = {
+    "Q31": (Q31, "UnwindOp", ("expand_rows", "segment_agg")),
+    "Q32": (Q32, "AggregateOp", ("expand_rows", "segment_agg")),
+    "Q33": (Q33, "CsrVarExpandOp", ("expand_rows",)),
+    "Q33 rows": (Q33_ROWS, "CsrVarExpandOp", ("expand_rows",)),
+    "Q34": (Q34, "AggregateOp", ()),
+    "Q34 values": (Q34_VALUES, "AddOp", ("expand_rows",)),
+    "Q35": (Q35, "AggregateOp", ("expand_rows",)),
+}
 EXPR_KERNELS = {
     "Q27": ("expand_rows", "segment_agg"),
     "Q28": ("expand_rows",),
@@ -1404,6 +1452,50 @@ def check_expand_rows_walks(torch, g10, q17_truth, q18_params, q18_truth, report
           f"of which torch.sort of its {q17_size} packed keys {sort_ms:.4f} ms")
 
 
+def check_explode(torch, g10, q31_truth, report):
+    """The explode's ``expand_rows`` launch at Q31 (UNWIND of the 100,000
+    lists ``collect`` built from SF10's KNOWS: the offsets as row pointers,
+    the valid rows as frontier, the lengths as degrees, without orig), held
+    to its plain version bit for bit and timed (mean of 20, CUDA events)
+    against its byte bound. The inputs are those of an extra Q31 run,
+    captured there; its last gate call is the explode's."""
+    from tpu_cypher_torch.backend.cuda import hopper
+    from tpu_cypher_torch.backend.cuda import jit_ops as J
+    from tpu_cypher_torch.backend.cuda.hopper import expand as KX
+
+    calls, rows = q_hooked_calls(g10, Q31, hopper, "expand_materialize_counted")
+    check(rows == [q31_truth], f"Q31 (hooked) {rows} != {q31_truth}")
+    args, kwargs = calls[-1]
+    size = kwargs["size"]
+    check(not kwargs["with_orig"] and size == q31_truth["n"],
+          f"Q31's last expand_rows call is not the explode's ({size} lanes)")
+    got = KX.expand_materialize_counted_cuda(*args, size, False)
+    want = J.expand_materialize_counted(*args, size, with_orig=False)
+    torch.cuda.synchronize()
+    e = tuple_err(torch, got, want)
+    del got, want
+    f = int(args[3].shape[0])
+    shape = f"F={f} lists, {size} lanes, without orig"
+    check(e == 0.0, f"expand_rows at Q31's explode ({shape}) disagrees with its plain version")
+    ms = time_ms(torch, lambda: KX.expand_materialize_counted_cuda(*args, size, False))
+    plain_ms = time_ms(torch, lambda: J.expand_materialize_counted(
+        *args, size, with_orig=False), iters=3, warmup=1)
+    cum, _ = KX.frontier_state(args[0], args[3], args[4])
+    lanes = torch.arange(size, dtype=torch.int32, device=cum.device)
+    lib_ms = time_ms(torch, lambda: torch.searchsorted(cum, lanes, right=True))
+    del cum, lanes
+    b_ms, b_by, ops_ms = expand_bound(torch, args[3], args[4], size, size, False,
+                                      KX.TILE_ITEMS)
+    er = report["expand_rows"]
+    er["max_abs_err"] = max(er["max_abs_err"], e)
+    er.update(q31_explode_ms=ms, q31_explode_plain_ms=plain_ms,
+              q31_explode_library_ms=lib_ms, q31_explode_bound_ms=b_ms,
+              q31_explode_bound_by=b_by, q31_explode_shape=shape)
+    print(f"  expand_rows tier at Q31's explode ({shape}): bit-identical, {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, torch.searchsorted {lib_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}; operations {ops_ms:.4f} ms)")
+
+
 def check_two_streams(torch, session, g10, rounds=30):
     """``segment_agg``, ``frontier_deg_sum`` and ``expand_rows``, whose
     launches keep tickets and partials in a scratch buffer, and
@@ -2166,8 +2258,9 @@ def walk_truth(ids1, s1, d1, ids10, s10, d10, idsl, srcl, dstl):
         t[name] = (window_params(ids10, start, w), sum(counts), w, counts)
     start1 = n1 // 2
     w = walk_window(sum(walk_estimates(s1, d1, n1, 2)), Q20_ROWS, start1)
-    _, keys = brute_walks(directed_steps(s1, d1), n1, np.arange(start1, start1 + w), 2,
-                          pairs=True)
+    counts, keys = brute_walks(directed_steps(s1, d1), n1, np.arange(start1, start1 + w), 2,
+                               pairs=True)
+    t["Q33"] = counts  # Q20's rows per walk length
     keys = np.concatenate(keys)
     t["Q20"] = (window_params(ids1, start1, w),
                 np.sort(ids1[keys // n1] * (1 << 32) + ids1[keys % n1]), w)
@@ -2465,6 +2558,92 @@ def run_expression_queries(torch, run, last, g10, truth):
     print("    float % at its edge values on the card: IEEE fmod's, bit for bit")
 
 
+def list_truth(ids, bday, s, d, q33_counts):
+    """numpy truth of Q31-Q35 from the generator's arrays (SF10; Q33 at
+    SF1 from ``walk_truth``'s per-length walk counts of Q20's window)."""
+    import numpy as np
+
+    outdeg = np.bincount(s, minlength=len(ids))
+    big = outdeg >= 60
+    on = big[s]
+    sel = np.flatnonzero(ids % 100 == 1)
+    q34_values = [{
+        "id": int(ids[i]), "k": ["birthday", "firstname", "id"],
+        "p": {"id": int(ids[i]), "birthday": int(bday[i]), "firstname": f"p{i}"},
+        "m": {"id": int(ids[i]), "b": int(bday[i] % 7)},
+        "s": [f"p{i}", str(int(bday[i] % 10))],
+    } for i in sel]
+    q35 = {int(ids[i]): sorted(ids[d[s == i]].tolist())
+           for i in np.flatnonzero(ids % 1000 == 1) if outdeg[i]}
+    return {
+        "Q31": [{"n": int(len(s)), "s": int((bday[d] % 365).sum())}],
+        "Q32": [{"n": int(big.sum()), "even": int((on & (ids[d] % 2 == 0)).sum()),
+                 "hit": int(len(np.unique(s[on & (ids[d] % 1000 == 1)])))}],
+        "Q33": [{"hops": k + 1, "c": int(c)} for k, c in enumerate(q33_counts) if c],
+        "Q34": [{"l": ["Person"], "c": int(len(ids))}],
+        "Q34 values": q34_values,
+        "Q35": q35,
+    }
+
+
+def check_rel_lists(rows, edges):
+    """Each row's relationship list, decoded: one or two distinct KNOWS
+    relationships of the graph that chain from a to b."""
+    from tpu_cypher_torch.api.values import Relationship
+
+    for r in rows:
+        rs = r["rs"]
+        check(1 <= len(rs) <= 2 and all(isinstance(x, Relationship) for x in rs),
+              f"Q33 rows: {rs!r} is not a list of one or two relationships")
+        check(rs[0].start == r["a"] and rs[-1].end == r["b"]
+              and all(x.end == y.start for x, y in zip(rs, rs[1:]))
+              and len({x.id for x in rs}) == len(rs)
+              and all(x.rel_type == "KNOWS" and (x.start, x.end) in edges for x in rs),
+              f"Q33 rows: {rs!r} does not chain from {r['a']} to {r['b']}")
+
+
+def run_list_queries(torch, run, last, g1, g10, truth, q33_params, edges1):
+    """Phase 4's list queries, Q31-Q35: each cold, then five warm runs,
+    with its warm median, checked against ``list_truth``; Q31's
+    ``AggregateOp`` (the grouping and ``collect``) and ``UnwindOp`` (the
+    explode) spans as shares of its execute phase."""
+    for name, (query, plan_op, kernels) in LIST_QUERIES.items():
+        sf1 = name.startswith("Q33")
+        label = f"{name} ({'SF1' if sf1 else 'SF10'})"
+        rows, secs, _ = run(label, g1 if sf1 else g10, query, kernels, plan_op=plan_op,
+                            params=q33_params if sf1 else None, warm=5)
+        rows = [dict(r) for r in rows]
+        if name == "Q33 rows":
+            check(len(rows) == 1000, f"Q33 rows: {len(rows)} rows")
+            check_rel_lists(rows, edges1)
+            got = "1000 rows, each list chains from a to b over KNOWS of the graph"
+        elif name == "Q34 values":
+            got = sorted(rows, key=lambda r: r["id"])
+            check(got == truth[name], f"{name} {got[:2]} != {truth[name][:2]}")
+            got = f"{len(rows)} rows, equal to numpy"
+        elif name == "Q35":
+            got = {r["a"]: sorted(n.id for n in r["fs"]) for r in rows}
+            check(got == truth[name] and all(
+                n.labels == {"Person"} and "birthday" in n.properties
+                for r in rows for n in r["fs"]), f"Q35 friend multisets differ from numpy")
+            got = f"{len(rows)} persons' friend multisets, equal to numpy"
+        else:
+            check(rows == truth[name], f"{name} {rows} != {truth[name]}")
+            got = rows
+        res = last[label]
+        total = res.profile().phase_seconds()["execute"]
+        spans = {}
+        for sp in res.profile().trace.spans():
+            if sp.name in ("AggregateOp", "UnwindOp"):
+                spans[sp.name] = spans.get(sp.name, 0.0) + sp.self_seconds
+        shares = {k: round(v / total, 3) for k, v in spans.items()} if total else {}
+        print(f"    {label} warm median {statistics.median(secs[1:]) * 1e3:.3f} ms over "
+              f"{len(secs) - 1} runs (s: {[round(x, 6) for x in secs[1:]]}); last run's "
+              f"AggregateOp/UnwindOp self s {({k: round(v, 6) for k, v in spans.items()})}, "
+              f"shares of its execute phase {total:.6f} s: {shares}")
+        print(f"    {name} = {got}")
+
+
 def run_shaping_queries(torch, run, slice_launches, g1, g10, truth):
     """Phase 4's row shaping and grouping queries, Q13-Q16: each cold, then
     five warm runs, with its warm median and peak device memory, checked
@@ -2718,6 +2897,8 @@ def main() -> int:
     check_segment_agg_q15(torch, g10, truth["Q15"], report)
     check_intersect(torch, g10, tri10["triangles"], report)
     check_join_probe(torch, g10, truth["Q11"], report)
+    lists = list_truth(ids10, bday10, s10, d10, walks["Q33"])
+    check_explode(torch, g10, lists["Q31"][0], report)
     check_two_streams(torch, session, g10)
     time_materializes(torch, g1, g10, truth["Q11"], tri1["triangles"])
     check_close_shapes(torch, g1, g10, half_graph(), closes, report)
@@ -2865,6 +3046,9 @@ def main() -> int:
     run_close_queries(torch, run, cold, g1, g10, half_graph(), gl, closes, loopy_truth)
     # the expression compiler and elements as values
     run_expression_queries(torch, run, last, g10, expr_truth(ids10, bday10, s10, d10))
+    # lists, maps and elements as values
+    run_list_queries(torch, run, last, g1, g10, lists, walks["Q20"][0],
+                     set(zip(src1.tolist(), dst1.tolist())))
     counts = dispatch.use_counts()
     for name, c in counts.items():
         check(c["fallback"] == 0 and c["plain"] == 0, f"{name} fallbacks: {c}")

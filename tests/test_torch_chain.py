@@ -18,10 +18,10 @@
   port, bag-identical, with the plan operator that must answer them and
   ``expand_rows`` on its CPU (``plain``) tier; the two ``QUERIES`` that
   return element values ordered by ``id()`` run beside their forms that
-  return a property. Left out: the ``VARLEN_CASES`` that read a
-  relationship list (two var-lengths of one MATCH, a fixed rel before a
-  var-length, ``size(rs)``), which only the classic cascade builds
-  (ROADMAP.md queue 1, item 6.3).
+  return a property. Left out: the ``VARLEN_CASES`` with two var-lengths
+  of one MATCH or a fixed rel before a var-length; the one that reads a
+  relationship list (``min(size(rs))``) runs here, its list emitted by
+  ``CsrVarExpandOp`` from the walk.
 * ``bench.py``'s ``TWO_HOP_DISTINCT`` and ``VAR_LENGTH`` and the other
   walk queries of ``chip_smoke.py`` at ``generate_snb(0.02)``, and the
   walk truths ``chip_smoke.py`` holds the card to, against the engines
@@ -604,14 +604,15 @@ def test_proof_preserves_spmv_on_loop_free(monkeypatch):
 
 
 def test_rel_list_value_raises_naming_roadmap_item():
-    """A var-length relationship list as a value needs the classic cascade,
-    which the port cannot run yet: the error reaches the caller."""
-    from tpu_cypher_torch.backend.cuda.graph_index import GraphIndexError
-
-    port = CypherSession.cuda(device="cpu").create_graph_from_create_query(TWO_CYCLE)
-    with pytest.raises(GraphIndexError, match=r"ROADMAP.md queue 1, item 6\.3"):
-        port.cypher("MATCH (x)-[r:K]->(y), (c)-[rs:K*1..2]->(d) "
-                    "RETURN count(*) AS c, min(size(rs)) AS m").records.collect()
+    """A var-length relationship list as a value (it raised, naming
+    ROADMAP.md queue 1, item 6.3, before the port's list columns): the
+    walk emits it, with the fixed rel enforced inside the walk, and the
+    answer equals the reference's and the oracle's."""
+    q = ("MATCH (x)-[r:K]->(y), (c)-[rs:K*1..2]->(d) "
+         "RETURN count(*) AS c, min(size(rs)) AS m")
+    result, got = _three(*_creates(TWO_CYCLE), q)
+    assert got == Counter({(("c", 2), ("m", 1)): 1})
+    assert "CsrVarExpandOp" in result.plans and "uniq" in result.plans
 
 
 # ---------------------------------------------------------------------------

@@ -498,10 +498,11 @@ def test_group_matches_reference(by):
 
 
 def test_group_refusals_raise():
-    """What the reference answers on its host oracle raises here."""
+    """What the reference answers on its host oracle raises here (``o``:
+    lists of mixed kinds, an object column)."""
     from tpu_cypher_torch.backend.cuda.compiler import TpuUnsupportedExpr
 
-    cols = {"o": [[1], [2], None], "f": [1.0, float("nan"), 2.0], "i": [1, 2, 3]}
+    cols = {"o": [[1, "a"], [2], None], "f": [1.0, float("nan"), 2.0], "i": [1, 2, 3]}
     t = CudaTable.from_columns(cols)
     header = PHeader({PE.Var(c): c for c in cols})
     for by, specs in (

@@ -155,11 +155,19 @@ def test_port_generator_matches_reference(scale):
 
 
 def test_unported_spi_names_its_roadmap_item():
+    """Every SPI method is ported; ``explode`` of what has no device
+    column kind (nested lists) names the ROADMAP.md item that brings it."""
+    from tpu_cypher_torch.backend.cuda import device
+    from tpu_cypher_torch.backend.cuda.compiler import TpuUnsupportedExpr
     from tpu_cypher_torch.backend.cuda.table import CudaTable
+    from tpu_cypher_torch.ir import expr as E
+    from tpu_cypher_torch.relational.header import RecordHeader
 
-    t = CudaTable.from_columns({"x": [1, 2]})
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md queue 1, item 6\.3"):
-        t.explode(None, "y", None, {})
+    device.use("cpu")
+    t = CudaTable.from_columns({"x": [[[1], [2]], [[3]]]})
+    assert t._cols["x"].kind == "obj"
+    with pytest.raises(TpuUnsupportedExpr, match=r"ROADMAP.md queue 1, item 6\.4"):
+        t.explode(E.Var("x"), "y", RecordHeader({E.Var("x"): "x"}), {})
 
 
 # bench.py VAR_LENGTH over the first 20 persons: the var-length walk
@@ -196,11 +204,11 @@ def test_device_fault_reaches_caller_typed(engines, qname, site):
     "query",
     [
         # an expression kind the compiler does not cover
-        "MATCH (a:Person)-[:KNOWS]->(b) RETURN a.firstname + b.firstname AS x",
+        "MATCH (a:Person)-[:KNOWS]->(b) RETURN reduce(s = 0, x IN [a.birthday] | s + x) AS x",
         # a percentile fraction that is neither a literal nor a parameter
         "MATCH (a:Person)-[:KNOWS]->(b) RETURN percentileCont(b.birthday, a.birthday) AS p",
         # a grouping key the compiler does not cover
-        "MATCH (a:Person)-[:KNOWS]->(b) RETURN labels(b) AS k, count(*) AS c",
+        "MATCH (a:Person)-[:KNOWS]->(b) RETURN {k: b.id} AS k, count(*) AS c",
     ],
 )
 def test_no_host_island(engines, query):

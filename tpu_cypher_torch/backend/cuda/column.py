@@ -8,22 +8,44 @@ vocabulary, so comparisons and min/max work on codes without touching host
 strings. Ids are int64 with the graph tag in bits 54 and up
 (``ir.expr.PrefixId``).
 
-This slice carries the kinds the CSR expand path needs on device — I64,
-F64, BOOL, STR — and keeps every other value (temporal values, durations,
-lists, elements) as a host-exact OBJ column, over which the compiler
-raises ``TpuUnsupportedExpr`` (``compiler.py``). Device temporal kinds
-come with ROADMAP.md queue 1, item 7, and list values with item 6.3."""
+The scalar kinds are I64, F64, BOOL and STR. Two nested kinds keep list,
+map and element values on the device too:
+
+* ``LST``: ``data`` is an (n, 2) int64 tensor of (start, length) per row
+  over one ``child`` Column of a scalar kind or of ``STRUCT``; row i holds
+  the child rows ``start:start + length``. Rows may share child ranges,
+  so a gather of rows moves two integers a row and never copies elements
+  (an UNWIND keeps the list column beside each of its elements); a
+  freshly built list is compact (the starts are the lengths' exclusive
+  scan). A null list is invalid and empty (a null list is not an empty
+  list: the mask tells them apart).
+* ``STRUCT``: ordered, named ``fields`` of n rows each, with per-row
+  validity, and a ``tag``: ``map`` (decodes to a ``CypherMap``),
+  ``props`` (``properties()``: a dict of the non-null fields), ``node``
+  or ``relationship`` (the element's id, label or type flags, endpoints
+  and properties, the header columns ``relational/materialize.py``
+  reads). ``data`` is a zero-width (n, 0) tensor that carries the row
+  count and the device. A gather of a STRUCT's rows is deferred: it
+  keeps the fields and composes a row index, and a field moves only when
+  it is read (``field``, ``fields``), so a list of relationships whose
+  lengths alone are read gathers none of them.
+
+Lists nested deeper, lists whose elements mix kinds, and temporal values
+stay host-exact OBJ columns, over which the compiler raises
+``TpuUnsupportedExpr`` (``compiler.py``): ROADMAP.md queue 1, items 6.4
+and 7."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ...api import types as T
 from ...api.types import CypherType
+from ...api.values import CypherMap, Node, Relationship
 from . import device as _device
 
 # column kinds
@@ -32,6 +54,13 @@ F64 = "f64"
 BOOL = "bool"
 STR = "str"  # dictionary-encoded int32 codes
 OBJ = "obj"  # host-side Python objects — not device resident
+LST = "lst"  # (start, length) per row over one child Column
+STRUCT = "struct"  # named child Columns
+NESTED_KINDS = (LST, STRUCT)
+SCALAR_KINDS = (I64, F64, BOOL, STR)
+# STRUCT tags; an element's fields are "id", "start", "end", "label:<l>",
+# "type:<t>" and "prop:<key>"
+MAP, PROPS, NODE, REL = "map", "props", "node", "relationship"
 # kinds whose payload is an integer (the temporal ones join with ROADMAP.md
 # queue 1, item 7)
 INTEGRAL_KINDS = (I64, BOOL, STR)
@@ -123,9 +152,47 @@ class Column:
     pad_synth: bool = False
     # cached ``ints_beyond_f64`` probe (one scalar sync per column)
     _beyond_f64: Optional[bool] = None
+    # LST: the element column
+    child: Optional["Column"] = None
+    # STRUCT: the named field columns, in order, and the tag; with
+    # ``_rows`` set, row i is row ``_rows[i]`` of every field
+    _fields: Optional[Dict[str, "Column"]] = None
+    tag: Optional[str] = None
+    _rows: Optional[Any] = None
 
     def __len__(self) -> int:
-        return int(self.data.shape[0]) if self.kind != OBJ else len(self.data)
+        return len(self.data) if self.kind == OBJ else int(self.data.shape[0])
+
+    @property
+    def flat(self) -> bool:
+        """A device column of one tensor per row (a scalar kind): the
+        batched gathers take it; OBJ and the nested kinds gather on their
+        own (``take``)."""
+        return self.kind in SCALAR_KINDS
+
+    @property
+    def fields(self) -> Dict[str, "Column"]:
+        """STRUCT: every field, gathered by the deferred row index (once)."""
+        if self._rows is not None:
+            self._fields = {k: f.take(self._rows) for k, f in self._fields.items()}
+            self._rows = None
+        return self._fields
+
+    def field(self, name: str) -> Optional["Column"]:
+        """STRUCT: one field, gathered by the deferred row index; None when
+        the struct lacks it."""
+        f = self._fields.get(name)
+        if f is None or self._rows is None:
+            return f
+        return f.take(self._rows)
+
+    def starts(self):
+        """LST: each row's first child position."""
+        return self.data[:, 0]
+
+    def lengths(self):
+        """LST: the per-row element counts (0 for a null list)."""
+        return self.data[:, 1]
 
     @property
     def logical_len(self) -> int:
@@ -216,8 +283,31 @@ class Column:
                 dtype=np.int32,
             )
             return Column._build(STR, codes, hv, vocab=vocab)
-        # everything else stays host-exact (device temporal kinds are a
-        # later slice)
+        if all(isinstance(v, (list, tuple)) for v in non_null):
+            child = Column.from_values([x for v in non_null for x in v])
+            if child.kind in SCALAR_KINDS:
+                lens = np.array([len(v) if v is not None else 0 for v in values], np.int64)
+                starts = np.cumsum(lens) - lens
+                return Column(LST, to_device(np.stack([starts, lens], 1)),
+                              to_device(hv) if hv is not None else None, child=child)
+        elif all(type(v) in (dict, CypherMap) for v in non_null):
+            kinds = {type(v) for v in non_null}
+            keys = {tuple(v.keys()) for v in non_null}
+            # a plain dict decodes without its null values (``properties``)
+            sparse_ok = CypherMap in kinds or all(
+                x is not None for v in non_null for x in v.values())
+            if len(kinds) == 1 and len(keys) == 1 and sparse_ok:
+                fields = {
+                    k: Column.from_values([v[k] if v is not None else None for v in values])
+                    for k in next(iter(keys))
+                }
+                if all(f.kind in SCALAR_KINDS for f in fields.values()):
+                    return struct_column(
+                        fields, n, to_device(hv) if hv is not None else None,
+                        MAP if CypherMap in kinds else PROPS,
+                    )
+        # everything else stays host-exact: nested or mixed lists (ROADMAP.md
+        # queue 1, item 6.4), elements, temporal values (item 7)
         return Column(OBJ, _obj_array(values), None)
 
     @staticmethod
@@ -256,6 +346,8 @@ class Column:
         """Decode to Python values (respecting validity)."""
         if self.kind == OBJ:
             vals = list(self.data)
+        elif self.kind in NESTED_KINDS:
+            vals = self._decode_nested()
         else:
             data, valid, iflag = self._host_arrays()
             vals = _decode_host(self.kind, data, valid, iflag, self.vocab)
@@ -263,12 +355,59 @@ class Column:
             vals = [v for v, keep in zip(vals, row_mask) if keep]
         return vals
 
+    def to_values_range(self, lo: int, hi: int) -> List[Any]:
+        """Decode rows ``lo:hi`` only."""
+        return self.slice(lo, min(hi, len(self))).to_values()
+
+    def _decode_nested(self) -> List[Any]:
+        n = len(self)
+        valid = to_host(self.valid) if self.valid is not None else None
+        if self.kind == LST:
+            from .lists import compact
+
+            c = compact(self)  # only the elements the rows hold decode
+            lens = to_host(c.lengths())
+            vals = c.child.to_values()
+            off = np.cumsum(lens) - lens
+            return [
+                vals[off[i]:off[i] + lens[i]] if valid is None or valid[i] else None
+                for i in range(n)
+            ]
+        cols = {k: f.to_values() for k, f in self.fields.items()}
+        out: List[Any] = []
+        for i in range(n):
+            if valid is not None and not valid[i]:
+                out.append(None)
+                continue
+            row = {k: v[i] for k, v in cols.items()}
+            if self.tag == MAP:
+                out.append(CypherMap(row))
+            elif self.tag == PROPS:
+                out.append({k: v for k, v in row.items() if v is not None})
+            else:
+                props = {k[5:]: v for k, v in row.items()
+                         if k.startswith("prop:") and v is not None}
+                if self.tag == NODE:
+                    out.append(Node(row["id"], [k[6:] for k, v in row.items()
+                                                if k.startswith("label:") and v], props))
+                else:
+                    rtype = next((k[5:] for k, v in row.items()
+                                  if k.startswith("type:") and v), "")
+                    out.append(Relationship(row["id"], row["start"], row["end"], rtype, props))
+        return out
+
     # -- ops ---------------------------------------------------------------
 
     def take(self, idx) -> "Column":
         """Gather rows by index (device tensor, or host array for OBJ)."""
         if self.kind == OBJ:
             return Column(OBJ, self.data[to_host(idx)], None)
+        valid = None if self.valid is None else self.valid[idx]
+        if self.kind == LST:  # two integers a row: the child is shared
+            return Column(LST, self.data[idx], valid, child=self.child)
+        if self.kind == STRUCT:  # deferred: the fields move when read
+            rows = idx if self._rows is None else self._rows[idx]
+            return self._struct_with(self._fields, self.data[idx], valid, rows)
         from .jit_ops import cols_take
 
         d, v, i = cols_take({"c": (self.data, self.valid, self.int_flag)}, idx)["c"]
@@ -281,6 +420,8 @@ class Column:
             # empty build side: every row is an outer-join null
             if self.kind == OBJ:
                 return Column(OBJ, np.empty(n, dtype=object), None)
+            if self.kind in NESTED_KINDS:
+                return self.null_like(n)
             dev = self.data.device
             return Column(
                 self.kind,
@@ -295,6 +436,14 @@ class Column:
             for i in range(n):
                 out[i] = self.data[idx_np[i]] if ib[i] else None
             return Column(OBJ, out, None)
+        if self.kind in NESTED_KINDS:
+            safe = torch.where(in_bounds, idx, torch.zeros_like(idx))
+            taken = self.take(safe)
+            valid = in_bounds & taken.valid_mask()
+            if self.kind == STRUCT:
+                return taken._struct_with(taken._fields, taken.data, valid, taken._rows)
+            data = torch.where(valid[:, None], taken.data, torch.zeros_like(taken.data))
+            return Column(LST, data, valid, child=self.child)
         from .jit_ops import cols_take_or_null
 
         d, v, i = cols_take_or_null(
@@ -310,6 +459,8 @@ class Column:
         reference's ZDT/ZT offset branch comes with the temporal kinds,
         ROADMAP.md queue 1, item 7.)"""
         a, b = self, other
+        if a.kind in NESTED_KINDS or b.kind in NESTED_KINDS:
+            return _concat_nested(a, b)
         if a.kind != b.kind:
             # scan alignment fills absent properties with I64 null
             # constants: without this a STR/BOOL union would become OBJ
@@ -368,6 +519,15 @@ class Column:
         if self.kind == OBJ:
             return Column(OBJ, np.array([None] * n, dtype=object), None)
         dev = self.data.device
+        nulls = torch.zeros(n, dtype=torch.bool, device=dev)
+        if self.kind == LST:
+            return Column(LST, torch.zeros((n, 2), dtype=torch.int64, device=dev), nulls,
+                          child=self.child.null_like(0))
+        if self.kind == STRUCT:
+            return self._struct_with(
+                {k: f.null_like(n) for k, f in self._fields.items()},
+                torch.empty((n, 0), dtype=torch.bool, device=dev), nulls,
+            )
         if self.kind == STR:
             data = torch.full((n,), int(_NULL_CODE), dtype=torch.int32, device=dev)
         else:
@@ -406,16 +566,36 @@ class Column:
             return torch.ones(len(self), dtype=torch.bool, device=self.data.device)
         return self.valid
 
+    def _struct_with(self, fields, data, valid, rows=None) -> "Column":
+        return Column(STRUCT, data, valid, _fields=fields, tag=self.tag, _rows=rows)
+
     def slice(self, lo: int, hi: int) -> "Column":
-        """Contiguous row slice (a view — no gather)."""
+        """Contiguous row slice (a view — no gather; a list keeps sharing
+        its child)."""
         if self.kind == OBJ:
             return Column(OBJ, self.data[lo:hi], None)
-        data = self.data[lo:hi]
         valid = self.valid[lo:hi] if self.valid is not None else None
+        if self.kind == LST:
+            return Column(LST, self.data[lo:hi], valid, child=self.child)
+        if self.kind == STRUCT:
+            if self._rows is not None:
+                return self._struct_with(self._fields, self.data[lo:hi], valid,
+                                         self._rows[lo:hi])
+            return self._struct_with(
+                {k: f.slice(lo, hi) for k, f in self._fields.items()},
+                self.data[lo:hi], valid,
+            )
+        data = self.data[lo:hi]
         iflag = self.int_flag[lo:hi] if self.int_flag is not None else None
         return Column(self.kind, data, valid, self.vocab, int_flag=iflag)
 
     def cypher_type(self) -> CypherType:
+        if self.kind == LST:
+            base = T.CTList(self.child.cypher_type())
+        elif self.kind == STRUCT:
+            base = {NODE: T.CTNode(), REL: T.CTRelationship()}.get(self.tag, T.CTMap())
+        if self.kind in NESTED_KINDS:
+            return base.nullable if self.valid is not None else base
         base = {
             I64: T.CTInteger,
             F64: T.CTFloat,
@@ -429,6 +609,64 @@ class Column:
             self.valid is not None and not self.pad_synth
         ) or self.kind == OBJ
         return base.nullable if has_null else base
+
+
+def struct_column(fields: Dict[str, Column], n: int, valid=None, tag: str = MAP,
+                  device=None, rows=None) -> Column:
+    """A STRUCT column of ``n`` rows over ``fields``; with ``rows``, row i
+    is row ``rows[i]`` of every field (``n`` is then ``len(rows)``)."""
+    dev = device if device is not None else (
+        next(iter(fields.values())).data.device if fields else _device.get()
+    )
+    return Column(STRUCT, torch.empty((n, 0), dtype=torch.bool, device=dev), valid,
+                  _fields=dict(fields), tag=tag, _rows=rows)
+
+
+def _cat_mask(a: Column, b: Column):
+    if a.valid is None and b.valid is None:
+        return None
+    return torch.cat([a.valid_mask(), b.valid_mask()])
+
+
+def _concat_nested(a: Column, b: Column) -> Column:
+    """``concat`` where a side is LST or STRUCT: an all-null side adopts the
+    other's kind; two lists concatenate their children and shift the
+    second side's starts; two structs of one tag take the union of their
+    fields, a field one side lacks null there. Anything else becomes
+    OBJ."""
+    if a.kind != b.kind:
+        if a.kind in NESTED_KINDS and b.is_all_null():
+            b = a.null_like(len(b))
+        elif b.kind in NESTED_KINDS and a.is_all_null():
+            a = b.null_like(len(a))
+    if a.kind == b.kind == LST:
+        child = concat_children(a.child, b.child)
+        if child.kind in SCALAR_KINDS or child.kind == STRUCT:
+            shift = torch.tensor([len(a.child), 0], dtype=torch.int64, device=b.data.device)
+            data = torch.cat([a.data, b.data + shift])
+            return Column(LST, data, _cat_mask(a, b), child=child)
+    if a.kind == b.kind == STRUCT and a.tag == b.tag:
+        names = list(a.fields) + [k for k in b.fields if k not in a.fields]
+        fields = {}
+        for k in names:
+            fa, fb = a.fields.get(k), b.fields.get(k)
+            fa = fa if fa is not None else fb.null_like(len(a))
+            fb = fb if fb is not None else fa.null_like(len(b))
+            fields[k] = fa.concat(fb)
+        return struct_column(fields, len(a) + len(b), _cat_mask(a, b), a.tag,
+                             device=a.data.device)
+    return Column(OBJ, np.concatenate([a.to_obj().data, b.to_obj().data]), None)
+
+
+def concat_children(a: Column, b: Column) -> Column:
+    """Two list children end to end; an empty side adopts the other's
+    kind."""
+    if a.kind != b.kind:
+        if len(a) == 0:
+            a = b.null_like(0)
+        elif len(b) == 0:
+            b = a.null_like(0)
+    return a.concat(b)
 
 
 def _unify_vocab(a: Column, b: Column) -> Tuple[Column, Column]:
@@ -483,4 +721,8 @@ def constant_column(value: Any, n: int) -> Column:
         return Column(F64, torch.full((n,), value, dtype=torch.float64, device=dev), None)
     if isinstance(value, str):
         return Column(STR, torch.zeros(n, dtype=torch.int32, device=dev), None, [value])
+    if isinstance(value, (list, tuple, dict)):
+        one = Column.from_values([value])
+        if one.kind in NESTED_KINDS:
+            return one.take(torch.zeros(n, dtype=torch.int64, device=dev))
     return Column(OBJ, _obj_array([value] * n), None)

@@ -21,15 +21,27 @@ becomes eager torch ops over ``Column``s on the column's device, with
 * elements where only their identity decides the result (``identity``):
   ``count(a)``, ``count(DISTINCT a)``, ``=``/``<>`` and ``IS [NOT] NULL``
   read the element's id column. A property key the header holds no column
-  for is null.
+  for is null;
+* lists, maps and elements as values (``LST`` and ``STRUCT`` columns,
+  ``column.py``; the segment work in ``lists.py``): an element variable is
+  a ``STRUCT`` of its header columns; list literals (constant, or the item
+  columns interleaved), map literals and projections, ``[i]`` on a list,
+  map or element, list slices, ``IN`` over a list column, ``+`` on lists,
+  ``size``/``head``/``last``/``tail``/``reverse``/``range``/``labels``/
+  ``keys``/``properties``, list comprehensions and ``any``/``all``/
+  ``none``/``single`` (the inner expression over the child rows, the outer
+  columns gathered by each element's row, then one reduction per list);
+  a registry function that returns lists (``split``) takes the vocab or
+  distinct-value route; string ``+`` runs once per distinct pair of
+  operand values.
 
 No row is ever evaluated in Python. What the port cannot compile raises
 ``TpuUnsupportedExpr``: where the reference evaluates it as a host island
-on its local oracle, the port keeps no island (ROADMAP.md §3). Element,
-path, list and map values and string concatenation come with ROADMAP.md
-queue 1, item 6.3, and temporal operands with item 7. The reference's jit
-cache of whole expressions has no counterpart: eager PyTorch compiles
-nothing to cache.
+on its local oracle, the port keeps no island (ROADMAP.md §3). Nested or
+mixed lists, maps as keys or in comparisons, ``reduce``, pattern
+comprehensions and path values name ROADMAP.md queue 1, item 6.4;
+temporal operands item 7. The reference's jit cache of whole expressions
+has no counterpart: eager PyTorch compiles nothing to cache.
 """
 
 from __future__ import annotations
@@ -41,31 +53,45 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ...api.values import Duration
+from ...api.values import Duration, to_cypher_string
 from ...ir import expr as E
 from . import device as _device
+from . import lists as LS
 from .column import (
     BOOL,
     F64,
     I64,
+    LST,
+    MAP,
+    NESTED_KINDS,
+    NODE,
     OBJ,
+    PROPS,
+    REL,
+    SCALAR_KINDS,
     STR,
+    STRUCT,
     Column,
     TpuBackendError,
     _NULL_CODE,
     _remap,
     _unify_vocab,
     constant_column,
+    struct_column,
     to_host,
 )
 
-_LISTS_ITEM = "ROADMAP.md queue 1, item 6.3"
+_LISTS_ITEM = LS.NESTED_ITEM
 _TEMPORAL_ITEM = "ROADMAP.md queue 1, item 7"
 _NUMERIC_FUNCTIONS = frozenset({
     "abs", "sign", "tofloat", "tointeger", "ceil", "floor", "round", "sqrt",
     "exp", "log", "log10", "sin", "cos", "tan",
 })
 _NOT_CONST = object()
+_LIST_FUNCTIONS = frozenset({
+    "size", "length", "head", "last", "tail", "reverse", "range", "labels",
+    "keys", "properties", "nodes", "relationships",
+})
 
 
 class TpuUnsupportedExpr(TpuBackendError):
@@ -74,7 +100,7 @@ class TpuUnsupportedExpr(TpuBackendError):
 
 def _obj_item(*cols: Column) -> str:
     """The ROADMAP item that brings these object columns' values to the
-    device: temporal values item 7, lists, maps and elements item 6.3."""
+    device: temporal values item 7, nested or mixed lists item 6.4."""
     for c in cols:
         if c.kind != OBJ:
             continue
@@ -85,25 +111,68 @@ def _obj_item(*cols: Column) -> str:
 
 
 class CudaEvaluator:
-    def __init__(self, table, header, parameters: Dict[str, Any]):
+    def __init__(self, table, header, parameters: Dict[str, Any], rows=None):
         self.table = table
         self.header = header
         self.params = parameters or {}
-        self.n = table.size
+        # a list comprehension or quantifier evaluates over element rows:
+        # ``rows`` is each element's row of ``table``
+        self.rows = rows
+        self.n = table.size if rows is None else int(rows.shape[0])
+        self._gathered: Dict[str, Column] = {}
+        # list comprehension and quantifier variables bound to child rows
+        self.locals: Dict[str, Column] = {}
+
+    def _col(self, name) -> Optional[Column]:
+        """The table's column ``name``, gathered by ``rows`` on first use;
+        None when the table lacks it."""
+        col = self.table._cols.get(name)
+        if col is None or self.rows is None:
+            return col
+        if name not in self._gathered:
+            self._gathered[name] = col.take(self.rows)
+        return self._gathered[name]
 
     def eval(self, expr: E.Expr) -> Column:
-        col = self.header.get(expr) if self.header is not None else None
-        if col is not None and col in self.table._cols:
-            return self.table._cols[col]
+        if isinstance(expr, E.Var) and expr.name in self.locals:
+            return self.locals[expr.name]
+        got = self._col(self.header.get(expr)) if self.header is not None else None
+        if got is not None:
+            return got
         if isinstance(expr, E.Lit):
             return constant_column(expr.value, self.n)
         if isinstance(expr, E.Param):
             return constant_column(self.params.get(expr.name), self.n)
         if isinstance(expr, E.Var):
-            what = "path" if self._is_path(expr) else "element"
-            raise TpuUnsupportedExpr(
-                f"{what} variable {expr.name} as a value: {_LISTS_ITEM}"
+            if self._is_path(expr):
+                raise TpuUnsupportedExpr(
+                    f"path variable {expr.name} as a value: {_LISTS_ITEM}"
+                )
+            got = self._element_struct(expr)
+            if got is None:
+                raise TpuUnsupportedExpr(f"variable {expr.name} unmapped")
+            return got
+        if isinstance(expr, (E.Id, E.StartNode, E.EndNode)):
+            return self._struct_field(expr)
+        if isinstance(expr, E.ListLit):
+            return self._list_literal(expr)
+        if isinstance(expr, E.MapLit):
+            return struct_column(
+                {k: self.eval(v) for k, v in zip(expr.keys, expr.values)}, self.n,
+                device=_device.get(),
             )
+        if isinstance(expr, E.MapProjection):
+            return self._map_projection(expr)
+        if isinstance(expr, E.Index):
+            return self._index(expr)
+        if isinstance(expr, E.ListSlice):
+            return self._slice(expr)
+        if isinstance(expr, E.ListComprehension):
+            return self._comprehension(expr)
+        if isinstance(expr, E.Quantified):
+            return self._quantified(expr)
+        if isinstance(expr, (E.Reduce, E.PatternComprehension)):
+            raise TpuUnsupportedExpr(f"{type(expr).__name__}: {_LISTS_ITEM}")
         if isinstance(expr, E.PrefixId):
             inner = self.eval(expr.expr)
             if inner.kind != I64:
@@ -159,22 +228,22 @@ class CudaEvaluator:
     def _element(self, expr: E.Expr) -> Optional[Tuple[str, Column]]:
         """("node" or "relationship", id column) when ``expr`` is an element
         variable whose id column the table holds; else None."""
-        if not isinstance(expr, E.Var) or self.header is None or self._is_path(expr):
+        if (not isinstance(expr, E.Var) or self.header is None or expr.name in self.locals
+                or self._is_path(expr)):
             return None
         owned = self.header.expressions_for(expr)
-        ids = [self.header.get(e) for e in owned if isinstance(e, E.Id)]
-        if not ids or ids[0] not in self.table._cols:
+        ids = [self._col(self.header.get(e)) for e in owned if isinstance(e, E.Id)]
+        if not ids or ids[0] is None:
             return None
         rel = any(isinstance(e, E.StartNode) for e in owned)
-        return ("relationship" if rel else "node"), self.table._cols[ids[0]]
+        return ("relationship" if rel else "node"), ids[0]
 
     def identity(self, expr: E.Expr) -> Column:
         """``expr`` where only its identity decides the result (``count``,
         ``count(DISTINCT ...)``, ``=``/``<>``, ``IS [NOT] NULL``): an
         element variable is its id column with its validity; every other
         expression evaluates as a value."""
-        got = self._element(expr)
-        return got[1] if got is not None else self.eval(expr)
+        return self._typed_identity(expr)[1]
 
     def _property(self, expr: E.Property) -> Column:
         """A property the header maps is read before this is reached. Of an
@@ -189,6 +258,8 @@ class CudaEvaluator:
                 return constant_column(None, self.n)
             raise TpuUnsupportedExpr(f"property {expr.key} of {owner.name} unmapped")
         inner = self.eval(owner)
+        if inner.kind == STRUCT:
+            return self._struct_get(inner, expr.key)
         if inner.kind == OBJ:
             raise TpuUnsupportedExpr(f"property access on object values: {_obj_item(inner)}")
         raise TpuUnsupportedExpr(f"property access on {inner.kind}")
@@ -204,12 +275,60 @@ class CudaEvaluator:
         dev = got[1].data.device
         codes = torch.full((self.n,), int(_NULL_CODE), dtype=torch.int32, device=dev)
         for code, flag in enumerate(flags):
-            c = self.table._cols.get(self.header.get(flag))
+            c = self._col(self.header.get(flag))
             if c is None:
                 raise TpuUnsupportedExpr(f"type({arg.name}): flag {flag.rel_type} unmapped")
             codes = torch.where(c.data & c.valid_mask(), code, codes)
         valid = got[1].valid
         return Column(STR, codes, valid, [f.rel_type for f in flags])
+
+    def _element_struct(self, var: E.Var) -> Optional[Column]:
+        """An element variable as a value: a ``STRUCT`` of the header
+        columns ``relational/materialize.py`` reads for it (id, endpoints,
+        label or type flags, properties), with the id column's validity.
+        None when the table holds no id column for ``var``."""
+        got = self._element(var)
+        if got is None:
+            return None
+        kind, ids = got
+        h = self.header
+        fields: Dict[str, Column] = {"id": ids}
+        if kind == "relationship":
+            owned = h.expressions_for(var)
+            for name, cls in (("start", E.StartNode), ("end", E.EndNode)):
+                fields[name] = self._col(h.column(next(e for e in owned if isinstance(e, cls))))
+            flags = [("type:" + f.rel_type, f) for f in h.types_for(var)]
+        else:
+            flags = [("label:" + f.label, f) for f in h.labels_for(var)]
+        props = [("prop:" + p.key, p) for p in h.properties_for(var)]
+        for name, e in flags + props:
+            c = self._col(h.column(e))
+            if c is not None:
+                fields[name] = c
+        return struct_column(fields, self.n, ids.valid, REL if kind == "relationship" else NODE)
+
+    def _struct_field(self, expr) -> Column:
+        """``id``, ``startNode`` or ``endNode`` of an element value the
+        header does not map (a comprehension variable, a list element)."""
+        inner = self.eval(expr.expr)
+        name = {E.Id: "id", E.StartNode: "start", E.EndNode: "end"}[type(expr)]
+        f = inner.field(name) if inner.kind == STRUCT else None
+        if f is None:
+            raise TpuUnsupportedExpr(f"{type(expr).__name__} of {inner.kind}")
+        return Column(f.kind, f.data, inner.valid_mask() & f.valid_mask())
+
+    def _struct_get(self, s: Column, key: str) -> Column:
+        """A map's value or an element's property by key (null when absent),
+        null where the struct is."""
+        name = key if s.tag in (MAP, PROPS) else "prop:" + key
+        f = s.field(name)
+        if f is None:
+            return constant_column(None, len(s))
+        if s.valid is None:
+            return f
+        if f.kind in NESTED_KINDS:
+            return f.take_or_null(torch.arange(len(s), device=s.valid.device), s.valid)
+        return Column(f.kind, f.data, s.valid & f.valid_mask(), f.vocab, int_flag=f.int_flag)
 
     # -- predicates ---------------------------------------------------------
 
@@ -251,33 +370,50 @@ class CudaEvaluator:
             return l.cast_f64(), r.cast_f64()
         raise TpuUnsupportedExpr(f"compare {l.kind} vs {r.kind}")
 
+    def _typed_identity(self, expr: E.Expr) -> Tuple[Optional[str], Column]:
+        """("node" or "relationship", id column) for an element, from the
+        header or from an element value; (None, the value) otherwise."""
+        got = self._element(expr)
+        return got if got is not None else _identity_of(self.eval(expr))
+
     def _equality(self, expr) -> Column:
-        le, re_ = self._element(expr.lhs), self._element(expr.rhs)
-        if le is not None or re_ is not None:
-            # elements are equal by id; an element equals no value of any
-            # other kind (as in the local oracle's ``cypher_equals``)
-            l = le[1] if le is not None else self.eval(expr.lhs)
-            r = re_[1] if re_ is not None else self.eval(expr.rhs)
-            same = le is not None and re_ is not None and le[0] == re_[0]
-            eq = l.data == r.data if same else self._falses()
-        else:
-            l, r = self.eval(expr.lhs), self.eval(expr.rhs)
-            if OBJ in (l.kind, r.kind):
-                raise TpuUnsupportedExpr(f"equality on object values: {_obj_item(l, r)}")
-            try:
-                l, r = self._coerce_pair(l, r)
-                eq = l.data == r.data
-            except TpuUnsupportedExpr:
-                # cross-kind equality (e.g. string vs int) is false, not error
-                eq = self._falses()
+        out = self._equal_identities(self._typed_identity(expr.lhs),
+                                     self._typed_identity(expr.rhs))
         if isinstance(expr, E.Neq):
-            eq = ~eq
+            out = Column(BOOL, ~out.data, out.valid)
+        return out
+
+    def _equal_identities(self, left, right) -> Column:
+        """Three-valued ``=`` of two (element tag or None, column) pairs:
+        elements are equal by id, and an element equals no value of any
+        other kind (as in the local oracle's ``cypher_equals``)."""
+        (lk, l), (rk, r) = left, right
+        if lk is None and rk is None:
+            return self._equal_values(l, r)
+        eq = l.data == r.data if lk == rk else torch.zeros(
+            len(l), dtype=torch.bool, device=l.data.device)
+        return Column(BOOL, eq, _and_valid(l, r))
+
+    def _equal_values(self, l: Column, r: Column) -> Column:
+        """Three-valued ``=`` of two value columns of one length."""
+        if OBJ in (l.kind, r.kind):
+            raise TpuUnsupportedExpr(f"equality on object values: {_obj_item(l, r)}")
+        if l.kind in NESTED_KINDS or r.kind in NESTED_KINDS:
+            raise TpuUnsupportedExpr(f"equality on lists or maps: {_LISTS_ITEM}")
+        try:
+            l, r = self._coerce_pair(l, r)
+            eq = l.data == r.data
+        except TpuUnsupportedExpr:
+            # cross-kind equality (e.g. string vs int) is false, not error
+            eq = torch.zeros(len(l), dtype=torch.bool, device=l.data.device)
         return Column(BOOL, eq, _and_valid(l, r))
 
     def _comparison(self, expr) -> Column:
         l, r = self.eval(expr.lhs), self.eval(expr.rhs)
         if OBJ in (l.kind, r.kind):
             raise TpuUnsupportedExpr(f"comparison on object values: {_obj_item(l, r)}")
+        if l.kind in NESTED_KINDS or r.kind in NESTED_KINDS:
+            raise TpuUnsupportedExpr(f"ordering of lists, maps or elements: {_LISTS_ITEM}")
         if l.kind == BOOL and r.kind == BOOL:
             # false < true
             l = Column(I64, l.data.to(torch.int64), l.valid)
@@ -304,7 +440,7 @@ class CudaEvaluator:
         if not isinstance(expr.rhs, E.ListLit) or not all(
             isinstance(i, E.Lit) for i in expr.rhs.items
         ):
-            raise TpuUnsupportedExpr(f"IN on non-literal list: {_LISTS_ITEM}")
+            return self._in_list(self.eval(expr.lhs), self.eval(expr.rhs))
         values = [i.value for i in expr.rhs.items]
         if not values:
             # x IN [] is the empty disjunction: false for EVERY x, null
@@ -341,6 +477,23 @@ class CudaEvaluator:
             valid = valid & hit
         return Column(BOOL, hit & valid, valid)
 
+    def _in_list(self, x: Column, lst: Column) -> Column:
+        """``x IN list`` over a list column: each element compared with its
+        row's ``x``, then a segment ``any`` per list. True on a hit; else
+        null when the list is null, or when it is not empty and ``x`` or an
+        element is null; else false."""
+        if lst.kind != LST:
+            if lst.is_all_null():
+                return Column(BOOL, self._falses(), self._falses())
+            raise TpuUnsupportedExpr(f"IN over {lst.kind}")
+        parent, pos = LS.elements(lst)
+        eq = self._equal_identities(_identity_of(x.take(parent)),
+                                    _identity_of(lst.child.take(pos)))
+        known = eq.valid_mask()
+        hit = LS.segment_sum(eq.data & known, parent, self.n) > 0
+        unknown = LS.segment_sum(~known, parent, self.n) > 0
+        return Column(BOOL, hit, lst.valid_mask() & (hit | ~unknown))
+
     def _string_predicate(self, expr) -> Column:
         """A constant pattern over a STR column: the predicate runs once per
         vocab entry. A null pattern is null everywhere."""
@@ -376,7 +529,9 @@ class CudaEvaluator:
         if OBJ in (l.kind, r.kind):
             raise TpuUnsupportedExpr(f"arithmetic on object values: {_obj_item(l, r)}")
         if isinstance(expr, E.Add) and STR in (l.kind, r.kind):
-            raise TpuUnsupportedExpr(f"string concatenation: {_LISTS_ITEM}")
+            return self._add_strings(l, r)
+        if isinstance(expr, E.Add) and LST in (l.kind, r.kind):
+            return self._add_lists(l, r)
         if l.kind not in (I64, F64) or r.kind not in (I64, F64):
             raise TpuUnsupportedExpr(f"arithmetic on {l.kind}/{r.kind}")
         valid = _and_valid(l, r)
@@ -452,9 +607,13 @@ class CudaEvaluator:
             if expr.default is not None
             else constant_column(None, self.n)
         )
-        *thens, out = self._same_kind(
-            [self.eval(t) for t in expr.thens] + [default], "CASE"
-        )
+        branches = [self.eval(t) for t in expr.thens] + [default]
+        if any(c.kind in NESTED_KINDS for c in branches):
+            *thens, out = branches
+            for cond, then in zip(reversed(conds), reversed(thens)):
+                out = self._where_nested(cond.data & cond.valid_mask(), then, out)
+            return out
+        *thens, out = self._same_kind(branches, "CASE")
         # from the last WHEN to the first, so earlier WHENs win
         for cond, then in zip(reversed(conds), reversed(thens)):
             take = cond.data & cond.valid_mask()
@@ -468,6 +627,11 @@ class CudaEvaluator:
         return out
 
     def _coalesce(self, args: List[Column]) -> Column:
+        if any(c.kind in NESTED_KINDS for c in args):
+            *firsts, out = args
+            for a in reversed(firsts):
+                out = self._where_nested(a.valid_mask(), a, out)
+            return out
         *firsts, out = self._same_kind(args, "coalesce")
         for a in reversed(firsts):
             take = a.valid_mask()
@@ -479,6 +643,283 @@ class CudaEvaluator:
                 int_flag=_merge_int_flag(take, a, out),
             )
         return out
+
+    # -- lists and maps -------------------------------------------------------
+
+    def _list_literal(self, expr: E.ListLit) -> Column:
+        """A constant list folds to one list per row; otherwise the item
+        columns interleave (row i's items at i*k .. i*k + k - 1), through
+        one concatenation that unifies their kinds and one gather."""
+        consts = [self._const_value(i) for i in expr.items]
+        if all(c is not _NOT_CONST for c in consts):
+            return _scalar_constant(consts, self.n)
+        items = [self.eval(i) for i in expr.items]
+        child = items[0]
+        for c in items[1:]:
+            child = child.concat(c)
+        if child.kind not in SCALAR_KINDS and child.kind != STRUCT:
+            raise TpuUnsupportedExpr(f"a list of mixed or nested values: {_LISTS_ITEM}")
+        k, dev = len(items), child.data.device
+        rows = torch.arange(self.n, dtype=torch.int64, device=dev)
+        perm = (rows[:, None] + self.n * torch.arange(k, device=dev)[None, :]).reshape(-1)
+        return LS.list_column(torch.full((self.n,), k, dtype=torch.int64, device=dev),
+                              child.take(perm))
+
+    def _map_projection(self, expr: E.MapProjection) -> Column:
+        """``v{.key, key: expr}``: a map per row, null where ``v`` is."""
+        if expr.all_props:
+            raise TpuUnsupportedExpr(f"map projection of all properties: {_LISTS_ITEM}")
+        base = self.eval(expr.var)
+        if base.kind != STRUCT:
+            raise TpuUnsupportedExpr(f"map projection of {base.kind}")
+        fields = {
+            k: self._struct_get(base, k) if v is None else self.eval(v)
+            for k, v in expr.items
+        }
+        return struct_column(fields, self.n, base.valid, device=base.data.device)
+
+    def _as_list(self, col: Column) -> Column:
+        """``col`` as a list column: a column of nulls is null lists."""
+        if col.kind == LST:
+            return col
+        if col.is_all_null():
+            return LS.list_column(torch.zeros(self.n, dtype=torch.int64, device=col.data.device),
+                                  constant_column(None, 0), self._falses())
+        if col.kind == OBJ:
+            raise TpuUnsupportedExpr(f"list operation on object values: {_obj_item(col)}")
+        raise TpuUnsupportedExpr(f"list operation on {col.kind}")
+
+    def _int_arg(self, expr: E.Expr) -> Column:
+        col = self.eval(expr)
+        if col.kind != I64 and not col.is_all_null():
+            raise TpuUnsupportedExpr(f"list index of kind {col.kind}")
+        return col
+
+    def _element_at(self, lst: Column, i: Column) -> Column:
+        """``lst[i]``: negative indices count from the end; out of range,
+        a null list or a null index give null."""
+        lens, starts = lst.lengths(), lst.starts()
+        j = torch.where(i.data < 0, lens + i.data, i.data)
+        ok = (j >= 0) & (j < lens) & lst.valid_mask() & i.valid_mask()
+        return lst.child.take_or_null(torch.where(ok, starts + j, torch.zeros_like(j)), ok)
+
+    def _index(self, expr: E.Index) -> Column:
+        base = self.eval(expr.expr)
+        if base.kind == STRUCT:
+            key = self._const_value(expr.index)
+            if key is None:
+                return constant_column(None, self.n)
+            if not isinstance(key, str):
+                raise TpuUnsupportedExpr("map index that is not a constant string")
+            return self._struct_get(base, key)
+        return self._element_at(self._as_list(base), self._int_arg(expr.index))
+
+    def _sub_list(self, lst: Column, lo: Optional[Column], hi: Optional[Column]) -> Column:
+        """Python slice semantics per row: negative bounds count from the
+        end, both are clamped to the list; a null bound gives null. A view:
+        new (start, length) pairs over the same child."""
+        lens = lst.lengths()
+        valid = lst.valid_mask()
+
+        def bound(c: Optional[Column], default):
+            nonlocal valid
+            if c is None:
+                return default
+            valid = valid & c.valid_mask()
+            v = torch.where(c.data < 0, lens + c.data, c.data)
+            return torch.minimum(torch.clamp(v, min=0), lens)
+
+        a = bound(lo, torch.zeros_like(lens))
+        b = bound(hi, lens)
+        n_out = torch.where(valid, torch.clamp(b - a, min=0), torch.zeros_like(lens))
+        return LS.list_column(n_out, lst.child,
+                              None if lst.valid is None and lo is None and hi is None else valid,
+                              starts=lst.starts() + a)
+
+    def _slice(self, expr: E.ListSlice) -> Column:
+        lst = self._as_list(self.eval(expr.expr))
+        lo = self._int_arg(expr.from_) if expr.from_ is not None else None
+        hi = self._int_arg(expr.to) if expr.to is not None else None
+        return self._sub_list(lst, lo, hi)
+
+    def _bind(self, parent, var: E.Var, value: Column) -> "CudaEvaluator":
+        """An evaluator over element rows: ``var`` bound to ``value``, every
+        outer column and local gathered by the element's row ``parent``."""
+        rows = parent if self.rows is None else self.rows[parent]
+        sub = CudaEvaluator(self.table, self.header, self.params, rows)
+        sub.locals = {k: v.take(parent) for k, v in self.locals.items()}
+        sub.locals[var.name] = value
+        return sub
+
+    def _predicate_on(self, sub: "CudaEvaluator", pred: E.Expr) -> Column:
+        got = sub.eval(pred)
+        if got.kind != BOOL:
+            if got.is_all_null():
+                return Column(BOOL, sub._falses(), sub._falses())
+            raise TpuUnsupportedExpr(f"predicate of kind {got.kind}")
+        return got
+
+    def _comprehension(self, expr: E.ListComprehension) -> Column:
+        """``[x IN list WHERE p | f]``: ``p`` and ``f`` over the element
+        rows, the kept elements' count per list as the new lengths."""
+        lst = self._as_list(self.eval(expr.list_expr))
+        parent, pos = LS.elements(lst)
+        vals = lst.child.take(pos)
+        lens = lst.lengths()
+        if expr.where is not None:
+            p = self._predicate_on(self._bind(parent, expr.var, vals), expr.where)
+            kept = p.data & p.valid_mask()
+            lens = LS.segment_sum(kept, parent, self.n)
+            keep = torch.nonzero(kept).squeeze(1)
+            parent, vals = parent[keep], vals.take(keep)
+        if expr.projection is not None:  # over the kept elements only
+            vals = self._bind(parent, expr.var, vals).eval(expr.projection)
+        if vals.kind == LST or vals.kind == OBJ:
+            raise TpuUnsupportedExpr(f"a list of lists or mixed values: {_LISTS_ITEM}")
+        return LS.list_column(lens, vals, lst.valid)
+
+    def _quantified(self, expr: E.Quantified) -> Column:
+        """``any``/``all``/``none``/``single``: the predicate over the child
+        rows, then per list the counts of true and null results, under the
+        local oracle's three-valued rules; a null list gives null."""
+        lst = self._as_list(self.eval(expr.list_expr))
+        parent, pos = LS.elements(lst)
+        p = self._predicate_on(self._bind(parent, expr.var, lst.child.take(pos)),
+                               expr.predicate)
+        known = p.valid_mask()
+        trues = LS.segment_sum(p.data & known, parent, self.n)
+        nulls = LS.segment_sum(~known, parent, self.n)
+        none_null = nulls == 0
+        if expr.kind == "any":
+            data, valid = trues > 0, (trues > 0) | none_null
+        elif expr.kind == "none":
+            data, valid = trues == 0, (trues > 0) | none_null
+        elif expr.kind == "all":
+            falses = lst.lengths() - trues - nulls
+            data, valid = (falses == 0) & none_null, (falses > 0) | none_null
+        else:  # single
+            data, valid = trues == 1, (trues > 1) | none_null
+        return Column(BOOL, data, valid & lst.valid_mask())
+
+    def _list_function(self, name: str, args: List[E.Expr]) -> Optional[Column]:
+        """The list functions over list, map or element columns; None where
+        the registry routes answer (a string's ``size``, ``reverse`` ...)."""
+        if name in ("nodes", "relationships") or (
+            name == "length" and isinstance(args[0], E.Var) and self._is_path(args[0])
+        ):
+            raise TpuUnsupportedExpr(f"{name}() of a path: {_LISTS_ITEM}")
+        if name == "range":
+            return self._range(args)
+        col = self.eval(args[0])
+        if name in ("labels", "keys", "properties"):
+            if col.kind != STRUCT:
+                return None
+            return self._struct_function(name, col)
+        if col.kind != LST:
+            return None
+        if name in ("size", "length"):
+            return Column(I64, col.lengths(), col.valid)
+        if name in ("head", "last"):
+            at = constant_column(0 if name == "head" else -1, self.n)
+            return self._element_at(col, at)
+        if name == "tail":
+            return self._sub_list(col, constant_column(1, self.n), None)
+        if name == "reverse":
+            parent, pos = LS.elements(col)
+            starts, lens = col.starts()[parent], col.lengths()[parent]
+            rev = 2 * starts + lens - 1 - pos
+            return LS.list_column(col.lengths(), col.child.take(rev), col.valid)
+        return None
+
+    def _struct_function(self, name: str, s: Column) -> Column:
+        """``labels`` of a node, ``keys`` and ``properties`` of an element
+        or map."""
+        if name == "properties":
+            if s.tag in (MAP, PROPS):
+                raise TpuUnsupportedExpr(f"properties() of a map: {_LISTS_ITEM}")
+            props = {k[5:]: f for k, f in s.fields.items() if k.startswith("prop:")}
+            return struct_column(props, self.n, s.valid, PROPS, device=s.data.device)
+        if name == "labels":
+            if s.tag != NODE:
+                raise TpuUnsupportedExpr("labels() of a value that is not a node")
+            names = {k[6:]: f for k, f in s.fields.items() if k.startswith("label:")}
+            flags = [f.data & f.valid_mask() for f in names.values()]
+        elif s.tag == MAP:  # every key, null values included
+            names = dict(s.fields)
+            flags = [torch.ones(self.n, dtype=torch.bool, device=s.data.device)] * len(names)
+        else:  # the keys of the non-null values
+            names = dict(s.fields) if s.tag == PROPS else {
+                k[5:]: f for k, f in s.fields.items() if k.startswith("prop:")
+            }
+            flags = [f.valid_mask() for f in names.values()]
+        return _flag_lists(dict(zip(names, flags)), s.valid, self.n, s.data.device)
+
+    def _range(self, args: List[E.Expr]) -> Column:
+        """``range(a, b[, step])`` per row, a constant non-zero step."""
+        step = self._const_value(args[2]) if len(args) > 2 else 1
+        if step is _NOT_CONST or not isinstance(step, int) or isinstance(step, bool):
+            raise TpuUnsupportedExpr("range() with a step that is not a constant integer")
+        if step == 0:
+            from ...ir.functions import lookup
+
+            lookup("range").fn(0, 0, 0)
+        a, b = self._int_arg(args[0]), self._int_arg(args[1])
+        valid = a.valid_mask() & b.valid_mask()
+        span = (b.data - a.data) if step > 0 else (a.data - b.data)
+        lens = torch.where(valid & (span >= 0), span // abs(step) + 1, torch.zeros_like(span))
+        total = int(lens.sum())
+        dev = lens.device
+        parent = torch.repeat_interleave(
+            torch.arange(self.n, dtype=torch.int64, device=dev), lens, output_size=total
+        )
+        k = torch.arange(total, dtype=torch.int64, device=dev) - (torch.cumsum(lens, 0) - lens)[parent]
+        child = Column(I64, a.data[parent] + step * k, None)
+        return LS.list_column(lens, child,
+                              None if a.valid is None and b.valid is None else valid)
+
+    def _add_lists(self, l: Column, r: Column) -> Column:
+        """``list + list`` per row, and ``list + value`` / ``value + list``
+        with the value as a one-element list; null if either side is."""
+        valid = _and_valid(l, r)
+        l = l if l.kind == LST else LS.singleton_lists(l)
+        r = r if r.kind == LST else LS.singleton_lists(r)
+        return LS.concat_rows(l, r, valid)
+
+    def _add_strings(self, l: Column, r: Column) -> Column:
+        """String ``+``: a non-string side becomes strings first (once per
+        distinct value, the local oracle's rendering), then the host joins
+        each distinct pair of codes once (``torch.unique`` over the pairs),
+        and one gather maps the rows onto a new sorted vocab."""
+        l, r = self._as_str(l), self._as_str(r)
+        valid = l.valid_mask() & r.valid_mask()
+        rows = torch.nonzero(valid).squeeze(1)
+        pairs = torch.stack([l.data[rows].to(torch.int64), r.data[rows].to(torch.int64)], 1)
+        uniq, inv = torch.unique(pairs, dim=0, return_inverse=True)
+        lv, rv = l.vocab or [], r.vocab or []
+        outs = [lv[a] + rv[b] for a, b in to_host(uniq).tolist()]
+        codes = torch.full((self.n,), -1, dtype=torch.int64, device=l.data.device)
+        codes[rows] = inv
+        return _lut_apply(codes, None if l.valid is None and r.valid is None else valid, outs)
+
+    def _as_str(self, c: Column) -> Column:
+        if c.kind == STR:
+            return c
+        if c.kind in (I64, F64, BOOL):
+            return self._distinct_apply(c, _concat_string)
+        if c.is_all_null():
+            return Column(STR, torch.full((self.n,), -1, dtype=torch.int32, device=c.data.device),
+                          self._falses(), [])
+        raise TpuUnsupportedExpr(f"string concatenation with {c.kind}")
+
+    def _where_nested(self, take, a: Column, b: Column) -> Column:
+        """``where(take, a, b)`` row by row for list, map or element
+        columns: one concatenation (which unifies the kinds) and one
+        gather."""
+        both = b.concat(a)
+        if both.kind == OBJ:
+            raise TpuUnsupportedExpr(f"branches of mixed list, map or element kinds: {_LISTS_ITEM}")
+        rows = torch.arange(self.n, dtype=torch.int64, device=take.device)
+        return both.take(torch.where(take, rows + self.n, rows))
 
     # -- functions ------------------------------------------------------------
 
@@ -503,6 +944,10 @@ class CudaEvaluator:
             raise TpuUnsupportedExpr("randomUUID() has no device column kind")
         if name == "type" and len(expr.args) == 1:
             got = self._rel_type(expr.args[0])
+            if got is not None:
+                return got
+        if name in _LIST_FUNCTIONS and expr.args:
+            got = self._list_function(name, list(expr.args))
             if got is not None:
                 return got
         try:
@@ -666,9 +1111,9 @@ def _fmod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _scalar_constant(value, n: int) -> Column:
-    """A folded constant as a device column; a list, map or temporal value
-    has no device column kind yet."""
-    if value is None or isinstance(value, (bool, int, float, str)):
+    """A folded constant as a device column; a nested or mixed list and a
+    temporal value have no device column kind yet."""
+    if value is None or isinstance(value, (bool, int, float, str, list, tuple, dict)):
         col = constant_column(value, n)
         if col.kind != OBJ:
             return col
@@ -704,13 +1149,50 @@ def _lut_apply(codes, valid, outs: List[Any]) -> Column:
         kind, dtype = F64, np.float64
         outs = [float(o) if o is not None else None for o in outs]
     else:
-        raise TpuUnsupportedExpr(f"non-scalar function result: {_LISTS_ITEM}")
+        # list (or map) results: one value per code, gathered by the codes
+        table = Column.from_values(outs)
+        if table.kind not in NESTED_KINDS:
+            raise TpuUnsupportedExpr(f"a function result of mixed or nested values: {_LISTS_ITEM}")
+        ok = (codes >= 0) if valid is None else (codes >= 0) & valid
+        return table.take_or_null(torch.where(ok, codes.to(torch.int64), 0), ok)
     ok = np.array([o is not None for o in outs] + [False], dtype=bool)
     vals = np.array([o if o is not None else 0 for o in outs] + [0], dtype=dtype)
     vmask = torch.from_numpy(ok).to(dev)[safe]
     if valid is not None:
         vmask = vmask & valid
     return Column(kind, torch.from_numpy(vals).to(dev)[safe], vmask)
+
+
+def _concat_string(v) -> str:
+    """A non-string operand of string ``+`` as the local oracle renders it."""
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    return to_cypher_string(v)
+
+
+def _flag_lists(flags: Dict[str, torch.Tensor], valid, n: int, dev) -> Column:
+    """Per row, the sorted names whose flag is set (``labels``, ``keys``):
+    an LST of STR over the sorted names as its vocab."""
+    names = sorted(flags)
+    if not names:
+        return LS.list_column(torch.zeros(n, dtype=torch.int64, device=dev),
+                              Column(STR, torch.zeros(0, dtype=torch.int32, device=dev), None, []),
+                              valid)
+    mat = torch.stack([flags[k] for k in names], 1)
+    if valid is not None:
+        mat = mat & valid[:, None]
+    rows_cols = torch.nonzero(mat)
+    child = Column(STR, rows_cols[:, 1].to(torch.int32), None, names)
+    return LS.list_column(mat.sum(1), child, valid)
+
+
+def _identity_of(col: Column) -> Tuple[Optional[str], Column]:
+    """(tag, id column) of an element value; (None, ``col``) otherwise."""
+    if col.kind == STRUCT and col.tag in (NODE, REL):
+        return col.tag, Column(I64, col.field("id").data, col.valid)
+    return None, col
 
 
 def _merge_int_flag(take, a: Column, b: Column):

@@ -43,10 +43,10 @@ operator raises, the port has no such shadow: its planner hooks decline
 what the operators do not answer (an empty graph), and an operator
 returns before a gate call that would be empty. Later slices port the
 cuBLAS counterparts of the MXU dense/tiled close counts and the native
-host tiers (ROADMAP.md queue 1, item 2.3). A var-length relationship list
-as a value needs the classic cascade, which needs the compiler's list
-values (ROADMAP.md queue 1, item 6.3):
-the operator raises there.
+host tiers (ROADMAP.md queue 1, item 2.3). ``CsrVarExpandOp`` emits a
+var-length relationship list a query reads as an ``LST`` column built
+from the walk's own edge rows (the reference answers it from the classic
+cascade).
 """
 
 from __future__ import annotations
@@ -62,7 +62,7 @@ from ...runtime.faults import fault_point
 from . import bucketing
 from . import device as _device
 from . import jit_ops as J
-from .column import OBJ, Column, TpuBackendError
+from .column import OBJ, REL, Column, TpuBackendError, struct_column
 from .column import mask_to_idx_bucketed as _mask_to_idx_bucketed
 from .graph_index import CANON_NODE, CANON_REL, GraphIndex, GraphIndexError, rekey_element_expr
 
@@ -339,8 +339,7 @@ class _FusedExpandBase(RelationalOperator):
 
     def _compute_table(self):
         # the reference answers from the classic child when the fused path
-        # raises; the port never answers in the fused operator's place (a
-        # var-length child needs the compiler's list values, item 6.3), so
+        # raises; the port never answers in the fused operator's place, so
         # the error reaches the caller
         return self._fused_table()
 
@@ -373,7 +372,7 @@ class _FusedExpandBase(RelationalOperator):
             dev = {
                 c: (s.data, s.valid, s.int_flag)
                 for c, s in group.items()
-                if s.kind != OBJ and not (mask is not None and len(s) == 0)
+                if s.flat and not (mask is not None and len(s) == 0)
             }
             if dev:
                 if counted:
@@ -1103,10 +1102,12 @@ class CsrVarExpandOp(_FusedExpandBase):
     its surviving rows, which are compacted per level and concatenated once
     at the end.
 
-    The fused path assembles input pass-through columns and target-node
-    columns. A required relationship-list column raises: the reference
-    answers it from the classic cascade, which the port cannot run yet
-    (ROADMAP.md queue 1, item 6.3)."""
+    The fused path assembles input pass-through columns, target-node
+    columns and, when the query reads it, the relationship list: per
+    emitted path the walked edge scan rows of its levels, in path order,
+    as an ``LST`` over a ``relationship`` STRUCT gathered from the
+    canonical relationship scan (the reference answers a relationship list
+    from its classic cascade)."""
 
     def __init__(
         self,
@@ -1207,12 +1208,7 @@ class CsrVarExpandOp(_FusedExpandBase):
         fault_point("var_expand")
         in_op = self.children[0]
         header = self.header
-        for e in header.expressions:
-            if _owner_name(e) == self.rel_fld:
-                raise GraphIndexError(
-                    "var-length rel list required: the classic cascade "
-                    "builds it (ROADMAP.md queue 1, item 6.3)"
-                )
+        rel_list = any(_owner_name(e) == self.rel_fld for e in header.expressions)
         count_only = not header.expressions
         gi = GraphIndex.of(self.graph)
         ctx = self.context
@@ -1238,6 +1234,7 @@ class CsrVarExpandOp(_FusedExpandBase):
         # ``orig != prev`` checks then enforce fixed-vs-var-length
         # relationship isomorphism
         prev_edges: Tuple[Any, ...] = self._forbid_arrays(gi, ctx)
+        nforbid = len(prev_edges)
         total_count = 0
         levels: List[Tuple[Any, Any]] = []
         if self.lower == 0:
@@ -1250,7 +1247,9 @@ class CsrVarExpandOp(_FusedExpandBase):
                 k = int(k_dev)
                 if k:
                     idx = J.mask_nonzero(keep, size=k)
-                    levels.append(J.tree_take((row00, far), idx))
+                    # zero-length walks carry empty relationship lists
+                    walked = (_empty_i64().reshape(k, 0),) if rel_list else ()
+                    levels.append(J.tree_take((row00, far), idx) + walked)
         bucketed = bucketing.enabled()
         for level in range(1, self._resolved_upper(ci) + 1):
             fault_point("var_expand")
@@ -1280,7 +1279,10 @@ class CsrVarExpandOp(_FusedExpandBase):
                         # exact emission gather: pad lanes would enter the
                         # levels' concat as live rows
                         idx = J.mask_nonzero(keep, size=k)
-                        levels.append(J.tree_take((row0, far), idx))
+                        walked = (
+                            (torch.stack(prev_edges[nforbid:], 1)[idx],) if rel_list else ()
+                        )
+                        levels.append(J.tree_take((row0, far), idx) + walked)
             pos, present = nbr, iso
         if count_only:
             return CudaTable({}, total_count)
@@ -1299,10 +1301,11 @@ class CsrVarExpandOp(_FusedExpandBase):
         if not levels:
             row0 = far = _empty_i64()
         elif len(levels) == 1:
-            row0, far = levels[0]
+            row0, far = levels[0][:2]
         else:
-            row0, far = J.concat_rows(tuple(levels))
+            row0, far = J.concat_rows(tuple(lv[:2] for lv in levels))
         n_out = int(row0.shape[0])
+        rel_col = None
         node_cols, node_header, _ = gi.node_scan(self.far_labels, ctx)
         canon_node = E.Var(CANON_NODE)
         plan: Dict[str, Tuple[Column, str]] = {}
@@ -1319,9 +1322,41 @@ class CsrVarExpandOp(_FusedExpandBase):
                     raise GraphIndexError(f"unmapped var-expand target expr {e!r}")
                 plan[col] = (node_cols[node_header.column(key)], "far")
                 continue
+            if e == E.Var(self.rel_fld):
+                rel_col = col
+                continue
             raise GraphIndexError(f"unmapped var-expand expr {e!r}")
         out = self._gather_plan(plan, {"row": row0, "far": far})
+        if rel_col is not None:
+            out[rel_col] = self._rel_list(gi, [lv[2] for lv in levels])
         return CudaTable(out, n_out)
+
+    def _rel_list(self, gi: GraphIndex, walked) -> Column:
+        """The relationship list per emitted path: each level's block holds
+        ``level`` walked edge scan rows per row, in path order; the child is
+        a ``relationship`` STRUCT over the canonical relationship scan's
+        columns read through those rows, gathered only where a field is
+        read (``size(rs)`` reads the lengths alone)."""
+        from .lists import list_column
+
+        rel_cols, rel_header = gi.rel_scan(self.types_key, self.context)
+        canon = E.Var(CANON_REL)
+        owned = rel_header.expressions_for(canon)
+        exprs = [("id", rel_header.id_expr(canon))]
+        exprs += [(n, next(e for e in owned if isinstance(e, c)))
+                  for n, c in (("start", E.StartNode), ("end", E.EndNode))]
+        exprs += [("type:" + f.rel_type, f) for f in rel_header.types_for(canon)]
+        exprs += [("prop:" + p.key, p) for p in rel_header.properties_for(canon)]
+        rows = torch.cat([w.reshape(-1) for w in walked]) if walked else _empty_i64()
+        lens = torch.cat([
+            torch.full((int(w.shape[0]),), int(w.shape[1]), dtype=torch.int64, device=w.device)
+            for w in walked
+        ]) if walked else _empty_i64()
+        child = struct_column(
+            {n: rel_cols[rel_header.column(e)] for n, e in exprs},
+            int(rows.shape[0]), None, REL, device=rows.device, rows=rows,
+        )
+        return list_column(lens, child)
 
 
 def plan_expand_fastpath(planner, op, lhs, rhs, classic) -> Optional[RelationalOperator]:

@@ -9,10 +9,13 @@ goes through the ``join_probe`` kernel), ``union_all`` (with kind
 promotion), ``distinct``, ``order_by``, ``skip``, ``limit``,
 ``with_row_index``, ``group`` (grouped and global aggregates, count, sum,
 min and max through the ``segment_agg`` kernel), ``rows``/
-``column_values`` and ``cache`` — plus the ``order_by_limit`` and
+``column_values`` and ``cache``, ``explode`` (UNWIND, on the
+``expand_rows`` gate) and ``from_rows`` — plus the ``order_by_limit`` and
 ``distinct_count`` hooks and the planner's fused-expand and
-multiway-intersect hooks. ``explode`` raises ``NotImplementedError``
-naming the ROADMAP.md item that ports it.
+multiway-intersect hooks. List and element columns (``LST``, ``STRUCT``)
+group, deduplicate and order through a scalar key column
+(``lists.key_column``: an element's id, a list's dense rank), and
+``collect`` builds its lists on the device.
 
 The reference answers an expression or aggregate it cannot compile with a
 host island on its local oracle. The port keeps no host island: such a
@@ -33,33 +36,22 @@ from ...runtime.faults import fault_point
 from . import bucketing
 from . import device as _device
 from . import jit_ops as J
+from . import lists as LS
 from .column import (
     BOOL,
     F64,
     I64,
     INTEGRAL_KINDS,
+    LST,
+    NESTED_KINDS,
     OBJ,
     STR,
     Column,
     TpuBackendError,
-    _obj_array,
     _unify_vocab,
     to_host,
 )
 from .compiler import CudaEvaluator, TpuUnsupportedExpr
-
-# ROADMAP.md queue 1 items that port the SPI methods this slice leaves out
-_NEXT_SLICE = "queue 1, item 6.3 (explode, from_rows and list values)"
-
-
-def _not_ported(method: str, item: str = _NEXT_SLICE):
-    def fn(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"CudaTable.{method} is not ported yet: ROADMAP.md {item}"
-        )
-
-    fn.__name__ = method
-    return fn
 
 
 class CudaTable(Table):
@@ -86,6 +78,12 @@ class CudaTable(Table):
     @staticmethod
     def from_columns(cols: Dict[str, List[Any]]) -> "CudaTable":
         return CudaTable({c: Column.from_values(v) for c, v in cols.items()})
+
+    @staticmethod
+    def from_rows(columns: Sequence[str], rows: Sequence[Sequence[Any]]) -> "CudaTable":
+        return CudaTable.from_columns(
+            {c: [r[i] for r in rows] for i, c in enumerate(columns)}
+        )
 
     @staticmethod
     def from_numpy(cols: Dict[str, Any]) -> "CudaTable":
@@ -176,12 +174,12 @@ class CudaTable(Table):
         dev = {
             c: (col.data, col.valid, col.int_flag)
             for c, col in self._cols.items()
-            if col.kind != OBJ
+            if col.flat
         }
         taken = J.cols_take(dev, idx) if dev else {}
         out: Dict[str, Column] = {}
         for c, col in self._cols.items():
-            if col.kind == OBJ:
+            if not col.flat:
                 out[c] = col.take(idx)
             else:
                 d, v, i = taken[c]
@@ -212,8 +210,8 @@ class CudaTable(Table):
         fault_point("filter")
         t = self._depad()
         c = CudaEvaluator(t, header, parameters).eval(expr)
-        if c.kind == OBJ:
-            raise TpuUnsupportedExpr("object-valued filter predicate")
+        if not c.flat:
+            raise TpuUnsupportedExpr(f"filter predicate of kind {c.kind}")
         idx, _ = J.mask_to_idx(J.and_valid_mask(c.data, c.valid))
         return t._take(idx)
 
@@ -255,8 +253,10 @@ class CudaTable(Table):
         """The reference answers object-valued keys on its host oracle; the
         port keeps no host path, so they raise."""
         for l, r in join_cols:
-            if OBJ in (self._cols[l].kind, other._cols[r].kind):
-                raise TpuUnsupportedExpr("join on object-valued keys")
+            if not (self._cols[l].flat and other._cols[r].flat):
+                raise TpuUnsupportedExpr(
+                    f"join on object, list or map keys: {LS.NESTED_ITEM}"
+                )
         return self._join_device(other, kind, join_cols)
 
     @staticmethod
@@ -402,7 +402,7 @@ class CudaTable(Table):
             dev = {
                 c: (col.data, col.valid, col.int_flag)
                 for c, col in cols.items()
-                if col.kind != OBJ and (in_bounds is None or len(col) > 0)
+                if col.flat and (in_bounds is None or len(col) > 0)
             }
             if not dev:
                 taken = {}
@@ -474,7 +474,7 @@ class CudaTable(Table):
             return None
         cols = [self._cols[c] for c, _ in items]
         if any(c.kind not in INTEGRAL_KINDS for c in cols):
-            return None
+            return None  # a list or element key sorts through order_by
         k = min(k, n)
         datas = tuple(c.data for c in cols)
         valids = tuple(c.valid for c in cols)
@@ -507,7 +507,7 @@ class CudaTable(Table):
             raise TpuUnsupportedExpr("ORDER BY on object-valued keys")
         if not items:
             return self
-        cols = [self._cols[c] for c, _ in items]
+        cols = [self._key_col(c) for c, _ in items]
         idx = J.order_permutation(
             tuple(c.data for c in cols),
             tuple(c.valid for c in cols),
@@ -518,6 +518,11 @@ class CudaTable(Table):
 
     # -- distinct / group factorization ------------------------------------
 
+    def _key_col(self, c: str) -> Column:
+        """Column ``c`` as a key: itself, or for a list or element column
+        the scalar column that orders and equates as it does."""
+        return LS.key_column(self._cols[c])
+
     def _first_occurrence_index(self, on: Sequence[str], extra_keys: Sequence[Any] = ()):
         """Stable lexsort over Cypher-equivalence keys -> (sorted row order,
         first-of-group flags over the sorted order, device group count).
@@ -525,9 +530,10 @@ class CudaTable(Table):
         ``extra_keys`` are higher-priority keys (a group index for DISTINCT
         aggregates). All-integer key sets whose ranges fit 63 bits sort as
         one packed key."""
-        datas = tuple(self._cols[c].data for c in on)
-        valids = tuple(self._cols[c].valid for c in on)
-        kinds = tuple(self._cols[c].kind for c in on)
+        cols = [self._key_col(c) for c in on]
+        datas = tuple(c.data for c in cols)
+        valids = tuple(c.valid for c in cols)
+        kinds = tuple(c.kind for c in cols)
         extras = tuple(extra_keys)
         pack = self._equiv_pack(datas, valids, kinds, extras, min_keys=2)
         return J.equivalence_sort(datas, valids, extras, kinds, pack=pack)
@@ -566,9 +572,10 @@ class CudaTable(Table):
             return 0
         # one scalar sync: an agg-class device sync, so the agg fault site
         fault_point("agg")
-        datas = tuple(self._cols[c].data for c in cols)
-        valids = tuple(self._cols[c].valid for c in cols)
-        kinds = tuple(self._cols[c].kind for c in cols)
+        keys = [self._key_col(c) for c in cols]
+        datas = tuple(c.data for c in keys)
+        valids = tuple(c.valid for c in keys)
+        kinds = tuple(c.kind for c in keys)
         pack = self._equiv_pack(datas, valids, kinds, (), min_keys=1)
         if pack is not None:
             return int(J.distinct_count_packed(datas, valids, (), kinds, pack))
@@ -658,6 +665,16 @@ class CudaTable(Table):
             col = ev.identity(agg.expr) if name == "count" else ev.eval(agg.expr)
             if col.kind == OBJ:
                 raise TpuUnsupportedExpr("object-valued aggregation input")
+            if col.kind in NESTED_KINDS:
+                if name == "count" and agg.distinct:
+                    # a list's dense rank or an element's id, each keeping
+                    # its nulls; a map raises (no key for it yet)
+                    col = LS.key_column(col)
+                elif name == "count":  # counts the non-null lists or maps
+                    mask = col.valid_mask()
+                    col = Column(BOOL, mask, mask)
+                elif name != "collect":
+                    raise TpuUnsupportedExpr(f"{name} over {col.kind}: {LS.NESTED_ITEM}")
             seg_a, col_a = seg_j, col
             if agg.distinct or name in ("collect", "percentilecont", "percentiledisc"):
                 if seg_a is None:  # these take explicit ids, all in group 0
@@ -665,7 +682,8 @@ class CudaTable(Table):
                 if agg.distinct:
                     seg_a, col_a = self._dedup_seg_values(seg_a, col)
             if name == "collect":
-                out_cols[out_col] = _collect(seg_a, col_a, k)
+                fault_point("agg")
+                out_cols[out_col] = LS.collect(seg_a, col_a, k)
             elif name in ("percentilecont", "percentiledisc"):
                 out_cols[out_col] = _percentile(name, agg, seg_a, col_a, k, parameters)
             else:
@@ -681,7 +699,9 @@ class CudaTable(Table):
         for out_col, agg in aggregations:
             name = agg.name.lower()
             if name == "collect":
-                out_cols[out_col] = Column(OBJ, _obj_array([]), None)
+                out_cols[out_col] = LS.list_column(
+                    torch.zeros(0, dtype=torch.int64, device=_device.get()), _empty_column(I64)
+                )
                 continue
             if name == "count" or agg.expr is None:
                 kind = I64
@@ -721,9 +741,30 @@ class CudaTable(Table):
         out_kind = F64 if name in ("avg", "stdev", "stdevp") else kind
         return Column(out_kind, out_data, out_valid, col.vocab, int_flag=out_iflag)
 
-    # -- not ported yet ----------------------------------------------------
+    # -- UNWIND ------------------------------------------------------------
 
-    explode = _not_ported("explode")
+    def explode(self, expr, col: str, header, parameters) -> "CudaTable":
+        """UNWIND: a list column's elements, row by row, as one CSR expand
+        materialize on the ``expand_rows`` gate — the list starts are the row
+        pointers, the valid rows the frontier, the lengths the degrees;
+        each lane gathers the other columns by its row and the element by
+        its child position. A null list gives no row; a value that is not a
+        list unwinds to itself. The reference decodes the list column on
+        the host here."""
+        t = self._depad()
+        c = CudaEvaluator(t, header, parameters).eval(expr)
+        if c.kind == OBJ:
+            raise TpuUnsupportedExpr(f"UNWIND of object values: {LS.NESTED_ITEM}")
+        if c.kind == LST:
+            pos = torch.nonzero(c.valid_mask() & (c.lengths() > 0)).squeeze(1)
+            row, child_pos = LS.segment_lanes(c.starts(), pos, c.lengths()[pos], len(c.child))
+            rows, value = pos[row], c.child.take(child_pos)
+        else:
+            rows = torch.nonzero(c.valid_mask()).squeeze(1)
+            value = c.take(rows)
+        out = t._take(rows)
+        out._cols[col] = value
+        return out
 
     def __repr__(self) -> str:
         return f"CudaTable({self._nrows} rows, cols={self.physical_columns})"
@@ -771,19 +812,6 @@ def _empty_column(kind: str) -> Column:
     dtype = {I64: torch.int64, F64: torch.float64, BOOL: torch.bool, STR: torch.int32}[kind]
     return Column(kind, torch.zeros(0, dtype=dtype, device=_device.get()), None,
                   [] if kind == STR else None)
-
-
-def _collect(seg_j, col: Column, k: int) -> Column:
-    """collect per group: host lists by definition, so only this column
-    decodes (the reference does the same)."""
-    fault_point("agg")
-    vals = col.to_values()
-    valid = to_host(col.valid) if col.valid is not None else None
-    lists: List[List[Any]] = [[] for _ in range(k)]
-    for i, g in enumerate(to_host(seg_j).tolist()):
-        if valid is None or valid[i]:
-            lists[g].append(vals[i])
-    return Column(OBJ, _obj_array(lists), None)
 
 
 def _percentile(name: str, agg, seg_j, col: Column, k: int, parameters) -> Column:
