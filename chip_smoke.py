@@ -121,10 +121,29 @@ Phases (any failure exits non-zero and prints no result line):
             blowup estimate lies under ``TPU_CYPHER_WCOJ_MIN_ROWS``) and
             SF10 (WCOJ); and
             the ``segment_agg`` gate's ``min`` at Q14's group ids (about
-            100,000 groups: the ``fallback`` tier).
+            100,000 groups: the ``fallback`` tier);
+6. serving — the serving tier on the card (``scripts/serve_smoke.py``,
+            whose docstring has the detail): a ``QueryServer`` on
+            ``CypherSession.cuda()`` over SF10 and SF1 generated anew, 16
+            TCP clients over a fixed mix (the 2-hop count over a source
+            window, IS3, the top 20 by degree, the SF1 triangle count, a
+            ``*1..2`` walk count), every answer held to numpy/scipy truth
+            and to a serial run, the pool's lanes on distinct CUDA streams;
+            a burst coalesced into one dispatch, a cache hit with no launch,
+            SF1's single-hop rows streamed chunk by chunk, a query over the
+            memory budget rejected; an SF1 ``MutableGraph`` with a WAL
+            under 8 clients with one write in ten, each write read back, a
+            compaction, the store equal to its WAL rebuild; and a
+            ``ClusterServer`` of 2 worker processes on the card, one
+            SIGKILLed mid-run, every answer exact and every write read back
+            after the restart. It prints queries/s and p50/p99 latencies
+            (host clock) per kind, its launches per (kernel, tier) and each
+            worker's peak device memory.
 
 The kernel launch counts are zeroed just before phase 4 and read just after
-it; the comparisons of phase 3 and the runs of phase 5 do not count. The line before the last is
+it; the comparisons of phase 3 and the runs of phase 5 do not count. Phase
+6 zeroes them again before its in-process server and reads them after its
+writes, for its own line. The line before the last is
 the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -2750,6 +2769,17 @@ def time_q14_fallback(torch, g10, q14_truth, report):
           f"bound {b_ms:.4f} ms ({b_by})")
 
 
+def serve_smoke(torch, session, tri1):
+    """Phase 6, from ``scripts/serve_smoke.py`` beside this script."""
+    import importlib.util
+
+    path = os.path.join(HERE, "scripts", "serve_smoke.py")
+    spec = importlib.util.spec_from_file_location("serve_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    module.run(sys.modules[__name__], torch, session, tri_small=tri1)
+
+
 def main() -> int:
     try:
         import torch
@@ -3101,6 +3131,9 @@ def main() -> int:
             print(f"    {name} auto: plans {plan}, {want} triangles")
 
     time_q14_fallback(torch, g10, truth["Q14"], report)
+
+    # 6. the serving tier on the card
+    serve_smoke(torch, session, tri1["triangles"])
 
     specs = dispatch.registry()
     kernels = []

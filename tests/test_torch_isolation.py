@@ -1,11 +1,14 @@
 """The port stands alone: ``tpu_cypher_torch`` (and ``chip_smoke.py`` and
-``scripts/kernel_ab.py``, which drive it on the card) import neither
+the ``scripts/`` that drive it on the card) import neither
 ``jax`` nor the JAX package.
 
-Two checks: a subprocess that blocks ``jax``, ``jaxlib`` and ``tpu_cypher``
-on ``sys.meta_path`` and still imports the port and answers the single-hop
-count on the CPU; and an AST scan that fails on any import of those
-modules anywhere in the port's sources or those scripts.
+Three checks: a subprocess that blocks ``jax``, ``jaxlib`` and
+``tpu_cypher`` on ``sys.meta_path`` and still imports the port and answers
+the single-hop count on the CPU; another that imports every module of the
+serving tier (``tpu_cypher_torch/serve/``) under the same block and
+answers a query through a ``QueryServer`` over TCP; and an AST scan that
+fails on any import of those modules anywhere in the port's sources or
+those scripts.
 """
 
 import ast
@@ -58,13 +61,62 @@ def test_port_runs_with_jax_and_reference_blocked():
     assert "COUNT 8950" in out.stdout, out.stdout
 
 
+_SERVE_CHILD = _CHILD.split("session = CypherSession")[0] + r"""
+import asyncio
+import json
+
+import tpu_cypher_torch.serve as S
+from tpu_cypher_torch.serve import (  # noqa: F401
+    __main__, batching, cluster, result_cache, router, scheduler, server,
+    session_pool, supervisor, wire, worker,
+)
+
+session = CypherSession.cuda(device="cpu")
+graph = session.create_graph_from_create_query(
+    "CREATE (a:P {id: 1})-[:K]->(b:P {id: 2})")
+
+
+async def main():
+    async with S.QueryServer(session, port=0) as srv:
+        srv.register_graph("g", graph)
+        reader, writer = await asyncio.open_connection(srv.host, srv.port)
+        writer.write(json.dumps({"op": "submit", "id": "q", "graph": "g",
+                                 "query": "MATCH (a)-[:K]->(b) RETURN b.id AS id"}
+                                ).encode() + b"\n")
+        rows = []
+        while True:
+            msg = json.loads(await reader.readline())
+            if msg["type"] == "rows":
+                rows += msg["rows"]
+            if msg["type"] in ("done", "error"):
+                writer.close()
+                return msg["type"], rows
+
+
+print("SERVED", asyncio.run(main()))
+assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+"""
+
+
+def test_serving_tier_runs_with_jax_and_reference_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run(
+        [sys.executable, "-c", _SERVE_CHILD], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "SERVED ('done', [{'id': 2}])" in out.stdout, out.stdout
+
+
 def _port_sources():
     for base, _, files in os.walk(os.path.join(ROOT, "tpu_cypher_torch")):
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(base, f)
     yield os.path.join(ROOT, "chip_smoke.py")
-    yield os.path.join(ROOT, "scripts", "kernel_ab.py")
+    for name in ("kernel_ab.py", "query_ab.py", "serve_smoke.py"):
+        yield os.path.join(ROOT, "scripts", name)
 
 
 def _blocked(name: str) -> bool:

@@ -356,8 +356,24 @@ class Column:
         return vals
 
     def to_values_range(self, lo: int, hi: int) -> List[Any]:
-        """Decode rows ``lo:hi`` only."""
-        return self.slice(lo, min(hi, len(self))).to_values()
+        """Decode rows ``[lo, hi)`` only: the chunked decode step of cursor
+        streaming (``CudaTable.rows_chunked``). A scalar column decodes its
+        slice of the host arrays ``_host_arrays`` fetched once for the
+        column's lifetime; a list or struct column decodes a device slice
+        of itself, so a chunk copies only the elements its rows hold."""
+        hi = min(hi, len(self))
+        if self.kind == OBJ:
+            return list(self.data[lo:hi])
+        if self.kind in NESTED_KINDS:
+            return self.slice(lo, hi).to_values()
+        data, valid, iflag = self._host_arrays()
+        return _decode_host(
+            self.kind,
+            data[lo:hi],
+            valid[lo:hi] if valid is not None else None,
+            iflag[lo:hi] if iflag is not None else None,
+            self.vocab,
+        )
 
     def _decode_nested(self) -> List[Any]:
         n = len(self)

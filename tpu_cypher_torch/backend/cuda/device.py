@@ -7,7 +7,10 @@ sets it through ``use``: ``None`` means ``cuda:0`` and requires CUDA;
 on the host. Without CUDA and without an explicit CPU request ``use``
 raises instead of carrying on quietly on the host.
 
-Process-global, like the graph ingest it decides the placement of."""
+Process-global, like the graph ingest it decides the placement of.
+Serving threads each run their queries on a stream of their own
+(``serve/session_pool.py``); a cache filled on one thread's stream and
+read from another's is published only after ``fence``."""
 
 from __future__ import annotations
 
@@ -66,3 +69,14 @@ def generator(device: torch.device) -> torch.Generator:
         g.seed()
         g = _GENERATORS.setdefault(device, g)
     return g
+
+
+def fence() -> None:
+    """Wait until the work this thread queued on the backend's device is
+    done. Called before a lazily built device structure (a graph's CSR,
+    a snapshot's scan tables) is published to other threads: they run on
+    other CUDA streams, which do not wait for this thread's queue. Nothing
+    to wait for on the CPU."""
+    d = _DEVICE
+    if d is not None and d.type == "cuda":
+        torch.cuda.current_stream(d).synchronize()

@@ -19,6 +19,15 @@ query (``GraphIndex.of(graph)`` hangs the cache off the graph object):
   dst`` key of each canonical scan row, for the closing probe's
   relationship uniqueness)
 
+Serving threads share one index (``serve/session_pool.py`` runs each on
+its own CUDA stream). An accessor returns a filled entry without a lock;
+on a miss it fills under the index's lock, so two first queries build a
+CSR once while the second waits. A fill fences its stream before it
+stores an entry (``_publish``), so no thread reads a structure another
+thread's stream is still writing. ``GraphIndex.of`` creates one index
+per graph under a module lock. The reference hangs its cache off the
+graph with no lock.
+
 The reference's host edge bitmap (``edge_bitmap``) is not ported: the
 closing probe keeps the sorted-key form on every device, so the CPU runs
 the path the card runs. The dense forms (``dense_adj``, ``dense_tiles``)
@@ -27,6 +36,8 @@ belong to ROADMAP.md queue 1, item 2.3.
 
 from __future__ import annotations
 
+import functools
+import threading
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -75,6 +86,29 @@ def rekey_element_expr(e: E.Expr, canon: E.Var) -> Optional[E.Expr]:
     return None
 
 
+_OF_LOCK = threading.Lock()
+
+
+def _cached(peek):
+    """A cache accessor: ``peek(self, *args)`` returns its filled entry
+    (or ``None``) with no lock, since entries are stored only after the
+    filling stream is fenced; a miss runs the accessor, which checks again,
+    under the index's lock."""
+
+    def wrap(method):
+        @functools.wraps(method)
+        def run(self, *args, **kwargs):
+            got = peek(self, *args, **kwargs)
+            if got is not None:
+                return got
+            with self._lock:
+                return method(self, *args, **kwargs)
+
+        return run
+
+    return wrap
+
+
 class GraphIndex:
     """CSR + canonical-scan cache for one RelationalCypherGraph."""
 
@@ -82,15 +116,19 @@ class GraphIndex:
     def of(graph) -> "GraphIndex":
         gi = getattr(graph, "_cuda_graph_index", None)
         if gi is None:
-            gi = GraphIndex(graph)
-            try:
-                graph._cuda_graph_index = gi
-            except AttributeError:  # exotic graph impl without __dict__
-                pass
+            with _OF_LOCK:
+                gi = getattr(graph, "_cuda_graph_index", None)
+                if gi is None:
+                    gi = GraphIndex(graph)
+                    try:
+                        graph._cuda_graph_index = gi
+                    except AttributeError:  # exotic graph impl without __dict__
+                        pass
         return gi
 
     def __init__(self, graph):
         self.graph = graph
+        self._lock = threading.RLock()
         self._node_ids: Optional[Tuple[Any, np.ndarray]] = None
         # labels_key -> (cols, header, row_map)
         self._node_scans: Dict[Tuple[str, ...], Tuple[Dict, Any, Any]] = {}
@@ -117,8 +155,16 @@ class GraphIndex:
         # labels_key -> host row_map copy
         self._row_map_np: Dict[Tuple[str, ...], np.ndarray] = {}
 
+    def _publish(self, cache: Dict, key, value):
+        """Store a filled entry once this thread's device work is done:
+        other lanes read it, with no lock, on streams of their own."""
+        _device.fence()
+        cache[key] = value
+        return value
+
     # -- nodes -------------------------------------------------------------
 
+    @_cached(lambda self, ctx: self._node_ids)
     def node_ids(self, ctx) -> Tuple[Any, np.ndarray]:
         """(device sorted unique int64 ids, host copy)."""
         if self._node_ids is None:
@@ -132,6 +178,7 @@ class GraphIndex:
             raise GraphIndexError("node ids not built yet")
         return int(self._node_ids[0].shape[0])
 
+    @_cached(lambda self, labels, ctx: self._node_scans.get(tuple(sorted(labels))))
     def node_scan(self, labels: Tuple[str, ...], ctx):
         """Canonical node scan for a label set: (columns, header, row_map).
         ``row_map[compact_id]`` = row index into the scan's columns, or -1
@@ -155,7 +202,9 @@ class GraphIndex:
                 sorted_ids = np.sort(ids_np)
                 if len(sorted_ids) and (sorted_ids[1:] == sorted_ids[:-1]).any():
                     raise GraphIndexError("duplicate node ids")
-                self._node_ids = (to_device(sorted_ids), sorted_ids)
+                dev_ids = to_device(sorted_ids)
+                _device.fence()
+                self._node_ids = (dev_ids, sorted_ids)
         _, all_ids = self._node_ids
         n = len(all_ids)
         pos = np.searchsorted(all_ids, ids_np)
@@ -165,10 +214,9 @@ class GraphIndex:
         row_map = np.full(n, -1, dtype=np.int64)
         row_map[pos] = np.arange(len(ids_np), dtype=np.int64)
         self._row_map_np[key] = row_map
-        out = (table._cols, header, to_device(row_map))
-        self._node_scans[key] = out
-        return out
+        return self._publish(self._node_scans, key, (table._cols, header, to_device(row_map)))
 
+    @_cached(lambda self, labels, ctx: self._label_mask.get(tuple(sorted(labels))))
     def label_mask(self, labels: Tuple[str, ...], ctx) -> Optional[Any]:
         """Device bool[num_nodes]: node carries the label set. ``None`` for
         the empty set (every node qualifies)."""
@@ -177,7 +225,7 @@ class GraphIndex:
             return None
         if key not in self._label_mask:
             self.node_scan(key, ctx)
-            self._label_mask[key] = to_device(self._row_map_np[key] >= 0)
+            self._publish(self._label_mask, key, to_device(self._row_map_np[key] >= 0))
         return self._label_mask[key]
 
     # -- relationships -----------------------------------------------------
@@ -186,6 +234,7 @@ class GraphIndex:
     def types_key(types) -> Tuple[str, ...]:
         return tuple(sorted(types)) if types else ()
 
+    @_cached(lambda self, types_key, ctx: self._rel_scans.get(types_key))
     def rel_scan(self, types_key: Tuple[str, ...], ctx):
         """Canonical relationship scan: (columns, header)."""
         got = self._rel_scans.get(types_key)
@@ -194,11 +243,10 @@ class GraphIndex:
         op = self.graph.scan_operator(
             CANON_REL, T.CTRelationshipType(frozenset(types_key)), ctx
         )
-        out = (op.table._cols, op.header)
-        self._rel_scans[types_key] = out
         self._rel_sizes[types_key] = op.table.size
-        return out
+        return self._publish(self._rel_scans, types_key, (op.table._cols, op.header))
 
+    @_cached(lambda self, types_key, ctx: self._rel_id_index.get(types_key))
     def rel_row_index(self, types_key: Tuple[str, ...], ctx):
         """(sorted int64 relationship ids, int64 canonical scan row of each)
         device tensors: the bridge from a relationship element id to the
@@ -211,8 +259,8 @@ class GraphIndex:
             id_col = cols[header.column(header.id_expr(header.var(CANON_REL)))]
             ids = _host_logical(id_col, n)
             order = np.argsort(ids, kind="stable").astype(np.int64)
-            got = (to_device(ids[order]), to_device(order))
-            self._rel_id_index[types_key] = got
+            got = self._publish(self._rel_id_index, types_key,
+                                (to_device(ids[order]), to_device(order)))
         return got
 
     def _edge_endpoints(self, types_key: Tuple[str, ...], ctx):
@@ -260,6 +308,7 @@ class GraphIndex:
         row_ptr = np.searchsorted(a_sorted, np.arange(n + 1)).astype(np.int32)
         return row_ptr, order, a_sorted
 
+    @_cached(lambda self, types_key, reverse, ctx: self._csr.get((types_key, reverse)))
     def csr(self, types_key: Tuple[str, ...], reverse: bool, ctx):
         """(row_ptr, col_idx, edge_orig) int32/int32/int64 device tensors
         for one orientation of one relationship-type set."""
@@ -276,29 +325,30 @@ class GraphIndex:
         a, b = (d, s) if reverse else (s, d)
         row_ptr, order, a_sorted = self._sorted_csr(a, b, n)
         b_sorted = b[order]
+        key = (types_key, reverse)
         out = (
             to_device(row_ptr),
             to_device(b_sorted.astype(np.int32)),
             to_device(order.astype(np.int64)),
         )
-        self._csr[(types_key, reverse)] = out
-        self._csr_deg[(types_key, reverse)] = (
-            int(np.diff(row_ptr).max()) if n else 0, int(len(s))
-        )
         # this orientation is lexsorted by (a, b), so the a*N + b keys come
         # out sorted from the same order as col_idx/edge_orig: key position
         # i is CSR position i (the WCOJ materialize reads eo[lo + k]). The
         # CSR is unpadded, so the keys are too (no 1 << 62 sentinel lanes)
-        self._edge_keys[(types_key, reverse)] = to_device(
-            a_sorted.astype(np.int64) * n + b_sorted.astype(np.int64)
-        )
+        keys = to_device(a_sorted.astype(np.int64) * n + b_sorted.astype(np.int64))
+        loops = None
         if not reverse and types_key not in self._loop_count:
-            loops = s[s == d]
-            self._loop_count[types_key] = to_device(
-                np.bincount(loops, minlength=n).astype(np.int64)
-            )
+            loops = to_device(np.bincount(s[s == d], minlength=n).astype(np.int64))
+        _device.fence()  # one fence publishes every entry of this build
+        self._csr_deg[key] = (int(np.diff(row_ptr).max()) if n else 0, int(len(s)))
+        self._edge_keys[key] = keys
+        if loops is not None:
+            self._loop_count[types_key] = loops
+        self._csr[key] = out
         return out
 
+    @_cached(lambda self, types_key, reverse, ctx:
+             self._csr_deg.get((types_key, reverse)))
     def csr_degree_stats(
         self, types_key: Tuple[str, ...], reverse: bool, ctx
     ) -> Tuple[int, int]:
@@ -308,6 +358,7 @@ class GraphIndex:
             self.csr(types_key, reverse, ctx)
         return self._csr_deg[(types_key, reverse)]
 
+    @_cached(lambda self, types_key, ctx: self._csr_und.get(types_key))
     def csr_undirected(self, types_key: Tuple[str, ...], ctx):
         """(row_ptr, col_idx, edge_orig) of the both-orientation graph of one
         type set: every relationship contributes an edge from each endpoint
@@ -334,15 +385,17 @@ class GraphIndex:
                 to_device(b[order].astype(np.int32)),
                 to_device(eo[order]),
             )
-        self._csr_und[types_key] = got
-        return got
+        return self._publish(self._csr_und, types_key, got)
 
+    @_cached(lambda self, types_key, ctx: self._loop_count.get(types_key))
     def loop_count(self, types_key: Tuple[str, ...], ctx):
         """Device int64[num_nodes]: self-loop edges per node."""
         if types_key not in self._loop_count:
             self.csr(types_key, False, ctx)
         return self._loop_count[types_key]
 
+    @_cached(lambda self, types_key, ctx, reverse=False:
+             self._edge_keys.get((types_key, reverse)))
     def edge_keys(self, types_key: Tuple[str, ...], ctx, reverse: bool = False):
         """Sorted int64 device keys for the WCOJ range probes: (src*N + dst)
         forward, (dst*N + src) with ``reverse=True``."""
@@ -350,6 +403,7 @@ class GraphIndex:
             self.csr(types_key, reverse, ctx)
         return self._edge_keys[(types_key, reverse)]
 
+    @_cached(lambda self, types_key, ctx: self._keys_by_orig.get(types_key))
     def edge_keys_by_orig(self, types_key: Tuple[str, ...], ctx):
         """int64[num_rels] device tensor: the (src*N + dst) probe key of each
         canonical rel-scan row, sized exactly. ``into_close_count_unique``
@@ -360,9 +414,9 @@ class GraphIndex:
         got = self._keys_by_orig.get(types_key)
         if got is None:
             s, d, n = self._edge_endpoints(types_key, ctx)
-            got = self._keys_by_orig[types_key] = to_device(
+            got = self._publish(self._keys_by_orig, types_key, to_device(
                 s.astype(np.int64) * n + d.astype(np.int64)
-            )
+            ))
         return got
 
     # -- id -> compact mapping --------------------------------------------

@@ -16,6 +16,7 @@ an explicit ``build_all()``) does it.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -84,41 +85,52 @@ def build_all() -> Dict[str, float]:
     with _LOCK:
         out_dir = build_dir()
         os.makedirs(out_dir, exist_ok=True)
-        procs = {}
-        t0 = time.perf_counter()
-        for src in sources():
-            name = os.path.splitext(os.path.basename(src))[0]
-            if name in _BUILD_SECONDS:
-                continue
-            if os.path.isfile(_lib_path(out_dir, name)):
-                _BUILD_SECONDS[name] = 0.0
-                continue
-            tmp = _lib_path(out_dir, f"{name}.{os.getpid()}.tmp")
-            log = open(os.path.join(out_dir, f"{name}.log"), "w")
-            procs[name] = (
-                subprocess.Popen(
-                    [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
-                    stdout=log,
-                    stderr=subprocess.STDOUT,
-                ),
-                tmp,
-                log,
-            )
-        failed = []
-        for name, (proc, tmp, log) in procs.items():
-            rc = proc.wait()
-            log.close()
-            secs = time.perf_counter() - t0
-            if rc != 0:
-                with open(log.name) as f:
-                    failed.append(f"{name} (nvcc exit {rc}):\n{f.read()}")
-                continue
-            os.replace(tmp, _lib_path(out_dir, name))
-            _BUILD_SECONDS[name] = secs
-            bucketing.note_build(secs)
-        if failed:
-            raise KernelBuildError("kernel build failed: " + "\n".join(failed))
-        return dict(_BUILD_SECONDS)
+        # serving worker processes start together and build into the same
+        # directory: one builds while the others wait on the file lock,
+        # then find its libraries ready (the lock dies with its process)
+        with open(os.path.join(out_dir, "build.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            return _build_locked(out_dir, bucketing)
+
+
+def _build_locked(out_dir: str, bucketing) -> Dict[str, float]:
+    """Build every missing library into ``out_dir``; the caller holds the
+    thread lock and the directory's file lock."""
+    procs = {}
+    t0 = time.perf_counter()
+    for src in sources():
+        name = os.path.splitext(os.path.basename(src))[0]
+        if name in _BUILD_SECONDS:
+            continue
+        if os.path.isfile(_lib_path(out_dir, name)):
+            _BUILD_SECONDS[name] = 0.0
+            continue
+        tmp = _lib_path(out_dir, f"{name}.{os.getpid()}.tmp")
+        log = open(os.path.join(out_dir, f"{name}.log"), "w")
+        procs[name] = (
+            subprocess.Popen(
+                [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
+                stdout=log,
+                stderr=subprocess.STDOUT,
+            ),
+            tmp,
+            log,
+        )
+    failed = []
+    for name, (proc, tmp, log) in procs.items():
+        rc = proc.wait()
+        log.close()
+        secs = time.perf_counter() - t0
+        if rc != 0:
+            with open(log.name) as f:
+                failed.append(f"{name} (nvcc exit {rc}):\n{f.read()}")
+            continue
+        os.replace(tmp, _lib_path(out_dir, name))
+        _BUILD_SECONDS[name] = secs
+        bucketing.note_build(secs)
+    if failed:
+        raise KernelBuildError("kernel build failed: " + "\n".join(failed))
+    return dict(_BUILD_SECONDS)
 
 
 def build_log(name: str) -> Optional[str]:

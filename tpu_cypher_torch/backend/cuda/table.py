@@ -149,6 +149,22 @@ class CudaTable(Table):
         for i in range(self._nrows):
             yield {c: v[i] for c, v in decoded.items()}
 
+    def rows_chunked(self, chunk_rows: int) -> Iterator[List[Dict[str, Any]]]:
+        """Yield row dicts in batches of ``chunk_rows`` without decoding the
+        whole result: per chunk each column decodes only its ``[lo, hi)``
+        rows (``Column.to_values_range``). Cursor streaming
+        (``records.iter_chunks``) runs on this, so its host memory stays
+        one chunk however large the result."""
+        chunk_rows = max(int(chunk_rows), 1)
+        for lo in range(0, self._nrows, chunk_rows):
+            hi = min(lo + chunk_rows, self._nrows)
+            decoded = {
+                c: col.to_values_range(lo, hi) for c, col in self._cols.items()
+            }
+            yield [
+                {c: v[i] for c, v in decoded.items()} for i in range(hi - lo)
+            ]
+
     # -- simple ops --------------------------------------------------------
 
     def select(self, cols: Sequence[str]) -> "CudaTable":

@@ -73,7 +73,7 @@ class RelationalCypherRecords:
     def iter_chunks(self, chunk_rows: int):
         """Yield ``CypherMap`` rows in bounded lists of ``chunk_rows`` —
         the cursor-streaming materialize step. Backed by the table's
-        chunked decode (``TpuTable.rows_chunked``) when available, so a
+        chunked decode (``CudaTable.rows_chunked``) when available, so a
         huge result never holds more than one decoded chunk of host
         values at a time; tables without a chunked path fall back to
         paging the fully-decoded row iterator (host backends, where the

@@ -14,6 +14,7 @@ from __future__ import annotations
 import itertools
 import os
 import re
+import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from ..api import types as T
@@ -406,6 +407,9 @@ class CypherSession:
         from collections import OrderedDict
 
         self._plan_cache: "OrderedDict[Tuple, Tuple]" = OrderedDict()
+        # serving threads share the session: the LRU's move/evict/insert
+        # are read-modify-write on one OrderedDict
+        self._plan_cache_lock = threading.Lock()
 
     # -- data source namespaces (reference PropertyGraphCatalog.register) --
 
@@ -677,7 +681,8 @@ class CypherSession:
         (``supports_pattern_rewrite``). Only resolved graphs: pattern
         metadata is not worth forcing a source load."""
         out: Dict[str, Any] = {}
-        for qgn, g in self._catalog.items():
+        # a snapshot: serving threads mount their ambient graphs meanwhile
+        for qgn, g in list(self._catalog.items()):
             if any(
                 type(p).__name__ in ("NodeRelPattern", "TripletPattern")
                 for p in g.patterns
@@ -709,7 +714,7 @@ class CypherSession:
                     return False
 
         return _LazySchemas(
-            {qgn: g.schema for qgn, g in self._catalog.items()}
+            {qgn: g.schema for qgn, g in list(self._catalog.items())}
         )
 
     # -- the pipeline ------------------------------------------------------
@@ -836,9 +841,13 @@ class CypherSession:
             graph = PropertyGraph(self, mutable.snapshot())
         cache_key = self._plan_cache_key(query, graph, parameters, driving_table)
         if cache_key is not None:
-            hit = self._plan_cache.get(cache_key)
-            if hit is not None and hit[0] is graph._graph:
-                self._plan_cache.move_to_end(cache_key)
+            with self._plan_cache_lock:
+                hit = self._plan_cache.get(cache_key)
+                if hit is not None and hit[0] is graph._graph:
+                    self._plan_cache.move_to_end(cache_key)
+                else:
+                    hit = None
+            if hit is not None:
                 _, logical, relational, returns = hit
                 result = CypherResult(
                     self, logical,
@@ -945,16 +954,18 @@ class CypherSession:
             )
         result._trace = trace
         if cache_key is not None and result.relational_plan is not None:
-            while len(self._plan_cache) >= self._PLAN_CACHE_MAX:
-                self._plan_cache.popitem(last=False)  # LRU victim
             # store a TABLE-FREE clone: the first caller's live plan will
             # memoize materialized (device-resident) tables as it executes,
             # and the cache must not pin those for the session lifetime
-            self._plan_cache[cache_key] = (
+            entry = (
                 graph._graph, result.logical_plan,
                 self._clone_plan(result.relational_plan, {}),
                 result._returns,
             )
+            with self._plan_cache_lock:
+                while len(self._plan_cache) >= self._PLAN_CACHE_MAX:
+                    self._plan_cache.popitem(last=False)  # LRU victim
+                self._plan_cache[cache_key] = entry
         return result
 
     def _plan_and_run(

@@ -24,9 +24,15 @@ from typing import Optional
 
 from ..errors import QueryTimeout
 from ..obs.metrics import REGISTRY as _REGISTRY
-from ..utils.config import DEADLINE_S
+from ..utils.config import DEADLINE_S, SERVE_STREAM_CHUNK_ROWS
 
 RUNG_DEVICE = "device"
+
+# serving-layer rung: a query whose engine-worker process died mid-flight
+# was re-dispatched to a surviving replica by the router
+# (serve/router.py). Stamped per failed attempt in ``execution_log``, so a
+# client's ``done`` message shows which attempts a transparent retry cost.
+RUNG_REPLICA = "replica"
 
 # DEADLINE_S (0 = none; session option overrides the env) is declared in
 # the typed registry (utils/config.py) and aliased here for its call sites.
@@ -102,6 +108,16 @@ def current() -> Optional[ExecutionGuard]:
 def current_rung() -> str:
     g = _CURRENT.get()
     return g.rung if g is not None else RUNG_DEVICE
+
+
+def stream_chunk_rows() -> int:
+    """Row-chunk size for cursor streaming (serve/): result delivery
+    decodes and encodes at most this many rows at a time, which is what
+    holds streaming's host-memory ceiling.
+    ``TPU_CYPHER_SERVE_STREAM_CHUNK_ROWS``, floor 1024. The reference
+    falls back to its chunked ladder rung's ``TPU_CYPHER_CHUNK_ROWS``; the
+    port has no such rung, so it keeps the one setting."""
+    return max(int(SERVE_STREAM_CHUNK_ROWS.get()), 1024)
 
 
 def check_deadline(site: str) -> None:

@@ -42,6 +42,7 @@ from ..api import types as T
 from ..api.mapping import NodeMapping, NodeMappingBuilder, RelationshipMappingBuilder
 from ..api.schema import PropertyGraphSchema
 from ..api.values import Node, Relationship
+from ..backend.cuda import device as _device
 from ..errors import MutationError
 from ..ir import expr as E
 from ..relational.graphs import (
@@ -183,6 +184,7 @@ class SnapshotGraph(RelationalCypherGraph):
                 if hit is None:
                     op = self._build_scan(var_name, ct, ctx)
                     hit = (op.header, op.table)
+                    _device.fence()  # other lanes read it on their own streams
                     self._scan_cache[key] = hit
         h, t = hit
         return TableOp(self, ctx, h, t)
@@ -599,6 +601,7 @@ class MutableGraph(RelationalCypherGraph):
         self._delta_rels: Dict[int, Relationship] = {}
         self._dead_nodes: Dict[int, Node] = {}
         self._dead_rels: Dict[int, Relationship] = {}
+        _device.fence()  # the next snapshot may be taken on another lane's stream
 
     # -- snapshots -------------------------------------------------------
 
@@ -637,6 +640,7 @@ class MutableGraph(RelationalCypherGraph):
                 rel_counts=dict(self._rel_counts),
                 fingerprint=self._fp,
             )
+            _device.fence()  # published to lanes on other streams
             self._snapshot = snap
             return snap
 

@@ -458,6 +458,13 @@ SERVE_STREAM_WINDOW = declare(
     help="cursor-stream credit window: row pages the server may send "
     "ahead of client 'next' credits before backpressure blocks the cursor",
 )
+SERVE_STREAM_CHUNK_ROWS = declare(
+    "TPU_CYPHER_SERVE_STREAM_CHUNK_ROWS",
+    65536,
+    int,
+    help="rows decoded per cursor-stream chunk (guard.stream_chunk_rows); "
+    "floor 1024",
+)
 
 # transactional mutation (storage/): write-ahead-log durability and
 # delta-overlay compaction (docs/mutation.md)
