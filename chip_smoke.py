@@ -23,9 +23,9 @@ Phases (any failure exits non-zero and prints no result line):
             two side streams at once, each answer held to its plain
             version (``intersect`` beside them: its index tables are
             allocated on the launch's stream), and times
-            ``join_materialize`` (Q11) and
-            ``into_materialize_counted`` (Q7), torch ops, against their
-            byte bounds; holds ``segment_agg`` to its plain version at
+            ``join_materialize`` (Q11), torch ops, and the WCOJ
+            materialize's decode (Q7, ``decode_lanes`` on the
+            ``expand_rows`` gate) against their byte bounds; holds ``segment_agg`` to its plain version at
             Q15's own group ids (k = 256) and times it there; holds
             ``expand_rows`` to its plain version at the chain walk's
             shapes (Q17's final hop, about 197M lanes without orig, and
@@ -98,7 +98,24 @@ Phases (any failure exits non-zero and prints no result line):
             a to b; labels(p) grouped over SF10's nodes, keys, properties,
             a map literal and split over 1,000 persons; collect(b) of
             elements), each cold and five times warm with its peak
-            device memory. The walk counts' truth
+            device memory; then the factorized tier and the optimizer:
+            Q36, bench.py CLIQUE4_MAT, under ``TPU_CYPHER_WCOJ=force`` and
+            ``TPU_CYPHER_FACTORIZE=force`` (the 4-clique a
+            ``FactorizedTable`` until its DISTINCT count, its lanes
+            printed against its flat rows), Q37, the same 4-clique under
+            the defaults (count, min and max of d.id: the multi-close flat
+            decode at the output extent), both on SF0.5 (5,000 persons),
+            where the WCOJ materialize's pivot lanes fit the card (8.0e9
+            at SF10), Q38, the 2-hop at SF10 grouped by ``a.id % 256``
+            under ``force`` (the factorized expand, its uniqueness pair
+            proven redundant, its weighted partials on ``segment_agg``),
+            Q39, the fan of ``tests/test_factorized.py`` at 1,024 x 1,024
+            streamed by ``records.iter_chunks(65536)`` (a
+            ``FactorizedTable``, the bag checked by bincount, the device
+            peak beside the flat form's bytes), and Q40-Q44, bench.py's
+            five join-order queries on a copy of its graph (30,000 nodes,
+            300,000 KNOWS, 600 RARE) under the default ``auto`` and under
+            ``syntax``, with each ``join_order`` note. The walk counts' truth
             honours relationship uniqueness: by rule (the homomorphic
             count less the walks that reuse an edge), each rule held to a
             brute-force enumeration on 20 sources, or by the enumeration
@@ -121,7 +138,12 @@ Phases (any failure exits non-zero and prints no result line):
             blowup estimate lies under ``TPU_CYPHER_WCOJ_MIN_ROWS``) and
             SF10 (WCOJ); and
             the ``segment_agg`` gate's ``min`` at Q14's group ids (about
-            100,000 groups: the ``fallback`` tier);
+            100,000 groups: the ``fallback`` tier); Q38 under ``force``,
+            under ``auto`` with a 2 GiB memory budget (only the factorized
+            route fits; ``off`` with it raises ``AdmissionRejected``) and
+            flat under ``off``, Q36 under ``force`` against its flat decode
+            (``off``), and Q40-Q44 under ``syntax`` against ``force``,
+            ABBA-interleaved, with each variant's own peak device memory;
 6. serving — the serving tier on the card (``scripts/serve_smoke.py``,
             whose docstring has the detail): a ``QueryServer`` on
             ``CypherSession.cuda()`` over SF10 and SF1 generated anew, 16
@@ -1609,10 +1631,12 @@ def q_hooked_calls(pg, query, module, name, params=None):
 
 
 def time_materializes(torch, g1, g10, q11_truth, q7_rows):
-    """``join_materialize`` at Q11 and ``into_materialize_counted`` at Q7,
-    the torch-op repeat cascades the expand kernel could also answer,
-    timed on the arguments the queries hand them (captured with a hook),
-    with their byte bounds."""
+    """``join_materialize`` at Q11, the torch-op repeat cascade the expand
+    kernel could also answer, and the WCOJ materialize's decode at Q7
+    (``factorized.decode_lanes``, on the ``expand_rows`` gate), timed on
+    the arguments the queries hand them (captured with a hook), with their
+    byte bounds."""
+    from tpu_cypher_torch.backend.cuda import factorized as FZ
     from tpu_cypher_torch.backend.cuda import jit_ops as J
 
     calls, rows = q_hooked_calls(g10, Q11, J, "join_materialize")
@@ -1626,16 +1650,16 @@ def time_materializes(torch, g1, g10, q11_truth, q7_rows):
     b_ms, _ = bound(nbytes, 0)
     print(f"  join_materialize at Q11 (torch ops): {int(total)} pairs from "
           f"{int(lo.shape[0])} probe rows: {ms:.4f} ms, byte bound {b_ms:.4f} ms")
-    calls, rows = q_hooked_calls(g1, Q7, J, "into_materialize_counted")
-    check(len(rows) == q7_rows and len(calls) == 1, "Q7 (hooked into_materialize_counted)")
-    args, kwargs = calls[0]
-    lo, size = args[1], kwargs["size"]
-    ms7 = time_ms(torch, lambda: J.into_materialize_counted(*args, **kwargs), iters=10)
-    # reads: lo and counts per query, eo per lane; writes: row, orig, live
-    nbytes7 = 16 * int(lo.shape[0]) + 25 * int(size)
+    calls, rows = q_hooked_calls(g1, Q7, FZ, "decode_lanes")
+    check(len(rows) == q7_rows and len(calls) == 1, "Q7 (hooked decode_lanes)")
+    args, _ = calls[0]
+    W, w, lo, hi = args
+    ms7 = time_ms(torch, lambda: FZ.decode_lanes(*args), iters=10)
+    # reads: each lane's weight; writes: each row's lane and remainder
+    nbytes7 = 8 * int(w.shape[0]) + 16 * (hi - lo)
     b7_ms, _ = bound(nbytes7, 0)
-    print(f"  into_materialize_counted at Q7 (torch ops): {int(size)} lanes from "
-          f"{int(lo.shape[0])} queries: {ms7:.4f} ms, byte bound {b7_ms:.4f} ms")
+    print(f"  decode_lanes at Q7 (the expand_rows gate): {hi - lo} rows from "
+          f"{int(w.shape[0])} lanes: {ms7:.4f} ms, byte bound {b7_ms:.4f} ms")
 
 
 def check_close_shapes(torch, g1, g10, g10h, truth, report):
@@ -1906,7 +1930,8 @@ def run_query(torch, pg, query, kernels, plan_op="CsrExpandOp", wcoj_tiers=(),
     """Run one query cold and then ``warm`` times, and check the
     device-only contract on every run: one device attempt, ``plan_op`` in
     the plan, every kernel of ``kernels`` launched and no kernel off its
-    ``kernel`` tier, and each WCOJ tier of ``wcoj_tiers`` hit once. Returns
+    ``kernel`` tier, and each WCOJ tier of ``wcoj_tiers`` hit once (or, a
+    dict, as many times as it says). Returns
     (records rows of the last run, seconds list, per-kernel kernel-tier
     launches, materialized lanes of the last run, every run's result, the
     cold run's first)."""
@@ -1939,7 +1964,8 @@ def run_query(torch, pg, query, kernels, plan_op="CsrExpandOp", wcoj_tiers=(),
               f"not one device rung: {log}")
         check(plan_op in result.plans, f"plan has no {plan_op}")
         tiers = {k: v - tiers0.get(k, 0) for k, v in dict(W.WCOJ_TIER_COUNTS).items()}
-        check(tiers == {k: int(k in wcoj_tiers) for k in tiers},
+        want = wcoj_tiers if isinstance(wcoj_tiers, dict) else dict.fromkeys(wcoj_tiers, 1)
+        check(tiers == {k: want.get(k, 0) for k in tiers},
               f"WCOJ tiers {tiers}, expected {wcoj_tiers}: {query}")
         for name in after:
             d = {t: after[name][t] - before[name][t] for t in after[name]}
@@ -1951,8 +1977,20 @@ def run_query(torch, pg, query, kernels, plan_op="CsrExpandOp", wcoj_tiers=(),
                   f"{name} not launched by {query}")
         lanes = int(bucketing._ROWS_TRUE.value() - rows0)
         out_rows = rows
+        release_tables(result)
         results.append(result)
     return out_rows, secs, launches, lanes, results
+
+
+def release_tables(result):
+    """Drop the memoized operator tables of a finished query's plan (its
+    rows are collected), so that a later run starts from the device
+    memory the graphs hold, not from this run's intermediates."""
+    stack = [result.relational_plan]
+    while stack:
+        op = stack.pop()
+        op._table = None
+        stack.extend(op.children)
 
 
 @contextlib.contextmanager
@@ -2181,20 +2219,26 @@ def warm_times(torch, pg, query, variants, rows_ok, rounds=3):
     None)}): one untimed run of each, then ``rounds`` ABBA-interleaved
     passes, so each label gets 2 x ``rounds`` timed runs. Every run's rows
     must pass ``rows_ok``. Returns {label: (median seconds, median seconds
-    of the ``execute`` phase, all seconds)}."""
+    of the ``execute`` phase, all seconds, the largest own peak device
+    memory of its runs in GiB)}."""
     import statistics
 
     labels = list(variants)
     timed = {label: [] for label in labels}
+    peaks = dict.fromkeys(labels, 0)
     for i, order in enumerate([labels] + [labels + labels[::-1]] * rounds):
         for label in order:
             ctx, must, must_not = variants[label]
             with ctx():
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
                 t0 = time.perf_counter()
                 res = pg.cypher(query)
                 rows = [dict(r) for r in res.records.collect()]
                 torch.cuda.synchronize()
                 secs = time.perf_counter() - t0
+                peaks[label] = max(peaks[label], torch.cuda.max_memory_allocated() - held)
+                release_tables(res)
             check(rows_ok(rows), f"{label} run of {query!r} gave other rows")
             check(must in res.plans and (must_not is None or must_not not in res.plans),
                   f"{label} plan of {query!r} lacks {must} or shows {must_not}")
@@ -2202,15 +2246,16 @@ def warm_times(torch, pg, query, variants, rows_ok, rounds=3):
                 timed[label].append((secs, res.profile().phase_seconds()["execute"]))
     return {
         label: (statistics.median(s for s, _ in v), statistics.median(e for _, e in v),
-                [round(s, 6) for s, _ in v])
+                [round(s, 6) for s, _ in v], peaks[label] / 2**30)
         for label, v in timed.items()
     }
 
 
 def print_times(name, times):
-    for label, (secs, execute, all_secs) in times.items():
+    for label, (secs, execute, all_secs, peak) in times.items():
         print(f"    {name} {label}: warm median {secs * 1e3:.3f} ms (execute phase "
-              f"{execute * 1e3:.3f} ms); runs (s) {all_secs}")
+              f"{execute * 1e3:.3f} ms); runs (s) {all_secs}; own peak device memory "
+              f"{peak:.3f} GiB")
 
 
 def shaping_truth(ids1, s1, d1, ids10, bday10, s10, d10):
@@ -2663,6 +2708,362 @@ def run_list_queries(torch, run, last, g1, g10, truth, q33_params, edges1):
         print(f"    {name} = {got}")
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the factorized tier and the optimizer's join order
+# ---------------------------------------------------------------------------
+
+# bench.py CLIQUE4_MAT (Q36, under WCOJ and FACTORIZE force), the same
+# 4-clique under the defaults (Q37: the multi-close flat decode), the 2-hop
+# grouped by a prefix key (Q38: the factorized expand, its weighted
+# partials on segment_agg) and the fan's 2-hop rows (Q39, streamed)
+Q36 = (
+    "MATCH (a:Person)-[:KNOWS]->(b:Person)-[:KNOWS]->(c:Person)-[:KNOWS]->(a), "
+    "(a)-[:KNOWS]->(d:Person), (b)-[:KNOWS]->(d), (c)-[:KNOWS]->(d) "
+    "RETURN count(DISTINCT d.id) AS hubs"
+)
+Q37 = Q36.replace("count(DISTINCT d.id) AS hubs",
+                  "count(*) AS n, min(d.id) AS lo, max(d.id) AS hi")
+Q38 = (
+    "MATCH (a:Person)-[:KNOWS]->(b)-[:KNOWS]->(c) "
+    "RETURN a.id % 256 AS g, count(*) AS paths, sum(a.id) AS s"
+)
+Q39 = "MATCH (a:S)-[:R1]->(h)-[:R2]->(b) RETURN a.id AS x, b.id AS y"
+FAN = 1024  # Q39's sources and targets: 1,048,576 flat rows
+Q39_CHUNK = 65536
+# the 4-clique's scale: its WCOJ materialize iterates the pivot (a)->(d)
+# over every triangle row, sum(w * out(a)) lanes, 8.0e9 at SF10 and 8.1e8
+# at SF1 on the generator's hubs (past expand_rows' int32 lane range, or
+# about 70 GB of lane state); SF0.5 gives 4.8e8 lanes
+Q36_SCALE = 0.5
+# bench.py _JOIN_ORDER_QUERIES, verbatim (Q40-Q44)
+JOIN_ORDER_QUERIES = (
+    ("Q40 rare_last", "MATCH (a:Person)-[:KNOWS]->(b:Person)-[:RARE]->(c:Admin) "
+                      "RETURN count(*) AS c"),
+    ("Q41 rare_mid", "MATCH (a:Person)-[:KNOWS]->(b)-[:RARE]->(c)-[:KNOWS]->(d:Person) "
+                     "RETURN count(*) AS c"),
+    ("Q42 label_last", "MATCH (a:Person)-[:KNOWS]->(b:Person)-[:KNOWS]->(c:Admin) "
+                       "RETURN count(*) AS c"),
+    ("Q43 cycle_close", "MATCH (a:Person)-[:KNOWS]->(b:Person)-[:RARE]->(c)-[:KNOWS]->(a) "
+                        "RETURN count(*) AS c"),
+    ("Q44 filter_hoist", "MATCH (a:Person)-[:KNOWS]->(b:Person)-[:KNOWS]->(c:Admin) "
+                         "WHERE c.id < 40 RETURN count(*) AS c"),
+)
+
+
+@contextlib.contextmanager
+def pinned(**values):
+    """Config options (``tpu_cypher_torch.utils.config`` names) pinned for
+    a block; the plan cache keys on the ones that shape a plan."""
+    from tpu_cypher_torch.utils import config as C
+
+    opts = [getattr(C, k) for k in values]
+    for opt, v in zip(opts, values.values()):
+        opt.set(v)
+    try:
+        yield
+    finally:
+        for opt in opts:
+            opt.reset()
+
+
+def scan_graph(session, nodes, rels):
+    """A graph built from arrays: ``nodes`` {label: ids}, each node with
+    its id as property ``id``, and ``rels`` {type: (ids, src, dst)}."""
+    from tpu_cypher_torch.api import types as T
+    from tpu_cypher_torch.api.mapping import NodeMapping, RelationshipMapping
+    from tpu_cypher_torch.api.schema import PropertyGraphSchema
+    from tpu_cypher_torch.relational.graphs import ElementTable, ScanGraph
+    from tpu_cypher_torch.relational.session import PropertyGraph
+
+    tables = []
+    schema = PropertyGraphSchema.empty()
+    for label, ids in nodes.items():
+        tables.append(ElementTable(
+            NodeMapping(id_key="id", implied_labels=frozenset({label}),
+                        property_mapping=(("id", "id"),)),
+            session.table_cls.from_arrays({"id": ids}),
+        ))
+        schema = schema.with_node_combination(frozenset({label}),
+                                              {"id": T.CTInteger.nullable})
+    for rtype, (eids, src, dst) in rels.items():
+        tables.append(ElementTable(
+            RelationshipMapping(id_key="id", source_key="source", target_key="target",
+                                rel_type=rtype),
+            session.table_cls.from_arrays({"id": eids, "source": src, "target": dst}),
+        ))
+        schema = schema.with_relationship_type(rtype, {})
+    return PropertyGraph(session, ScanGraph(tables, schema))
+
+
+def fan_graph(session, k):
+    """``tests/test_factorized.py``'s fan from arrays: k sources -> 1 hub ->
+    k targets, so the 2-hop has k * k flat rows from 2k edges."""
+    import numpy as np
+
+    src_ids = np.arange(k, dtype=np.int64)
+    tgt_ids = np.arange(k + 1, 2 * k + 1, dtype=np.int64)
+    hub = np.full(k, k, dtype=np.int64)
+    return scan_graph(session, {"S": src_ids, "H": np.array([k], np.int64), "T": tgt_ids}, {
+        "R1": (np.arange(k, dtype=np.int64) + (1 << 40), src_ids, hub),
+        "R2": (np.arange(k, dtype=np.int64) + (1 << 41), hub, tgt_ids),
+    })
+
+
+def join_order_arrays(n=30_000, dense_e=300_000, rare_e=600):
+    """``bench.py`` ``_join_order_graph``'s arrays (the same draws from
+    ``default_rng(17)``): node ids 0..n-1, 1 in 50 Admin, KNOWS and RARE
+    edges with self-loops dropped."""
+    import numpy as np
+
+    rng = np.random.default_rng(17)
+    ids = np.arange(n, dtype=np.int64)
+    rels = {}
+    for rtype, count, base in (("KNOWS", dense_e, 1 << 40), ("RARE", rare_e, 1 << 41)):
+        src = rng.integers(0, n, count)
+        dst = rng.integers(0, n, count)
+        keep = src != dst
+        src, dst = src[keep], dst[keep]
+        rels[rtype] = (np.arange(len(src), dtype=np.int64) + base, src, dst)
+    return ids, ids % 50 == 0, rels
+
+
+def join_order_truth(ids, admin, rels):
+    """scipy counts of Q40-Q44 honouring relationship uniqueness. Only Q41
+    can bind one KNOWS edge twice (r0 = r2 when a KNOWS edge c->b closes
+    the RARE edge b->c): those bindings are taken out. Q42, Q43 and Q44
+    would need a self-loop, and there is none."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    n = len(ids)
+    person = ~admin
+
+    def adj(rtype):
+        _, s, d = rels[rtype]
+        check(not (s == d).any(), f"{rtype} has a self-loop")
+        m = sp.csr_matrix((np.ones(len(s), np.int64), (s, d)), shape=(n, n))
+        m.sum_duplicates()
+        return m
+
+    K, Rr = adj("KNOWS"), adj("RARE")
+    kin_p = K.T @ person.astype(np.int64)  # KNOWS into each node from persons
+    kout_p = K @ person.astype(np.int64)
+    kout_a = K @ admin.astype(np.int64)
+    rs, rd = Rr.nonzero()
+    rw = np.asarray(Rr[rs, rd]).ravel()
+    q40 = int((person * kin_p * (Rr @ admin.astype(np.int64))).sum())
+    # Q41: a:Person -KNOWS-> b -RARE-> c -KNOWS-> d:Person, less r0 = r2:
+    # the edge c->b with c (as a) and b (as d) both persons
+    both = person[rs] & person[rd]
+    same = np.asarray(K[rd, rs]).ravel() * both
+    q41 = int((rw * (kin_p[rs] * kout_p[rd] - same)).sum())
+    q42 = int((person * kin_p * kout_a).sum())
+    # Q43: per RARE edge b->c with b a person: sum over persons a of
+    # K[c, a] * K[a, b]
+    KP = K.multiply(person.astype(np.int64)[None, :]).tocsr()
+    q43 = int((rw * person[rs] * np.asarray(
+        KP[rd].multiply(K.T.tocsr()[rs]).sum(axis=1)).ravel()).sum())
+    low_admin = admin & (ids < 40)
+    q44 = int((person * kin_p * (K @ low_admin.astype(np.int64))).sum())
+    return dict(zip((name for name, _ in JOIN_ORDER_QUERIES), (q40, q41, q42, q43, q44)))
+
+
+def clique_truth(ids, src, dst):
+    """scipy truth of the 4-clique queries: the directed triangle rows
+    (a, b, c) with their multiplicity w, then each d with a->d, b->d and
+    c->d: Q37's count (every binding, multiplicities multiplied) and its
+    min and max d.id, Q36's distinct d, and the pivot lanes
+    sum(w * out(a)) the WCOJ materialize iterates. Loop-free (checked), so
+    distinct endpoints force distinct relationships."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    check(not (src == dst).any(), "the Q36 graph has a self-loop")
+    n = len(ids)
+    s, d = np.searchsorted(ids, src), np.searchsorted(ids, dst)
+    A = sp.csr_matrix((np.ones(len(s), np.int64), (s, d)), shape=(n, n))
+    A.sum_duplicates()
+    AT = A.T.tocsr()
+    out_deg = np.bincount(s, minlength=n)
+    tri = cliques = pivot = 0
+    hubs = np.zeros(n, bool)
+    for lo in range(0, n, 512):
+        closing = (A[lo:lo + 512] @ A).multiply(AT[lo:lo + 512]).tocoo()
+        if closing.nnz == 0:
+            continue
+        a, c = closing.row.astype(np.int64) + lo, closing.col.astype(np.int64)
+        B = A[a].multiply(AT[c]).tocoo()  # per (a, c) pair: b with a->b->c
+        w = B.data * np.asarray(AT[a, c]).ravel()[B.row]  # times c->a
+        ta, tb, tc = a[B.row], B.col.astype(np.int64), c[B.row]
+        tri += int(w.sum())
+        pivot += int((w * out_deg[ta]).sum())
+        D = A[ta].multiply(A[tb]).multiply(A[tc]).tocoo()
+        cliques += int((w[D.row] * D.data).sum())
+        hubs[D.col] = True
+    hub_ids = ids[hubs]
+    return {"triangles": tri, "pivot_lanes": pivot, "Q37": [{
+        "n": cliques, "lo": int(hub_ids.min()), "hi": int(hub_ids.max())}],
+        "Q36": [{"hubs": int(hubs.sum())}]}
+
+
+def two_hop_group_truth(ids, s, d):
+    """numpy truth of Q38: per a.id % 256, the 2-paths a->b->c (sum over
+    b in out(a) of out(b)) and their sum of a.id."""
+    import numpy as np
+
+    n = len(ids)
+    out_deg = np.bincount(s, minlength=n)
+    paths = np.bincount(s, weights=out_deg[d], minlength=n).astype(np.int64)
+    g = ids % 256
+    return {int(k): (int(paths[g == k].sum()), int((paths * ids)[g == k].sum()))
+            for k in np.unique(g) if paths[g == k].sum()}
+
+
+def factorized_notes(result):
+    return [sp.attrs["factorized"] for sp in result.profile().trace.spans()
+            if "factorized" in sp.attrs]
+
+
+def run_factorized_queries(torch, run, last, slice_launches, session, g10, ids10, s10,
+                           d10):
+    """Phase 4's factorized queries: Q36 and Q37 on SF0.5, Q38 at SF10, and
+    the fan streamed through the cursor (Q39); each checked against
+    numpy/scipy truth, its tier and its route. Returns what phase 5 needs."""
+    import numpy as np
+
+    from tpu_cypher_torch.backend.cuda import bucketing
+    from tpu_cypher_torch.backend.cuda.factorized import FactorizedTable
+    from tpu_cypher_torch.backend.cuda.hopper import dispatch
+    from tpu_cypher_torch.io.ldbc import generate_snb
+    from tpu_cypher_torch.relational.session import PropertyGraph
+
+    t0 = time.perf_counter()
+    g05 = PropertyGraph(session, generate_snb(Q36_SCALE, session, seed=SEED))
+    ids05, _, src05, dst05 = graph_arrays(g05)
+    cliques = clique_truth(ids05, src05, dst05)
+    print(f"  SF{Q36_SCALE}: {len(ids05)} persons, {len(src05)} KNOWS, "
+          f"{cliques['triangles']} triangle rows, {cliques['Q37'][0]['n']} 4-cliques over "
+          f"{cliques['Q36'][0]['hubs']} distinct d; the materialize's pivot lanes "
+          f"{cliques['pivot_lanes']} (scipy, {time.perf_counter() - t0:.1f} s with the graph)")
+    wcoj = ("expand_rows", "intersect", "segment_agg")
+    mwi = "MultiwayIntersectOp"
+
+    def peaked(label, pg, q, kernels, **kw):
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2**30
+        rows, secs, lanes = run(label, pg, q, kernels, **kw)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"    {label} cold {secs[0] * 1e3:.3f} ms, warm {secs[1] * 1e3:.3f} ms; "
+              f"peak device memory {peak:.3f} GiB, {peak - held:.3f} GiB its own")
+        return [dict(r) for r in rows], lanes
+
+    with pinned(WCOJ_MODE="force", FACTORIZE="force"):
+        rows, _ = peaked(f"Q36 (SF{Q36_SCALE})", g05, Q36, wcoj, plan_op=mwi,
+                         wcoj_tiers={"factorized": 2})
+    check(rows == cliques["Q36"], f"Q36 {rows} != {cliques['Q36']}")
+    notes = factorized_notes(last[f"Q36 (SF{Q36_SCALE})"])
+    big = max(notes, key=lambda x: x["true_rows"])
+    print(f"    Q36 = {rows[0]}; factorized notes (flat rows, lanes, runs): "
+          f"{[(x['true_rows'], x['padded_rows'], x['run_count']) for x in notes]}; "
+          f"the 4-clique's {big['run_count']} lanes against its {big['true_rows']} flat rows")
+    check(big["true_rows"] == cliques["Q37"][0]["n"]
+          and big["run_count"] == cliques["pivot_lanes"],
+          f"Q36's factorized 4-clique {big} != scipy's lanes and rows")
+    rows, _ = peaked(f"Q37 (SF{Q36_SCALE})", g05, Q37, wcoj, plan_op=mwi,
+                     wcoj_tiers={"materialize": 2})
+    check(rows == cliques["Q37"], f"Q37 {rows} != {cliques['Q37']}")
+    print(f"    Q37 = {rows[0]} under the defaults: the flat decode at the output extent")
+
+    q38 = two_hop_group_truth(ids10, s10, d10)
+    with pinned(FACTORIZE="force"):
+        rows, _ = peaked("Q38 (SF10)", g10, Q38, ("expand_rows", "segment_agg"),
+                         plan_op="AggregateOp")
+    got = {r["g"]: (r["paths"], r["s"]) for r in rows}
+    check(got == q38, "Q38 groups differ from numpy")
+    res = last["Q38 (SF10)"]
+    notes = factorized_notes(res)
+    check(any(x["true_rows"] == sum(p for p, _ in q38.values()) for x in notes),
+          f"Q38's final hop did not take the factorized route: {notes}")
+    check("uniq" not in res.plans and "FilterOp" not in res.plans,
+          "Q38's uniqueness pair was not proven redundant")
+    print(f"    Q38 = {len(rows)} groups, equal to numpy; factorized notes (flat rows, "
+          f"lanes, runs) {[(x['true_rows'], x['padded_rows'], x['run_count']) for x in notes]}; "
+          f"the pair r0 <> r1 proven redundant (no FilterOp, no uniq)")
+
+    gfan = fan_graph(session, FAN)
+    before = dispatch.use_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with pinned(FACTORIZE="force"):
+        res = gfan.cypher(Q39)
+        recs = res.records
+        table = recs.table
+        xs = np.zeros(FAN, np.int64)
+        ys = np.zeros(FAN, np.int64)
+        nchunks = total = 0
+        for chunk in recs.iter_chunks(Q39_CHUNK):
+            nchunks += 1
+            total += len(chunk)
+            xs += np.bincount([r["x"] for r in chunk], minlength=FAN)
+            ys += np.bincount([r["y"] - FAN - 1 for r in chunk], minlength=FAN)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    after = dispatch.use_counts()
+    for name in after:
+        dd = {t: after[name][t] - before[name][t] for t in after[name]}
+        check(dd["fallback"] == 0 and dd["plain"] == 0, f"Q39: {name} left the kernel tier")
+        slice_launches[name] = slice_launches.get(name, 0) + dd["kernel"]
+    check(isinstance(table, FactorizedTable), f"Q39 is not factorized: {table!r}")
+    check(total == FAN * FAN and (xs == FAN).all() and (ys == FAN).all(),
+          "Q39's streamed bag differs from the fan's")
+    check(after["expand_rows"]["kernel"] > before["expand_rows"]["kernel"],
+          "Q39's decode did not launch expand_rows")
+    flat_bytes = FAN * FAN * 2 * 9  # two int64 columns and their validity bytes
+    print(f"  Q39 (fan {FAN} x {FAN}): {table!r}; {total} rows in {nchunks} chunks of "
+          f"{Q39_CHUNK} in {secs:.3f} s, bag checked by bincount; device peak during the "
+          f"stream {peak / 2**20:.3f} MiB over what was held, the flat form "
+          f"{flat_bytes / 2**20:.3f} MiB; expand_rows launches "
+          f"{after['expand_rows']['kernel'] - before['expand_rows']['kernel']}")
+    return g05, cliques, q38
+
+
+def run_join_order_queries(run, cold, session):
+    """Phase 4's join-order queries, Q40-Q44 (``bench.py``'s five) on a
+    copy of its graph: under the default ``auto`` and under ``syntax``,
+    each count equal to scipy's, each ``join_order`` note printed. Returns
+    the graph and the truth for phase 5."""
+    from tpu_cypher_torch.optimizer import feedback
+
+    t0 = time.perf_counter()
+    arrays = join_order_arrays()
+    ids, admin, rels = arrays
+    g = scan_graph(session, {"Person": ids[~admin], "Admin": ids[admin]}, rels)
+    truth = join_order_truth(*arrays)
+    print(f"  join-order graph: {len(ids)} nodes ({int(admin.sum())} Admin), "
+          f"{len(rels['KNOWS'][0])} KNOWS, {len(rels['RARE'][0])} RARE; truth {truth} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    reordered = 0
+    for name, query in JOIN_ORDER_QUERIES:
+        plan_op = "CsrExpandIntoOp" if "cycle" in name else "CsrExpandOp"
+        feedback.reset_for_tests()  # the uncalibrated model, as a first run
+        rows, secs, _ = run(f"{name} (auto)", g, query, (), plan_op=plan_op)
+        check([dict(r) for r in rows] == [{"c": truth[name]}],
+              f"{name} {rows} != {truth[name]}")
+        notes = [sp.attrs["join_order"] for sp in cold[f"{name} (auto)"].profile()
+                 .trace.spans() if "join_order" in sp.attrs]
+        reordered += any(x["chosen"] == "model" for x in notes)
+        with pinned(OPT_MODE="syntax"):
+            rows_s, _, _ = run(f"{name} (syntax)", g, query, (), plan_op=plan_op)
+        check(rows_s == rows, f"{name}: syntax order gave {rows_s}")
+        print(f"    {name} = {rows[0]['c']}, equal to scipy and to syntax order; "
+              f"join_order {notes}")
+    print(f"    auto reordered {reordered} of {len(JOIN_ORDER_QUERIES)} join-order queries")
+    return g, truth
+
+
 def run_shaping_queries(torch, run, slice_launches, g1, g10, truth):
     """Phase 4's row shaping and grouping queries, Q13-Q16: each cold, then
     five warm runs, with its warm median and peak device memory, checked
@@ -2767,6 +3168,55 @@ def time_q14_fallback(torch, g10, q14_truth, report):
     print(f"  segment_agg gate min at Q14's ids ({n} rows, k={k}): fallback tier "
           f"{ms:.4f} ms, Tensor.scatter_reduce(amin) alone {scatter_ms:.4f} ms, "
           f"bound {b_ms:.4f} ms ({b_by})")
+
+
+# the Q38 budget: over the first hop's flat rows (4.5M at SF10, under
+# 0.3 GB) and under the final hop's (197M, over 6 GB)
+Q38_BUDGET = 2 << 30
+
+
+def time_factorized(torch, g10, g05, gjo, cliques, q38, jo_truth):
+    """Phase 5's factorized and join-order measurements, ABBA-interleaved
+    with each variant's own peak device memory: Q38 under ``force``, under
+    ``auto`` with a memory budget that only the factorized route fits, and
+    flat under ``off`` with no budget (``off`` with the budget must raise
+    ``AdmissionRejected``); Q36 under ``force`` and its flat decode under
+    ``off``; the join-order queries under ``syntax`` and ``force``."""
+    from tpu_cypher_torch import errors as ERR
+
+    print("  the factorized tier and the join order (warm, ABBA-interleaved):")
+    with pinned(FACTORIZE="auto", MEM_BUDGET=Q38_BUDGET):
+        res = g10.cypher(Q38)
+        rows = [dict(r) for r in res.records.collect()]
+    check({r["g"]: (r["paths"], r["s"]) for r in rows} == q38, "Q38 under a budget")
+    notes = factorized_notes(res)
+    check(any(x["true_rows"] == sum(p for p, _ in q38.values()) for x in notes),
+          f"auto with a {Q38_BUDGET}-byte budget did not route Q38 factorized: {notes}")
+    with pinned(FACTORIZE="off", MEM_BUDGET=Q38_BUDGET):
+        try:
+            g10.cypher(Q38).records.collect()
+        except ERR.AdmissionRejected as exc:
+            print(f"    Q38 under off with the budget: AdmissionRejected ({exc})")
+        else:
+            raise SmokeFailure("Q38 under off with the budget was admitted")
+    print_times("Q38 (SF10)", warm_times(torch, g10, Q38, {
+        "force": (lambda: pinned(FACTORIZE="force"), "AggregateOp", None),
+        f"auto, budget {Q38_BUDGET}": (
+            lambda: pinned(FACTORIZE="auto", MEM_BUDGET=Q38_BUDGET), "AggregateOp", None),
+        "off": (lambda: pinned(FACTORIZE="off"), "AggregateOp", None),
+    }, lambda rows: {r["g"]: (r["paths"], r["s"]) for r in rows} == q38))
+    mwi = "MultiwayIntersectOp"
+    print_times(f"Q36 (SF{Q36_SCALE})", warm_times(torch, g05, Q36, {
+        "force": (lambda: pinned(WCOJ_MODE="force", FACTORIZE="force"), mwi, None),
+        "off (flat decode)": (lambda: pinned(WCOJ_MODE="force", FACTORIZE="off"), mwi, None),
+    }, lambda rows: rows == cliques["Q36"], rounds=2))
+    for name, query in JOIN_ORDER_QUERIES:
+        want = [{"c": jo_truth[name]}]
+        op = "CsrExpandIntoOp" if "cycle" in name else "CsrExpandOp"
+        print_times(name, warm_times(torch, gjo, query, {
+            "syntax": (lambda: pinned(OPT_MODE="syntax"), op, None),
+            "force": (lambda: pinned(OPT_MODE="force"), op, None),
+        }, lambda rows, want=want: rows == want))
 
 
 def serve_smoke(torch, session, tri1):
@@ -3079,6 +3529,10 @@ def main() -> int:
     # lists, maps and elements as values
     run_list_queries(torch, run, last, g1, g10, lists, walks["Q20"][0],
                      set(zip(src1.tolist(), dst1.tolist())))
+    # the factorized tier and the optimizer's join order
+    g05, cliques, q38 = run_factorized_queries(torch, run, last, slice_launches, session,
+                                               g10, ids10, s10, d10)
+    gjo, jo_truth = run_join_order_queries(run, cold, session)
     counts = dispatch.use_counts()
     for name, c in counts.items():
         check(c["fallback"] == 0 and c["plain"] == 0, f"{name} fallbacks: {c}")
@@ -3131,6 +3585,7 @@ def main() -> int:
             print(f"    {name} auto: plans {plan}, {want} triangles")
 
     time_q14_fallback(torch, g10, truth["Q14"], report)
+    time_factorized(torch, g10, g05, gjo, cliques, q38, jo_truth)
 
     # 6. the serving tier on the card
     serve_smoke(torch, session, tri1["triangles"])

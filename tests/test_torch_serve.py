@@ -1012,6 +1012,58 @@ def test_stream_decodes_chunk_by_chunk(engines, monkeypatch):
     assert not [w for w in whole if w >= 16384 * 2], whole
 
 
+def test_stream_serves_a_factorized_fan(engines, monkeypatch):
+    """A 64 x 64 fan (64 sources -> 1 hub -> 64 targets) under
+    ``TPU_CYPHER_FACTORIZE=force``: the result is a ``FactorizedTable``
+    and the cursor streams its 4,096 rows chunk by chunk
+    (``FactorizedTable.rows_chunked``) without flattening it; the rows
+    equal the reference's stream and the closed form."""
+    import test_factorized as RFT
+    from tpu_cypher.utils import config as RCFG
+    from tpu_cypher_torch.backend.cuda.factorized import FactorizedTable
+    from tpu_cypher_torch.utils import config as PCFG
+
+    k = m = 64
+    monkeypatch.setenv("TPU_CYPHER_SERVE_STREAM_CHUNK_ROWS", "1024")
+    flattened = []
+    real = FactorizedTable.to_flat_table
+
+    def spy(self):
+        flattened.append(self.size)
+        return real(self)
+
+    monkeypatch.setattr(FactorizedTable, "to_flat_table", spy)
+    tables = []
+
+    def run(e):
+        graph = e.session.create_graph_from_create_query(RFT._fan_create(k, m))
+        if e.name == "port":
+            tables.append(graph.cypher(RFT.FAN_QUERY).records.table)
+
+        async def go():
+            async with _serve(e) as srv:
+                srv.register_graph("fan", graph)
+                return await _stream_client(srv.host, srv.port, {
+                    "op": "submit", "id": "fan", "graph": "fan", "stream": True,
+                    "query": RFT.FAN_QUERY})
+
+        msgs = asyncio.run(go())
+        d = _terminals(msgs)["fan"]
+        return d["streamed"], d["rows"], d["total_rows"], _bag(_rows_of(msgs, "fan"))
+
+    for cfg in (RCFG, PCFG):
+        cfg.FACTORIZE.set("force")
+    try:
+        streamed, rows, total, bag = agree(engines, run)
+    finally:
+        for cfg in (RCFG, PCFG):
+            cfg.FACTORIZE.reset()
+    assert streamed is True and rows == total == k * m
+    assert bag == _bag([{"x": x, "y": y} for x, y in RFT._fan_rows(k, m)])
+    assert isinstance(tables[0], FactorizedTable)
+    assert not [n for n in flattened if n >= k * m], flattened
+
+
 # ---------------------------------------------------------------------------
 # concurrency: the shared CSR index
 # ---------------------------------------------------------------------------

@@ -15,7 +15,7 @@ carried across as numpy arrays:
   pairs cannot be proven redundant, so the port enforces them in the
   operator (``_wcoj_pair_keep``), and a brute-force Python count checks the
   triangles. Its 4-clique count then needs the multi-close materialize,
-  which the port declines.
+  whose pairs the operator enforces on the rows it decodes.
 
 Rows must be bag-identical (exact: integers), the port's plan must hold
 ``MultiwayIntersectOp`` and its WCOJ tier counter must show the tier that
@@ -23,9 +23,11 @@ answered; ``expand_rows`` and ``intersect`` run on their CPU (``plain``)
 tier with no fallback. A shape the planner hook declines must be
 bag-identical to the reference with the same setting: ``off`` and an
 undirected close run the binary plan, ``CsrExpandIntoOp`` (its probe on
-``intersect``), and an empty graph the classic ``JoinOp`` plan; a
-multi-close materialize raises the typed ``NotImplementedError`` naming
-the ROADMAP.md item that ports it.
+``intersect``), and an empty graph the classic ``JoinOp`` plan. A
+multi-close materialize (rows read from a 4-clique, the loopy 4-clique
+count, ``bench.py`` ``CLIQUE4_MAT``) answers through the run-compressed
+form under every ``TPU_CYPHER_FACTORIZE`` setting, held to scipy or a
+brute-force count.
 """
 
 from collections import Counter
@@ -62,7 +64,13 @@ CLIQUE4 = (  # bench.py CLIQUE4
     "RETURN count(*) AS cliques"
 )
 QUERIES = {"triangle": TRIANGLE, "rows": TRIANGLE_ROWS, "clique4": CLIQUE4}
-FACTORIZED_ITEM = "ROADMAP.md queue 1, item 5"
+# rows read from a 4-clique, grouped: the 8.2M flat rows of the SNB graph
+# would spend this suite's time decoding Python rows in both engines
+CLIQUE4_ROWS = CLIQUE4.replace(
+    "RETURN count(*) AS cliques", "RETURN a.id AS a, d.id AS d, count(*) AS n"
+)
+# bench.py CLIQUE4_MAT
+CLIQUE4_MAT = CLIQUE4.replace("RETURN count(*) AS cliques", "RETURN count(DISTINCT d.id) AS hubs")
 
 
 @pytest.fixture(autouse=True)
@@ -76,6 +84,7 @@ def _wcoj_force():
     for cfg in (RCFG, PCFG):
         cfg.WCOJ_MODE.reset()
         cfg.WCOJ_MIN_ROWS.reset()
+        cfg.FACTORIZE.reset()
     PD.reset()
 
 
@@ -151,6 +160,29 @@ def _truth(ids, src, dst):
     return rows, int((w * closes).sum())
 
 
+def _clique_truth(ids, src, dst):
+    """scipy truth of the 4-clique's (a, d) rows with multiplicity, and its
+    distinct d (``CLIQUE4_MAT``): per triangle row (a, b, c) of weight w,
+    each d with a->d, b->d and c->d."""
+    n = len(ids)
+    s, d = np.searchsorted(ids, src), np.searchsorted(ids, dst)
+    A = sp.csr_matrix((np.ones(len(s), np.int64), (s, d)), shape=(n, n))
+    A.sum_duplicates()
+    pa, pb = A.nonzero()
+    M = A[pb].multiply(A.T.tocsr()[pa]).tocoo()
+    w = M.data * np.asarray(A[pa[M.row], pb[M.row]]).ravel()
+    ta, tb, tc = pa[M.row], pb[M.row], M.col
+    D = A[ta].multiply(A[tb]).multiply(A[tc]).tocoo()
+    key = ta[D.row].astype(np.int64) * n + D.col
+    uniq, inv = np.unique(key, return_inverse=True)
+    mult = np.bincount(inv, weights=w[D.row] * D.data).astype(np.int64)
+    rows = Counter({
+        (("a", int(ids[k // n])), ("d", int(ids[k % n])), ("n", int(m))): 1
+        for k, m in zip(uniq, mult)
+    })
+    return rows, len(np.unique(D.col))
+
+
 def _loopy_brute_force(ids, src, dst):
     """Triangle row bag by enumerating relationship triples with pairwise
     distinct relationships (openCypher isomorphism)."""
@@ -164,6 +196,28 @@ def _loopy_brute_force(ids, src, dst):
                 if a2 == a and len({r0, r1, r2}) == 3:
                     tri[(("a", a), ("b", b), ("c", c))] += 1
     return tri
+
+
+def _loopy_clique_brute_force(ids, src, dst):
+    """The 4-clique count by enumerating the triangle's relationships and
+    then d's three, all six pairwise distinct."""
+    out = {}
+    for i, (s, d) in enumerate(zip(src.tolist(), dst.tolist())):
+        out.setdefault(s, []).append((i, d))
+    total = 0
+    for r0, (a, b) in enumerate(zip(src.tolist(), dst.tolist())):
+        for r1, c in out.get(b, ()):
+            for r2, a2 in out.get(c, ()):
+                if a2 != a or len({r0, r1, r2}) < 3:
+                    continue
+                for r3, d in out.get(a, ()):
+                    for r4, d4 in out.get(b, ()):
+                        if d4 != d:
+                            continue
+                        for r5, d5 in out.get(c, ()):
+                            if d5 == d and len({r0, r1, r2, r3, r4, r5}) == 6:
+                                total += 1
+    return total
 
 
 def _check_port_run(result, tiers_before, tier):
@@ -369,18 +423,44 @@ def test_declined_undirected_close(snb):
 
 @pytest.mark.parametrize("graph,query", [
     # rows read from a 4-clique
-    ("snb", CLIQUE4.replace("RETURN count(*) AS cliques", "RETURN a.id AS a, d.id AS d")),
+    ("snb", CLIQUE4_ROWS),
     # a 4-clique count whose uniqueness pairs cannot be proven redundant
     ("loopy", CLIQUE4),
 ])
 def test_declined_multi_close_materialize(request, graph, query):
-    """Both need the multi-close materialize, which waits for
-    ``factorized.py``; the reference answers them there."""
-    _, _, port, _ = request.getfixturevalue(graph)
+    """Both need the multi-close materialize: under the default ``auto``
+    with no memory budget, the runs decode at the output extent (tier
+    ``materialize``), and the loopy count's pairs are enforced on the
+    decoded rows. Bag-identical to the reference and to scipy or the
+    brute force."""
+    ref, _, port, arrays = request.getfixturevalue(graph)
+    before = dict(W.WCOJ_TIER_COUNTS)
     result = port.cypher(query)
-    assert "MultiwayIntersectOp" in result.plans
-    with pytest.raises(NotImplementedError, match=FACTORIZED_ITEM):
-        result.records.collect()
+    got = _bag(result.records)
+    assert got == _bag(ref.cypher(query).records)
+    if graph == "snb":
+        want = _clique_truth(*arrays)[0]
+    else:
+        want = Counter({(("cliques", _loopy_clique_brute_force(*arrays)),): 1})
+    assert got == want and sum(want.values()) > 0
+    _check_port_run(result, before, "materialize")
+
+
+@pytest.mark.parametrize("mode,tier", [("force", "factorized"), ("off", "materialize")])
+def test_clique4_mat(snb, mode, tier):
+    """``bench.py`` ``CLIQUE4_MAT``: under ``force`` the 4-clique stays a
+    ``FactorizedTable`` until ``count(DISTINCT d.id)`` reads its prefix;
+    under ``off`` it decodes at the output extent. Both equal the
+    reference's answer under ``force`` and scipy's."""
+    ref, _, port, arrays = snb
+    RCFG.FACTORIZE.set("force")
+    PCFG.FACTORIZE.set(mode)
+    before = dict(W.WCOJ_TIER_COUNTS)
+    result = port.cypher(CLIQUE4_MAT)
+    got = _bag(result.records)
+    assert got == _bag(ref.cypher(CLIQUE4_MAT).records)
+    assert got == Counter({(("hubs", _clique_truth(*arrays)[1]),): 1})
+    _check_port_run(result, before, tier)
 
 
 @pytest.mark.parametrize("graph", ["snb", "loopy"])

@@ -65,6 +65,7 @@ from . import jit_ops as J
 from .column import OBJ, REL, Column, TpuBackendError, struct_column
 from .column import mask_to_idx_bucketed as _mask_to_idx_bucketed
 from .graph_index import CANON_NODE, CANON_REL, GraphIndex, GraphIndexError, rekey_element_expr
+from .table import ensure_flat
 
 def _owner_name(e: E.Expr) -> Optional[str]:
     if isinstance(e, E.Var):
@@ -285,7 +286,7 @@ class _FusedExpandBase(RelationalOperator):
         input-table id column at ``row`` (element ids are global, so the
         comparison holds across type sets)."""
         in_op = self.children[0]
-        in_t = in_op.table
+        in_t = ensure_flat(in_op.table)
         rel_cols, rel_header = gi.rel_scan(self.types_key, ctx)
         canon_id = rel_header.id_expr(rel_header.var(CANON_REL))
         own_ids = None
@@ -413,7 +414,7 @@ class _FusedExpandBase(RelationalOperator):
 
         ctx = self.context
         in_op = self.children[0]
-        in_t = in_op.table
+        in_t = ensure_flat(in_op.table)
         rel_cols, rel_header = gi.rel_scan(self.types_key, ctx)
         if far_var is not None:
             node_cols, node_header, _ = gi.node_scan(far_labels, ctx)
@@ -595,7 +596,7 @@ class CsrExpandOp(_FusedExpandBase):
         hops = self._chain_hops()
         base = hops[-1]
         in_op = base.children[0]
-        in_t = in_op.table
+        in_t = ensure_flat(in_op.table)
         frontier_var = in_op.header.var(base.frontier_fld)
         id_col = in_t._cols[in_op.header.column(in_op.header.id_expr(frontier_var))]
         gi.node_ids(ctx)  # build the compact id space (validates the graph)
@@ -675,7 +676,7 @@ class CsrExpandOp(_FusedExpandBase):
             gi = GraphIndex.of(self.graph)
             ctx = self.context
             in_op = base.children[0]
-            in_t = in_op.table
+            in_t = ensure_flat(in_op.table)
             frontier_var = in_op.header.var(base.frontier_fld)
             id_col = in_t._cols[
                 in_op.header.column(in_op.header.id_expr(frontier_var))
@@ -708,6 +709,75 @@ class CsrExpandOp(_FusedExpandBase):
         except (GraphIndexError, TpuBackendError):
             return None
 
+    def _factorized_expand(self, gi: GraphIndex, ctx, in_op, in_t, pos, present):
+        """The expand's output as a ``FactorizedTable``: the input rows are
+        the lanes, each lane's suffix run is its CSR adjacency slice, and
+        relationship and far-node columns decode through the ``(eo,)`` and
+        ``(ci, row_map)`` gather-map chains only when rows are read.
+        Eligible for directed expands with no far labels and no
+        uniqueness pair, over an input with no bucket pads, when
+        ``optimizer.cost.prefer_factorized`` routes the flat estimate here;
+        None keeps the flat materialize."""
+        from ...optimizer.cost import factorized_routing_enabled, prefer_factorized
+        from .factorized import FactorizedTable, RunLevel, note_factorized
+        from .table import CudaTable
+
+        if (
+            self.undirected
+            or self.far_labels
+            or self.enforced_pairs
+            or gi.num_nodes == 0
+            # the pre-gate keeps the default configuration free: no run
+            # bounds and no total read unless routing is live
+            or not factorized_routing_enabled()
+            or in_t._depad() is not in_t
+        ):
+            return None
+        rp, ci, eo = gi.csr(self.types_key, self.backwards, ctx)
+        if int(ci.shape[0]) == 0:
+            return None
+        fault_point("expand")  # the run-total read below
+        lo, cnt, t_dev = J.csr_run_bounds(rp, pos, present, in_t.size)
+        total = int(t_dev)
+        if not prefer_factorized(total, 24 + 9 * max(len(self.header.expressions), 1)):
+            return None
+        rel_cols, rel_header = gi.rel_scan(self.types_key, ctx)
+        node_cols, node_header, row_map = gi.node_scan((), ctx)
+        canon_rel = E.Var(CANON_REL)
+        canon_node = E.Var(CANON_NODE)
+        pfx_cols: Dict[str, Column] = {}
+        lvl_cols: Dict[str, Tuple[Column, Tuple[Any, ...]]] = {}
+        for e in self.header.expressions:
+            col = self.header.column(e)
+            if col in pfx_cols or col in lvl_cols:
+                continue
+            if e in in_op.header:
+                pfx_cols[col] = in_t._cols[in_op.header.column(e)]
+                continue
+            owner = _owner_name(e)
+            if owner == self.rel_fld:
+                key, cols, hdr, maps = rekey_element_expr(e, canon_rel), rel_cols, rel_header, (eo,)
+            elif owner == self.far_fld:
+                key, cols, hdr, maps = (
+                    rekey_element_expr(e, canon_node), node_cols, node_header, (ci, row_map)
+                )
+            else:
+                raise GraphIndexError(f"unmapped expr {e!r}")
+            if key is None or key not in hdr:
+                raise GraphIndexError(f"unmapped expr {e!r}")
+            src = cols[hdr.column(key)]
+            if src.kind == OBJ or len(src) == 0:
+                return None  # a host column cannot ride the decode
+            lvl_cols[col] = (src, maps)
+        # the compressed form pays admission for its two run-bound arrays
+        # at the lane count, never the flat product
+        bucketing.admit(in_t.size, 16, "factorized")
+        out = FactorizedTable(
+            CudaTable(pfx_cols, in_t.size), (RunLevel(lo, cnt, lvl_cols),), nrows=total
+        )
+        note_factorized(total, int(pos.shape[0]), in_t.size)
+        return out
+
     def _fused_table(self):
         from .table import CudaTable
 
@@ -719,13 +789,16 @@ class CsrExpandOp(_FusedExpandBase):
             # are materialized at all
             return CudaTable({}, self._count_via_chain(gi, ctx))
         in_op = self.children[0]
-        in_t = in_op.table
+        in_t = ensure_flat(in_op.table)
         frontier_var = in_op.header.var(self.frontier_fld)
         id_col = in_t._cols[in_op.header.column(in_op.header.id_expr(frontier_var))]
         if id_col.kind == OBJ:
             raise GraphIndexError("host-object id column")
         pos, present = gi.compact_of(id_col, ctx)
         bucketed = bucketing.enabled()
+        fact = self._factorized_expand(gi, ctx, in_op, in_t, pos, present)
+        if fact is not None:
+            return fact
         row, nbr, orig, n_live = self._expand_half(
             gi, pos, present, reverse=self.backwards, drop_loops=False
         )
@@ -897,7 +970,7 @@ class CsrExpandIntoOp(_FusedExpandBase):
             ctx = self.context
             base_in = base.children[0]
             frontier_var = base_in.header.var(base.frontier_fld)
-            id_col = base_in.table._cols[
+            id_col = ensure_flat(base_in.table)._cols[
                 base_in.header.column(base_in.header.id_expr(frontier_var))
             ]
             # eligible from here on: the walk and the probe sync
@@ -969,7 +1042,7 @@ class CsrExpandIntoOp(_FusedExpandBase):
             if n is not None:
                 return CudaTable({}, n)
         in_op = self.children[0]
-        in_t = in_op.table
+        in_t = ensure_flat(in_op.table)
         gi = GraphIndex.of(self.graph)
         ctx = self.context
         h = in_op.header
@@ -1037,7 +1110,7 @@ class CsrOptionalExpandOp(_FusedExpandBase):
         gi = GraphIndex.of(self.graph)
         ctx = self.context
         in_op = self.children[0]
-        in_t = in_op.table
+        in_t = ensure_flat(in_op.table)
         frontier_var = in_op.header.var(self.frontier_fld)
         id_col = in_t._cols[in_op.header.column(in_op.header.id_expr(frontier_var))]
         if id_col.kind == OBJ:
@@ -1175,7 +1248,7 @@ class CsrVarExpandOp(_FusedExpandBase):
         if not self.enforced_pairs:
             return ()
         in_op = self.children[0]
-        in_t = in_op.table
+        in_t = ensure_flat(in_op.table)
         h = in_op.header
         sorted_ids, perm = gi.rel_row_index(self.types_key, ctx)
         out = []
@@ -1212,7 +1285,7 @@ class CsrVarExpandOp(_FusedExpandBase):
         count_only = not header.expressions
         gi = GraphIndex.of(self.graph)
         ctx = self.context
-        in_t = in_op.table
+        in_t = ensure_flat(in_op.table)
         frontier_var = in_op.header.var(self.source_fld)
         id_col = in_t._cols[in_op.header.column(in_op.header.id_expr(frontier_var))]
         if id_col.kind == OBJ:
@@ -1296,7 +1369,7 @@ class CsrVarExpandOp(_FusedExpandBase):
 
         ctx = self.context
         in_op = self.children[0]
-        in_t = in_op.table
+        in_t = ensure_flat(in_op.table)
         header = self.header
         if not levels:
             row0 = far = _empty_i64()

@@ -27,7 +27,9 @@ Eligibility keeps the reference's semantic rules (count over anything; sum
 over I64 only, since float sums reorder; min/max over I64/BOOL/STR/F64
 without int_flag bookkeeping) and re-derives the size cap: k <= 256 keeps
 one block's per-warp partials in 32 KB of shared memory, and fewer than
-2**31 rows keeps the counts exact in int32.
+2**31 rows keeps the counts exact in int32. The group cap is
+``optimizer.cost.pallas_cap("aggregate")``, which a pinned
+``TPU_CYPHER_PALLAS_MAX_GROUPS`` may lower.
 """
 
 from __future__ import annotations
@@ -168,8 +170,10 @@ def _launch(data, valid, seg_j, name: str, kind: str, k: int):
 def segment_aggregate(data, valid, iflag, seg_j, *, name: str, kind: str, k: int):
     """Dispatching drop-in for ``jit_ops.segment_aggregate`` (same 4-tuple
     contract; ``seg_j`` None is a global aggregate, ``k == 1``)."""
+    from ....optimizer.cost import pallas_cap
+
     eligible = (
-        0 < k <= MAX_GROUPS
+        0 < k <= pallas_cap("aggregate")
         and data.ndim == 1
         and int(data.shape[0]) < 2**31
         and (

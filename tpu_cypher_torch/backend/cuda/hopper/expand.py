@@ -17,7 +17,9 @@ lanes included. ``frontier_state`` is the plain version of the state step.
 Eligibility is re-derived for this card. The reference caps the frontier
 at 2**18 rows because its ``cum``/``starts`` state must fit VMEM; here a
 block stages only its tile's window of them, so only the int32 lane and
-edge ranges bound the call.
+edge ranges bound the call. The frontier cap is
+``optimizer.cost.pallas_cap("expand")``, which a pinned
+``TPU_CYPHER_PALLAS_MAX_FRONTIER`` may lower.
 """
 
 from __future__ import annotations
@@ -147,10 +149,12 @@ def expand_materialize_counted(rp, ci, eo, pos, deg, nvalid, *, size: int,
     (row, nbr, orig, live) for ``size`` lanes, ``nvalid`` of them live.
     With ``with_orig=False`` neither tier reads ``eo``, and ``orig`` comes
     back as an empty int64 tensor."""
+    from ....optimizer.cost import pallas_cap
+
     frontier = int(pos.shape[0])
     eligible = (
         0 < size <= _INT32_MAX
-        and 0 < frontier < _INT32_MAX
+        and 0 < frontier <= pallas_cap("expand")
         and rp.dtype == torch.int32
         and ci.dtype == torch.int32
     )

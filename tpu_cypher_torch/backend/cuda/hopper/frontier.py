@@ -21,7 +21,9 @@ reference's ``_csr_deg_sum_jnp`` (two gathers and a masked sum).
 Eligibility is re-derived for this card: the reference's node cap (a VMEM
 budget for the degree vector) and max-degree cap (an int32 block sum) do
 not apply — the kernel reads ``row_ptr`` from device memory and sums in
-int64 — so any non-empty frontier is eligible.
+int64 — so any non-empty frontier is eligible, unless a pinned
+``TPU_CYPHER_PALLAS_MAX_NODES`` lowers ``optimizer.cost.pallas_cap("frontier")``
+below the node count.
 """
 
 from __future__ import annotations
@@ -97,7 +99,13 @@ def _launch(rp, pos, present):
 def csr_frontier_degree_sum(rp, pos, present):
     """``sum over frontier rows of (rp[pos+1] - rp[pos])`` with ``present``
     masking, as a 0-d int64 tensor."""
-    eligible = int(pos.shape[0]) > 0 and rp.dtype == torch.int32
+    from ....optimizer.cost import pallas_cap
+
+    eligible = (
+        int(pos.shape[0]) > 0
+        and rp.dtype == torch.int32
+        and int(rp.shape[0]) - 1 <= pallas_cap("frontier")
+    )
     return dispatch.launch(
         "frontier_deg_sum",
         lambda: deg_sum_cuda(rp, pos, present),

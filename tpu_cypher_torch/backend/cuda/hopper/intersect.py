@@ -21,7 +21,9 @@ power-of-two padded key list at 2**20 because both int32 key planes must
 fit VMEM; here the keys stay in device memory, so only these bound the
 call: int64 keys, ``0 < nk < 2**31`` (the kernel's int32 positions; the
 CSR already caps an edge list there) and ``nq > 0``. An SF10 KNOWS key
-list (4.5M keys) is eligible.
+list (4.5M keys) is eligible. The key cap is
+``optimizer.cost.pallas_cap("intersect")``, which a pinned
+``TPU_CYPHER_PALLAS_MAX_KEYS`` may lower.
 """
 
 from __future__ import annotations
@@ -143,9 +145,11 @@ def intersect_range_count(keys, q, qvalid):
     per query lane the first sorted key position matching ``q`` and the
     match count (0 where ``qvalid`` is False), plus the int64 total.
     ``keys`` must be ascending int64."""
+    from ....optimizer.cost import pallas_cap
+
     nk = int(keys.shape[0])
     eligible = (
-        0 < nk <= _INT32_MAX
+        0 < nk <= pallas_cap("intersect")
         and int(q.shape[0]) > 0
         and keys.dtype == torch.int64
         and q.dtype == torch.int64

@@ -36,6 +36,8 @@ float keys stay runs of one bit pattern. Only these bound the call: one
 dimension on each side, a non-empty probe and ``nvalid <= 2**30`` (the
 table's ``2 * nvalid`` slots take uint32 indices). A build with no valid
 key is a table of empty slots, which the kernel probes like any other.
+The build cap is ``optimizer.cost.pallas_cap("join")``, which a pinned
+``TPU_CYPHER_PALLAS_MAX_BUILD`` may lower.
 """
 
 from __future__ import annotations
@@ -253,11 +255,13 @@ def join_probe(rd, r_order, ld, lvalids, nvalid: int, *, is_f64: bool, is_bool: 
     """Dispatching drop-in for ``jit_ops.join_probe``: (valid build rows,
     lo, counts, total) for the probe keys ``ld`` against the build keys
     ``rd`` in ``join_build``'s valid-first order ``r_order``."""
+    from ....optimizer.cost import pallas_cap
+
     eligible = (
         ld.dim() == 1
         and rd.dim() == 1
         and int(ld.shape[0]) > 0
-        and nvalid <= _MAX_BUILD
+        and nvalid <= pallas_cap("join")
     )
     return dispatch.launch(
         "join_probe",

@@ -384,6 +384,55 @@ def into_materialize_counted(eo, lo, counts, nvalid, size: int):
     return row, eo[edge], live
 
 
+# ---------------------------------------------------------------------------
+# the run programs of the factorized tier (factorized.py)
+# ---------------------------------------------------------------------------
+
+
+def csr_run_bounds(rp, pos, present, nvalid: int):
+    """Per-lane adjacency run bounds straight off the CSR row pointers:
+    ``(lo, cnt, total)``, lane ``i``'s suffix run being
+    ``ci[lo[i]:lo[i] + cnt[i]]``. Absent frontier ids and lanes past
+    ``nvalid`` carry ``cnt = 0``, so they weigh no flat row; the clip keeps
+    the row-pointer gather in range for them."""
+    dev = pos.device
+    live = present & (torch.arange(pos.shape[0], dtype=torch.int64, device=dev) < nvalid)
+    p = torch.clamp(pos, 0, max(int(rp.shape[0]) - 2, 0))
+    start = rp[p].to(torch.int64)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    lo = torch.where(live, start, zero)
+    cnt = torch.clamp(torch.where(live, rp[p + 1].to(torch.int64) - start, zero), min=0)
+    return lo, cnt, torch.sum(cnt)
+
+
+def runs_weights(cnts, nlanes: int):
+    """Per-lane flat-row weight ``w = prod_j cnt_j`` (0 past ``nlanes``),
+    its inclusive cumsum ``W`` and the flat total: lane ``i`` owns flat
+    rows ``[W[i] - w[i], W[i])``. Lanes are sized exactly, so ``W`` needs
+    no sentinel: a lane of weight 0 ends where its predecessor does, and
+    a search ``searchsorted(W, f, right)`` for ``f < total`` lands on the
+    lane that owns ``f``."""
+    w = torch.clamp(cnts[0].to(torch.int64), min=0)
+    for cnt in cnts[1:]:
+        w.mul_(torch.clamp(cnt.to(torch.int64), min=0))
+    if nlanes < int(w.shape[0]):
+        w[nlanes:] = 0
+    return w, torch.cumsum(w, 0), torch.sum(w)
+
+
+def run_positions(i, inner, los, cnts):
+    """Per level, the run position of each decoded flat row from its lane
+    ``i`` and its within-lane remainder ``inner``: the remainder read as a
+    mixed-radix number over the lane's level counts, the last level
+    fastest (the flat enumeration order)."""
+    pos = []
+    for lo, cnt in zip(reversed(los), reversed(cnts)):
+        c = torch.clamp(cnt[i], min=1)
+        pos.append(lo[i] + inner % c)
+        inner = inner // c
+    return tuple(reversed(pos))
+
+
 def drop_loops_mask(nbr, pos, row):
     return nbr != pos[row]
 

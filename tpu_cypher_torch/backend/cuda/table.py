@@ -54,6 +54,17 @@ from .column import (
 from .compiler import CudaEvaluator, TpuUnsupportedExpr
 
 
+def ensure_flat(t):
+    """A factorized table (``factorized.FactorizedTable``) in its flat
+    ``CudaTable`` form; identity on anything already flat. Duck-typed on
+    ``to_flat_table``, so this module never imports ``factorized`` (which
+    imports this one). Every fused operator's input and the ``other`` side
+    of a binary op pass through here; the flatten is admission-guarded, so
+    an over-budget decompress raises ``AdmissionRejected``."""
+    to_flat = getattr(t, "to_flat_table", None)
+    return to_flat() if to_flat is not None else t
+
+
 class CudaTable(Table):
     def __init__(self, cols: Dict[str, Column], nrows: Optional[int] = None):
         self._cols = dict(cols)
@@ -234,6 +245,7 @@ class CudaTable(Table):
     # -- join --------------------------------------------------------------
 
     def join(self, other: "CudaTable", kind, join_cols) -> "CudaTable":
+        other = ensure_flat(other)
         t, o = self._depad(), other._depad()
         if t is not self or o is not other:
             return t.join(o, kind, join_cols)
@@ -442,6 +454,7 @@ class CudaTable(Table):
         """Rows of ``self`` then ``other``, column by column through
         ``Column.concat`` (kind promotion included). The reference's padded
         fork (``_union_all_padded``) is left out with the bucket lattice."""
+        other = ensure_flat(other)
         if set(self._cols) != set(other._cols):
             raise TpuBackendError("unionAll column mismatch")
         t, o = self._depad(), other._depad()

@@ -16,20 +16,26 @@ lists, each anchored at a variable already bound per input row —
 Each input row iterates its MINIMUM-degree list and range-counts the
 others, so the expanded lanes total sum(min_k deg_k). The lanes come from
 the ``expand_rows`` kernel and the range counts from the ``intersect``
-kernel (``hopper/``). Bag semantics match the classic cascade by
-construction: one output row per (input row, pivot edge, close-edge
-combination), candidate label masks applied once. Relationship uniqueness
-rides ``enforced_pairs``: provably redundant pairs are dropped by
-``plan_filter_fastpath``; the rest are enforced on the materializing path
-by comparing global element ids.
+kernel (``hopper/``). A materialize keeps one run level per close
+(``factorized.py``): the output stays a ``FactorizedTable`` where
+``optimizer.cost.prefer_factorized`` routes it (tier ``factorized``),
+else it is decoded at the output extent (tier ``materialize``). Bag
+semantics match the classic cascade by construction: one output row per
+(input row, pivot edge, close-edge combination), candidate label masks
+applied once. Relationship uniqueness rides ``enforced_pairs``: provably
+redundant pairs are dropped by ``plan_filter_fastpath``; the rest are
+enforced on the materializing path by comparing global element ids.
 
 Differences by design from the reference (ROADMAP.md queue 3):
 
 * no sharded range-count tier (``_mesh_range_counter`` waits for
   ``parallel/``);
-* no factorized output: the single-close materialize always takes the flat
-  path, and a multi-close materialize raises ``NotImplementedError``
-  (queue 1, ``factorized.py``);
+* one materialize for one close or several: a flat output decodes the
+  runs at the output extent on the ``expand_rows`` gate
+  (``factorized.decode_lanes``). The reference repeats a single close's
+  lanes by their counts (``into_materialize_counted``) and, under
+  ``TPU_CYPHER_FACTORIZE=off``, declines a multi-close materialize to its
+  classic shadow cascade;
 * a pure count is never handed back to a binary counting tier (the port
   has no native or MXU tier);
 * ``auto`` routes as the reference does: only where the binary plan's
@@ -62,7 +68,7 @@ from ...relational.ops import RelationalOperator
 from ...runtime.faults import fault_point
 from . import bucketing
 from . import jit_ops as J
-from .column import Column, TpuBackendError
+from .column import OBJ, Column, TpuBackendError
 from .expand_op import (
     CsrExpandOp,
     _chain_rel_ends,
@@ -70,6 +76,7 @@ from .expand_op import (
     _FusedExpandBase,
     _owner_name,
 )
+from .table import CudaTable, ensure_flat
 from .graph_index import (
     CANON_NODE,
     CANON_REL,
@@ -86,12 +93,7 @@ WCOJ_TIER_COUNTS = CounterView(
         labels=("tier",),
     ),
     "tier",
-    ("count", "materialize"),
-)
-
-_MULTI_CLOSE_ITEM = (
-    "ROADMAP.md queue 1, item 5 (factorized.py: the multi-close WCOJ "
-    "materialize)"
+    ("count", "materialize", "factorized"),
 )
 
 
@@ -155,6 +157,12 @@ def _probe_queries(a_pos, a_ok, row, cand, live, n: int):
 
 def _apply_label_mask(m, mask, cand):
     return m * mask[cand].to(torch.int64)
+
+
+def _zero_counts(m, keep):
+    """Range counts with the lanes ``keep`` rejects zeroed: a uniqueness
+    pair read at the lane domain folds into the run multiplicities."""
+    return torch.where(keep, m, torch.zeros_like(m))
 
 
 class MultiwayIntersectOp(_FusedExpandBase):
@@ -260,7 +268,7 @@ class MultiwayIntersectOp(_FusedExpandBase):
         the all-anchors-present row mask (an absent anchor matches no edge,
         exactly the classic join's null semantics)."""
         in_op = self.children[0]
-        in_t = in_op.table
+        in_t = ensure_flat(in_op.table)
         h = in_op.header
         out = []
         valid = None
@@ -330,61 +338,159 @@ class MultiwayIntersectOp(_FusedExpandBase):
 
     def _materialize(self, gi: GraphIndex, ctx, lists, valid):
         """Materializing tier (row-producing headers and/or uniqueness
-        enforcement), single close, flat: iterate the pivot, expand each
-        lane by its close range count so close-edge origs are recoverable
-        as ``eo[lo + k]``."""
+        enforcement), for one close or several, through the run-compressed
+        form: iterate the pivot, range-count each close, and keep one
+        suffix level per close, the lane weights the products of the
+        lanes' range counts. The output stays a ``FactorizedTable`` where
+        ``optimizer.cost.prefer_factorized`` routes it; else the decode
+        walks the runs at the output extent (``factorized.decode_lanes``,
+        on the ``expand_rows`` gate), so a close-edge orig is
+        ``eo[lo + k]`` and the flat product of several closes never exists
+        on the device."""
+        from ...optimizer.cost import prefer_factorized
+        from .factorized import decode_lanes
         from .hopper import expand_materialize_counted, intersect_range_count
-        from .table import CudaTable
 
-        pivot, close = lists
+        fault_point("expand")  # the lane and output totals read below
+        pivot, closes = lists[0], lists[1:]
         n = gi.num_nodes
         mask = gi.label_mask(self.pivot.far_labels, ctx)
         nexprs = max(len(self.header.expressions), 1)
         deg, t_dev = J.expand_degrees_total(pivot.rp, pivot.pos, valid)
         total = int(t_dev)
-        bucketing.admit(total, 40, "intersect")
-        if total == 0:
-            # nothing to probe: an empty query list would leave the kernel
-            # tier for the fallback one
-            in_row = cand2 = orig_p2 = orig_c = _empty_i64()
-            n_out = 0
-        else:
-            row, cand, orig_p, live = expand_materialize_counted(
-                pivot.rp, pivot.ci, pivot.eo, pivot.pos, deg, total,
-                size=bucketing.exact_size(total),
+        bucketing.admit(total, 24 + 16 * len(closes), "intersect")
+        if total == 0:  # nothing to probe: no gate call
+            return self._materialize_empty(gi, ctx)
+        row, cand, orig_p, live = expand_materialize_counted(
+            pivot.rp, pivot.ci, pivot.eo, pivot.pos, deg, total,
+            size=bucketing.exact_size(total),
+        )
+        los, cnts = [], []
+        for j, close in enumerate(closes):
+            # the probes die with the call: lane state is the memory here
+            lo_j, m_j, _ = intersect_range_count(
+                close.keys, *_probe_queries(close.pos, close.ok, row, cand, live, n)
             )
-            q, qok = _probe_queries(close.pos, close.ok, row, cand, live, n)
-            lo, m, out_dev = intersect_range_count(close.keys, q, qok)
-            if mask is not None:
-                m = _apply_label_mask(m, mask, cand)
-                out_dev = torch.sum(m)
-            n_out = int(out_dev)
-            bucketing.admit(n_out, 32 + 9 * nexprs, "intersect")
-            # exact sizes: every lane is live
-            lane, orig_c, _ = J.into_materialize_counted(
-                close.eo, lo, m, out_dev, size=bucketing.exact_size(n_out)
-            )
-            in_row, cand2, orig_p2 = J.tree_take((row, cand, orig_p), lane)
-        if self.enforced_pairs and n_out:
+            if j == 0 and mask is not None:
+                m_j = _apply_label_mask(m_j, mask, cand)
+            los.append(lo_j)
+            cnts.append(m_j)
+        pair_flds = {r for pr in self.enforced_pairs for r in pr}
+        pairs_on_close = bool(pair_flds & {c.rel_fld for c in self.closes})
+        if self.enforced_pairs and not pairs_on_close:
             fault_point("compact")
-            keep = self._wcoj_pair_keep(
-                gi, ctx, in_row, orig_p2, {self.closes[0].rel_fld: orig_c}
+            cnts[0] = _zero_counts(cnts[0], self._wcoj_pair_keep(gi, ctx, row, orig_p, {}))
+        w, W, tot = J.runs_weights(tuple(cnts), total)
+        n_out = int(tot)
+        if (
+            self.header.expressions
+            and not pairs_on_close
+            and prefer_factorized(n_out, 32 + 9 * nexprs)
+        ):
+            fact = self._factorized_assemble(
+                gi, ctx, closes, row, cand, orig_p, total, tuple(los), tuple(cnts), n_out
             )
+            if fact is not None:
+                return fact
+        if not self.header.expressions and not (self.enforced_pairs and pairs_on_close):
+            return CudaTable({}, n_out)  # the weights are the count
+        # flat through the runs: positions decoded at the output extent
+        bucketing.admit(n_out, 32 + 9 * nexprs, "intersect")
+        if n_out == 0:
+            return self._materialize_empty(gi, ctx)
+        i, inner = decode_lanes(W, w, 0, n_out)
+        pos = J.run_positions(i, inner, tuple(los), tuple(cnts))
+        in_row, cand2, orig_p2 = J.tree_take((row, cand, orig_p), i)
+        orig_cs = {c.rel_fld: lst.eo[p_j] for c, lst, p_j in zip(self.closes, closes, pos)}
+        if self.enforced_pairs and pairs_on_close:
+            fault_point("compact")
+            keep = self._wcoj_pair_keep(gi, ctx, in_row, orig_p2, orig_cs)
             n2 = int(J.mask_sum(keep))
             if n2 != n_out:
                 idx = J.mask_nonzero(keep, size=n2)
-                in_row, cand2, orig_p2, orig_c = J.tree_take(
-                    (in_row, cand2, orig_p2, orig_c), idx
-                )
+                in_row, cand2, orig_p2 = J.tree_take((in_row, cand2, orig_p2), idx)
+                orig_cs = {r: o[idx] for r, o in orig_cs.items()}
                 n_out = n2
         if not self.header.expressions:
             return CudaTable({}, n_out)
         _, _, row_map = gi.node_scan(self.pivot.far_labels, ctx)
         far_rows, _ = J.far_lookup(row_map, cand2)
+        return self._assemble_multi(gi, ctx, in_row, orig_p2, orig_cs, far_rows, n_out)
+
+    def _materialize_empty(self, gi: GraphIndex, ctx):
+        """The materialize's output with no row."""
+        if not self.header.expressions:
+            return CudaTable({}, 0)
+        z = _empty_i64()
         return self._assemble_multi(
-            gi, ctx, in_row, orig_p2, {self.closes[0].rel_fld: orig_c},
-            far_rows, n_out,
+            gi, ctx, z, z, {c.rel_fld: z for c in self.closes}, z, 0
         )
+
+    def _factorized_assemble(
+        self, gi: GraphIndex, ctx, closes, row, cand, orig_p, total, los, cnts, n_out: int
+    ):
+        """The materialize's output in factorized form: the prefix is the
+        pivot expansion's lane table (input columns at ``row``, the pivot
+        rel at ``orig_p``, candidate node columns at its node-scan row),
+        one suffix level per close, whose columns decode through the
+        ``eo[pos]`` gather-map chain when rows are read. Admission pays for
+        lanes, never the flat product. None when a close rel's column
+        cannot ride the decode (a host column or an empty rel scan): the
+        caller keeps the flat path."""
+        from .factorized import FactorizedTable, RunLevel, note_factorized
+        p = self.pivot
+        in_op = self.children[0]
+        in_t = ensure_flat(in_op.table)
+        relp_cols, relp_header = gi.rel_scan(p.types_key, ctx)
+        node_cols, node_header, row_map = gi.node_scan(p.far_labels, ctx)
+        canon_rel = E.Var(CANON_REL)
+        canon_node = E.Var(CANON_NODE)
+        close_index = {c.rel_fld: j for j, c in enumerate(self.closes)}
+        plan: Dict[str, Tuple[Column, str]] = {}
+        level_plans: Tuple[Dict[str, Column], ...] = tuple({} for _ in closes)
+        for e in self.header.expressions:
+            col = self.header.column(e)
+            if col in plan or any(col in lp for lp in level_plans):
+                continue
+            if e in in_op.header:
+                plan[col] = (in_t._cols[in_op.header.column(e)], "row")
+                continue
+            owner = _owner_name(e)
+            if owner == p.rel_fld or owner in close_index:
+                key = rekey_element_expr(e, canon_rel)
+                if owner == p.rel_fld:
+                    cc, hh = relp_cols, relp_header
+                else:
+                    cc, hh = gi.rel_scan(self.closes[close_index[owner]].types_key, ctx)
+                if key is None or key not in hh:
+                    raise GraphIndexError(f"unmapped rel expr {e!r}")
+                src = cc[hh.column(key)]
+                if owner == p.rel_fld:
+                    plan[col] = (src, "origp")
+                    continue
+                if src.kind == OBJ or len(src) == 0:
+                    return None
+                level_plans[close_index[owner]][col] = src
+                continue
+            if owner == p.far_fld:
+                key = rekey_element_expr(e, canon_node)
+                if key is None or key not in node_header:
+                    raise GraphIndexError(f"unmapped node expr {e!r}")
+                plan[col] = (node_cols[node_header.column(key)], "far")
+                continue
+            raise GraphIndexError(f"unmapped expr {e!r}")
+        # a candidate without the far labels has weight 0; its lane reads
+        # node-scan row 0 and is never decoded
+        far_rows = torch.clamp(J.far_lookup(row_map, cand)[0], min=0)
+        bucketing.admit(total, 9 * max(len(plan), 1), "factorized")
+        pfx_cols = self._gather_plan(plan, {"row": row, "origp": orig_p, "far": far_rows})
+        levels = [
+            RunLevel(lo_j, m_j, {c: (src, (lst.eo,)) for c, src in lp.items()})
+            for lo_j, m_j, lst, lp in zip(los, cnts, closes, level_plans)
+        ]
+        out = FactorizedTable(CudaTable(pfx_cols, total), levels, nrows=n_out)
+        note_factorized(n_out, int(row.shape[0]), total)
+        return out
 
     def _wcoj_pair_keep(self, gi: GraphIndex, ctx, row, orig_p, orig_cs):
         """Row-keep mask for enforced uniqueness pairs: the pivot rel reads
@@ -393,7 +499,7 @@ class MultiwayIntersectOp(_FusedExpandBase):
         ``row`` — element ids are global, so cross-type comparisons stay
         sound."""
         in_op = self.children[0]
-        in_t = in_op.table
+        in_t = ensure_flat(in_op.table)
         p = self.pivot
         close_types = {c.rel_fld: c.types_key for c in self.closes}
         cache: Dict[str, Any] = {}
@@ -428,10 +534,8 @@ class MultiwayIntersectOp(_FusedExpandBase):
         """Column assembly with one rel source per fused rel: input
         pass-through at ``row``, pivot rel at ``orig_p``, close rel ``r`` at
         ``orig_cs[r]``, candidate node columns at ``far_rows``."""
-        from .table import CudaTable
-
         in_op = self.children[0]
-        in_t = in_op.table
+        in_t = ensure_flat(in_op.table)
         p = self.pivot
         relp_cols, relp_header = gi.rel_scan(p.types_key, ctx)
         close_scans = {
@@ -476,8 +580,6 @@ class MultiwayIntersectOp(_FusedExpandBase):
         return CudaTable(self._gather_plan(plan, idx_by_tag), n_out)
 
     def _fused_table(self):
-        from .table import CudaTable
-
         fault_point("expand")
         gi = GraphIndex.of(self.graph)
         ctx = self.context
@@ -492,13 +594,12 @@ class MultiwayIntersectOp(_FusedExpandBase):
             WCOJ_TIER_COUNTS.inc("count")
             _obs_trace.note("wcoj_tier", "count")
             return CudaTable({}, self._count(gi, ctx, lists, valid))
-        if len(self.closes) != 1:
-            raise NotImplementedError(
-                f"multi-close WCOJ materialize is not ported yet: {_MULTI_CLOSE_ITEM}"
-            )
+        from .factorized import FactorizedTable
+
         out = self._materialize(gi, ctx, lists, valid)
-        WCOJ_TIER_COUNTS.inc("materialize")
-        _obs_trace.note("wcoj_tier", "materialize")
+        tier = "factorized" if isinstance(out, FactorizedTable) else "materialize"
+        WCOJ_TIER_COUNTS.inc(tier)
+        _obs_trace.note("wcoj_tier", tier)
         return out
 
 

@@ -29,8 +29,8 @@ hand override, detected via ``ConfigOption.overridden``):
 * MXU tier gating — :func:`mxu_dense_node_cap` (modelled from the HBM
   budget when one is set) and :func:`mxu_tiled_node_cap` replace the
   fixed node caps in ``graph_index.dense_adj`` / ``expand_op``;
-* Pallas eligibility — :func:`pallas_cap` derives each kernel's size cap
-  from its VMEM working-set budget instead of a per-module constant.
+* kernel eligibility — :func:`pallas_cap` gives each Hopper kernel's size
+  cap (``backend/cuda/hopper/*``), which a pinned knob may only lower.
 """
 
 from __future__ import annotations
@@ -199,7 +199,7 @@ def prefer_wcoj(est_rows: int, graph, ctx) -> bool:
     return int(est_rows) > wcoj_threshold(graph, ctx)
 
 
-# -- factorized materialize routing (backend/tpu/factorized.py) -----------
+# -- factorized materialize routing (backend/cuda/factorized.py) ----------
 
 
 def factorized_rows(lanes: int) -> int:
@@ -310,33 +310,39 @@ def mxu_tiled_node_cap() -> int:
     return int(MXU_TILED_MAX.get())
 
 
-# -- Pallas kernel eligibility caps (backend/tpu/pallas/*) ----------------
+# -- Hopper kernel eligibility caps (backend/cuda/hopper/*) ---------------
 
-# per-kernel VMEM working-set model: (knob, budget bytes, bytes/element).
-# The unpinned cap is budget // bytes_per_element — each knob's declared
-# default equals that quotient, so routing through the model changes no
-# behavior until an operator pins a knob or the budgets are retuned.
-_PALLAS_BUDGETS = {
-    "expand": (PALLAS_MAX_FRONTIER, 2 << 20, 8),  # cum + starts, int32
-    "frontier": (PALLAS_MAX_NODES, 4 << 20, 4),  # degree vector, int32
-    "intersect": (PALLAS_MAX_KEYS, 8 << 20, 8),  # two int32 key planes
-    "join": (PALLAS_MAX_BUILD, 4 << 20, 32),  # 4 table vecs at LF 1/2
+# kernel -> (knob, the largest size its CUDA kernel takes on the H100).
+# The reference's caps are VMEM working-set budgets (2-8 MiB tables); none
+# of these kernels keeps such a table on chip, so each limit comes from
+# the kernel's own index arithmetic instead:
+# * expand: frontier rows; the degree scan and row starts are int32
+#   (csrc/expand_rows.cu), so a frontier stays below 2**31 - 1;
+# * frontier: the node count; the kernel reads row_ptr from device memory
+#   and sums in int64, so nothing bounds it (2**62 stands for "any");
+# * intersect: sorted keys; bucket starts and record offsets are int32
+#   (csrc/range_count.cu);
+# * join: build rows; the open-addressing table holds a power of two of at
+#   least twice the rows, and its slot index is 32-bit (csrc/hash_probe.cu);
+# * aggregate: groups; a block keeps one accumulator per group in shared
+#   memory, sized for kMaxGroups = 256 (csrc/segment_reduce.cu).
+# Each knob's declared default is that limit, so an unpinned cap is the
+# kernel's; a pin can lower a cap, never raise it past the limit.
+_HOPPER_CAPS = {
+    "expand": (PALLAS_MAX_FRONTIER, 2**31 - 2),
+    "frontier": (PALLAS_MAX_NODES, 2**62),
+    "intersect": (PALLAS_MAX_KEYS, 2**31 - 1),
+    "join": (PALLAS_MAX_BUILD, 2**30),
+    "aggregate": (PALLAS_MAX_GROUPS, 256),
 }
 
 
 def pallas_cap(kernel: str) -> int:
-    """Eligibility size cap for one Pallas kernel. A pinned
-    ``TPU_CYPHER_PALLAS_MAX_*`` knob wins verbatim; otherwise the cap is
-    the kernel's VMEM working-set budget divided by its bytes-per-element
-    — the byte-budget decision the old per-module constants hand-encoded.
-    ``aggregate`` caps GROUP BY cardinality (a compare-matrix shape, not a
-    resident buffer) so it keeps its declared lane-tile default."""
-    if kernel == "aggregate":
-        return int(PALLAS_MAX_GROUPS.get())
-    knob, vmem_bytes, bytes_per_elem = _PALLAS_BUDGETS[kernel]
-    if knob.overridden:
-        return int(knob.get())
-    return vmem_bytes // bytes_per_elem
+    """Eligibility size cap of one Hopper kernel (``hopper/*.py`` reads
+    it per call): a ``TPU_CYPHER_PALLAS_MAX_*`` value, clipped to what the
+    kernel takes."""
+    knob, limit = _HOPPER_CAPS[kernel]
+    return max(0, min(int(knob.get()), limit))
 
 
 # -- serve admission (serve/scheduler.estimate_cost_bytes) ----------------

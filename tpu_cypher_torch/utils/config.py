@@ -194,44 +194,41 @@ MXU_DENSE_MAX = declare(
     "(Npad^2 bf16 per matrix); modelled from the HBM budget unless pinned",
 )
 
-# per-kernel Pallas eligibility caps (backend/tpu/pallas/*). Each default
-# mirrors the kernel's VMEM working-set budget; the effective cap routes
-# through optimizer/cost.pallas_cap so a pin is honored verbatim while the
-# unpinned value stays a derived byte-budget decision.
+# Hopper kernel eligibility caps (optimizer/cost.py pallas_cap): each
+# default is the most its kernel takes; a pin may only lower it
 PALLAS_MAX_FRONTIER = declare(
     "TPU_CYPHER_PALLAS_MAX_FRONTIER",
-    1 << 18,
+    2**31 - 2,
     int,
-    help="frontier cap for the Pallas expand kernel (resident cum+starts "
-    "state, ~8 B per frontier element of a ~2 MiB VMEM budget)",
+    help="frontier-row cap for the expand_rows kernel (int32 degree scan "
+    "and row starts)",
 )
 PALLAS_MAX_NODES = declare(
     "TPU_CYPHER_PALLAS_MAX_NODES",
-    1 << 20,
+    2**62,
     int,
-    help="node cap for the Pallas frontier-degree kernel (resident int32 "
-    "degree vector, 4 B per node of a ~4 MiB VMEM budget)",
+    help="node cap for the frontier_deg_sum kernel (int64 sums over "
+    "row_ptr in device memory: no limit of its own)",
 )
 PALLAS_MAX_KEYS = declare(
     "TPU_CYPHER_PALLAS_MAX_KEYS",
-    1 << 20,
+    2**31 - 1,
     int,
-    help="pow2-padded key cap for the Pallas intersect kernel (two int32 "
-    "planes, 8 B per key of an ~8 MiB VMEM budget)",
+    help="sorted-key cap for the intersect kernel (int32 bucket offsets)",
 )
 PALLAS_MAX_BUILD = declare(
     "TPU_CYPHER_PALLAS_MAX_BUILD",
-    1 << 17,
+    2**30,
     int,
-    help="build-side cap for the Pallas hash-join kernel (4 int32 table "
-    "vectors at load factor 1/2, 32 B per build row of a ~4 MiB budget)",
+    help="build-side cap for the join_probe kernel (an int32 slot index "
+    "into a table of at least twice the rows)",
 )
 PALLAS_MAX_GROUPS = declare(
     "TPU_CYPHER_PALLAS_MAX_GROUPS",
     256,
     int,
-    help="GROUP BY cardinality cap for the Pallas segment-aggregate "
-    "kernel (the (k_pad, block) compare matrix budget)",
+    help="GROUP BY cardinality cap for the segment_agg kernel (one "
+    "shared-memory accumulator per group)",
 )
 
 # worst-case-optimal multiway join (backend/tpu/wcoj.py)
@@ -250,7 +247,7 @@ WCOJ_MIN_ROWS = declare(
     "estimated binary-join intermediate exceeds this many rows",
 )
 
-# factorized join intermediates (backend/tpu/factorized.py)
+# factorized join intermediates (backend/cuda/factorized.py)
 FACTORIZE = declare(
     "TPU_CYPHER_FACTORIZE",
     "auto",
@@ -267,12 +264,10 @@ FACTORIZE_CHUNK_ROWS = declare(
     "enumerated (collect / one-shot flatten); floor 1024",
 )
 
-# cost-based adaptive query optimizer (optimizer/). The port defaults to
-# syntax order until its statistics and cost model are ported and tested
-# against the CUDA backend (ROADMAP.md queue 1, item 4).
+# cost-based adaptive query optimizer (optimizer/)
 OPT_MODE = declare(
     "TPU_CYPHER_OPT",
-    "syntax",
+    "auto",
     str,
     help="cost-based join-order optimizer: auto (apply the padded-lattice "
     "cost model's plan when it predicts a win) | syntax (keep the "
