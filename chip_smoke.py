@@ -26,7 +26,10 @@ Phases (any failure exits non-zero and prints no result line):
             ``join_materialize`` (Q11), torch ops, and the WCOJ
             materialize's decode (Q7, ``decode_lanes`` on the
             ``expand_rows`` gate) against their byte bounds; holds ``segment_agg`` to its plain version at
-            Q15's own group ids (k = 256) and times it there; holds
+            Q15's own group ids (k = 256) and at Q47's (the min and max
+            of SF10's temporal ``KNOWS.creationDate``, a localdatetime,
+            from a hooked Q47 on a temporal graph built for it) and
+            times it there; holds
             ``expand_rows`` to its plain version at the chain walk's
             shapes (Q17's final hop, about 197M lanes without orig, and
             Q18's third hop with orig, captured from a run of each) and
@@ -115,7 +118,17 @@ Phases (any failure exits non-zero and prints no result line):
             peak beside the flat form's bytes), and Q40-Q44, bench.py's
             five join-order queries on a copy of its graph (30,000 nodes,
             300,000 KNOWS, 600 RARE) under the default ``auto`` and under
-            ``syntax``, with each ``join_order`` note. The walk counts' truth
+            ``syntax``, with each ``join_order`` note; then the temporal
+            kinds: SF10 with ``generate_snb(temporal=True)`` (its temporal
+            columns' ingest seconds printed first), Q45-Q53 (a date's year
+            and quarter, a datetime's hour at +02:00, a localdatetime's
+            range filter, min and max, grouped max, top 20 and month
+            arithmetic over every KNOWS, and Q11's join on a date key),
+            each cold and five times warm with its own peak device memory
+            and launches per (kernel, tier), against numpy ``datetime64``
+            (temporal min and max on the ``segment_agg`` kernel), and
+            examples/05_temporal.py's four queries against the rows it
+            prints. The walk counts' truth
             honours relationship uniqueness: by rule (the homomorphic
             count less the walks that reuse an edge), each rule held to a
             brute-force enumeration on 20 sources, or by the enumeration
@@ -898,28 +911,28 @@ def check_segment_agg(torch, g1, q5_truth, q5_rows, report):
           f"{k256_ms:.4f} ms")
 
 
-def q15_segment_agg_calls(g10, want):
-    """Run Q15 once more on ``g10`` with a hook on the ``segment_agg`` gate
-    and return the (data, valid, seg_j, name, kind, k) of each of its calls:
-    its real group ids. The run's launches are not the main path's (the
-    counts are zeroed before phase 4)."""
+def segment_agg_calls(pg, query, want, names):
+    """Run ``query`` once more on ``pg`` with a hook on the ``segment_agg``
+    gate and return the (data, valid, seg_j, name, kind, k) of each of its
+    calls: the inputs the main path itself sends. The run's launches are
+    not the main path's (the counts are zeroed before phase 4)."""
     from tpu_cypher_torch.backend.cuda import hopper
 
     calls = []
     inner = hopper.segment_aggregate
 
     def hook(data, valid, iflag, seg_j, *, name, kind, k):
-        check(iflag is None, "Q15 aggregates carry no int_flag")
+        check(iflag is None, f"{query}: aggregates carry no int_flag")
         calls.append((data, valid, seg_j, name, kind, k))
         return inner(data, valid, iflag, seg_j, name=name, kind=kind, k=k)
 
     hopper.segment_aggregate = hook
     try:
-        rows = [dict(r) for r in g10.cypher(Q15).records.collect()]
+        rows = [dict(r) for r in pg.cypher(query).records.collect()]
     finally:
         hopper.segment_aggregate = inner
-    check(rows == want, "Q15 (hooked) differs from numpy")
-    check([c[3] for c in calls] == ["min", "max"], f"Q15 made calls {[c[3] for c in calls]}")
+    check(rows == want, f"{query} (hooked) differs from numpy")
+    check([c[3] for c in calls] == names, f"{query} made calls {[c[3] for c in calls]}")
     return calls
 
 
@@ -931,7 +944,7 @@ def check_segment_agg_q15(torch, g10, q15_truth, report):
     from tpu_cypher_torch.backend.cuda import jit_ops as J
     from tpu_cypher_torch.backend.cuda.hopper import aggregate as KA
 
-    calls = q15_segment_agg_calls(g10, q15_truth)
+    calls = segment_agg_calls(g10, Q15, q15_truth, ["min", "max"])
     err = 0.0
     for data, valid, seg_j, name, kind, k in calls:
         got = KA._segment_aggregate_cuda(data, valid, seg_j, name, kind, k)
@@ -968,6 +981,50 @@ def check_segment_agg_q15(torch, g10, q15_truth, report):
     print(f"  segment_agg at {shape}: min and max equal to the plain version; kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, Tensor.scatter_reduce(amin) "
           f"{scatter_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+
+
+def check_segment_agg_q47(torch, session, card, q47_truth, report):
+    """``segment_agg`` at Q47's own inputs (min and max of every KNOWS's
+    ``creationDate``, a localdatetime: int64 micros, no group ids, k = 1),
+    read from a hooked Q47 on the temporal SF10 graph: the kernel against
+    its plain version, bit for bit, and the min timed beside its byte
+    bound and ``torch.amin``."""
+    from tpu_cypher_torch.backend.cuda import jit_ops as J
+    from tpu_cypher_torch.backend.cuda.hopper import aggregate as KA
+    from tpu_cypher_torch.backend.cuda.hopper import dispatch
+
+    gt = temporal_graph(torch, session, card)
+    before = dispatch.use_counts()["segment_agg"]
+    calls = segment_agg_calls(gt, Q47, q47_truth, ["min", "max"])
+    after = dispatch.use_counts()["segment_agg"]
+    check(after["kernel"] - before["kernel"] == 2 and after["fallback"] == before["fallback"],
+          f"Q47's min and max did not take the kernel tier: {before} -> {after}")
+    err = 0.0
+    for data, valid, seg_j, name, kind, k in calls:
+        check(kind == "ldt" and seg_j is None and k == 1, f"Q47's {name}: {kind}, k={k}")
+        got = KA._segment_aggregate_cuda(data, valid, seg_j, name, kind, k)
+        want = J.segment_aggregate(data, valid, None, seg_j, name, kind, k)
+        e = tuple_err(torch, got, want)
+        err = max(err, e)
+        check(e == 0.0, f"segment_agg at Q47's inputs, {name}, disagrees with its plain version")
+    data, valid, seg_j, name, kind, k = calls[0]
+    n = int(data.shape[0])
+    ms = time_ms(torch, lambda: KA._segment_aggregate_cuda(data, valid, seg_j, name, kind, k))
+    plain_ms = time_ms(torch, lambda: J.segment_aggregate(data, valid, None, seg_j, name, kind, k))
+    lib_ms = time_ms(torch, lambda: torch.amin(data))
+    # the min and its validity written once; per row a compare
+    b_ms, b_by = bound(agg_bytes(data, valid, seg_j) + 9, n)
+    shape = (f"min({kind}) over Q47's {n} KNOWS, k=1, no ids, mask "
+             f"{'yes' if valid is not None else 'none'}")
+    report["segment_agg"].update(
+        max_abs_err=max(report["segment_agg"]["max_abs_err"], err),
+        q47_ms=ms, q47_plain_ms=plain_ms, q47_library_ms=lib_ms,
+        q47_bound_ms=b_ms, q47_bound_by=b_by, q47_shape=shape,
+    )
+    print(f"  segment_agg at {shape} ({card}): min and max equal to the plain version; "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.amin {lib_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by})")
+    del gt, calls, data, valid
 
 
 def q6_range_count_calls(torch, g10, want):
@@ -2218,9 +2275,13 @@ def warm_times(torch, pg, query, variants, rows_ok, rounds=3):
     factory, plan operator its plan must show, one it must not show or
     None)}): one untimed run of each, then ``rounds`` ABBA-interleaved
     passes, so each label gets 2 x ``rounds`` timed runs. Every run's rows
-    must pass ``rows_ok``. Returns {label: (median seconds, median seconds
-    of the ``execute`` phase, all seconds, the largest own peak device
-    memory of its runs in GiB)}."""
+    must pass ``rows_ok``. The interpreter's cyclic garbage collector runs
+    before each run, outside its time: a collection of what the earlier
+    phases left would otherwise land in one run, and the optimizer's
+    feedback (which routes ``auto``) learns from every run. Returns
+    {label: (median seconds, median seconds of the ``execute`` phase, all
+    seconds, the largest own peak device memory of its runs in GiB)}."""
+    import gc
     import statistics
 
     labels = list(variants)
@@ -2229,6 +2290,7 @@ def warm_times(torch, pg, query, variants, rows_ok, rounds=3):
     for i, order in enumerate([labels] + [labels + labels[::-1]] * rounds):
         for label in order:
             ctx, must, must_not = variants[label]
+            gc.collect()
             with ctx():
                 torch.cuda.reset_peak_memory_stats()
                 held = torch.cuda.memory_allocated()
@@ -2748,6 +2810,166 @@ JOIN_ORDER_QUERIES = (
     ("Q44 filter_hoist", "MATCH (a:Person)-[:KNOWS]->(b:Person)-[:KNOWS]->(c:Admin) "
                          "WHERE c.id < 40 RETURN count(*) AS c"),
 )
+
+
+# the temporal kinds at SF10 (generate_snb(temporal=True): Person.birthday a
+# date, Person.created a datetime at +02:00, KNOWS.creationDate a
+# localdatetime in 2010-2013): grouped accessors, a range filter over the
+# expand, min and max, the value join on a date (Q11's truth), a truncation
+# grouped, a grouped max, a top 20, month arithmetic over every KNOWS and an
+# accessor of the zoned clock
+Q45 = "MATCH (p:Person) RETURN p.birthday.year AS y, count(*) AS c ORDER BY y"
+Q46 = ("MATCH (a:Person)-[k:KNOWS]->(b:Person) "
+       "WHERE k.creationDate >= localdatetime('2012-01-01T00:00:00') RETURN count(*) AS n")
+Q47 = ("MATCH (a:Person)-[k:KNOWS]->(b:Person) "
+       "RETURN min(k.creationDate) AS lo, max(k.creationDate) AS hi")
+Q48 = ("MATCH (a:Person)-[:KNOWS]->(b:Person), (c:Person) "
+       "WHERE b.birthday = c.birthday RETURN count(*) AS n")
+Q49 = ("MATCH (p:Person) WITH date.truncate('quarter', p.birthday) AS q, count(*) AS c "
+       "RETURN q, c ORDER BY q")
+# Q50 groups the KNOWS of Q15's persons: ids 7k + 1 below Q15_ID_BOUND,
+# at most 256 groups, the kernel's bound
+Q50 = (f"MATCH (a:Person)-[k:KNOWS]->(b:Person) WHERE a.id < {Q15_ID_BOUND} "
+       "RETURN a.id AS id, max(k.creationDate) AS last ORDER BY id")
+Q51 = ("MATCH (a:Person)-[k:KNOWS]->(b:Person) "
+       "RETURN k.creationDate AS t ORDER BY t DESC LIMIT 20")
+Q52 = ("MATCH (a:Person)-[k:KNOWS]->(b:Person) "
+       "RETURN (k.creationDate + duration('P1M')).month AS m, count(*) AS c ORDER BY m")
+Q53 = "MATCH (p:Person) RETURN p.created.hour AS h, count(*) AS c ORDER BY h"
+# (query, plan operator, kernels each run launches); a grouped count(*) is
+# one bincount, as the reference's one segment_sum, so Q45, Q49 and Q53
+# launch no kernel
+TEMPORAL_QUERIES = {
+    "Q45": (Q45, "AggregateOp", ()),
+    "Q46": (Q46, "CsrExpandOp", ("expand_rows",)),
+    "Q47": (Q47, "CsrExpandOp", ("expand_rows", "segment_agg")),
+    "Q48": (Q48, "JoinOp(inner", ("expand_rows", "join_probe")),
+    "Q49": (Q49, "AggregateOp", ()),
+    "Q50": (Q50, "CsrExpandOp", ("expand_rows", "segment_agg")),
+    "Q51": (Q51, "CsrExpandOp", ("expand_rows",)),
+    "Q52": (Q52, "CsrExpandOp", ("expand_rows",)),
+    "Q53": (Q53, "AggregateOp", ()),
+}
+EXAMPLE_CREATE = (
+    "CREATE (:Person {name: 'ada', born: date('1815-12-10')}), "
+    "(:Person {name: 'grace', born: date('1906-12-09')}), "
+    "(:Person {name: 'alan', born: date('1912-06-23')}), "
+    "(:Person {name: 'edsger', born: date('1930-05-11')}), "
+    "(:Event {name: 'launch', at: localdatetime('2019-03-09T11:45:22')})"
+)
+# examples/05_temporal.py's queries, each with its plan operator and the
+# rows it prints, written out by hand
+EXAMPLE_QUERIES = (
+    ("MATCH (p:Person) WHERE p.born >= date('1900-01-01') "
+     "RETURN p.name AS name, p.born.year AS year ORDER BY year", "FilterOp",
+     [{"name": "grace", "year": 1906}, {"name": "alan", "year": 1912},
+      {"name": "edsger", "year": 1930}]),
+    ("MATCH (p:Person) WITH date.truncate('decade', p.born) AS dec, count(*) AS c "
+     "RETURN toString(dec) AS decade, c ORDER BY decade", "AggregateOp",
+     [{"decade": "1810-01-01", "c": 1}, {"decade": "1900-01-01", "c": 1},
+      {"decade": "1910-01-01", "c": 1}, {"decade": "1930-01-01", "c": 1}]),
+    ("MATCH (p:Person) RETURN p.name AS name, "
+     "duration.between(p.born, date('2020-01-01')).years AS age ORDER BY age DESC LIMIT 2",
+     "OrderByOp", [{"name": "ada", "age": 204}, {"name": "grace", "age": 113}]),
+    ("MATCH (e:Event) RETURN e.at.hour AS h, e.at.minute AS m, e.at.dayOfWeek AS dow",
+     "AddOp", [{"h": 11, "m": 45, "dow": 6}]),
+)
+
+
+def temporal_truth(ids, bday, s, d, q11):
+    """Q45-Q53 from the generator's arrays with numpy ``datetime64``: the
+    dates are the birthday days, the creation times
+    ``ldbc.temporal_seconds`` of the edge and person indices."""
+    import datetime as dt
+
+    import numpy as np
+
+    from tpu_cypher_torch.io import ldbc
+
+    bdate = np.datetime64("1970-01-01", "D") + bday
+    created = ldbc.TEMPORAL_EPOCH + ldbc.temporal_seconds(np.arange(len(s)), ldbc.KNOWS_SPREAD)
+    months = bdate.astype("datetime64[M]").astype(np.int64)  # months since 1970-01
+    years = months // 12 + 1970
+
+    def groups(keys, conv):
+        u, c = np.unique(keys, return_counts=True)
+        return [(conv(k), int(n)) for k, n in zip(u, c)]
+
+    def ldt(x):
+        return np.datetime64(x, "us").astype(dt.datetime)
+
+    quarter = (months // 3) * 3
+    q49 = groups(quarter, lambda m: dt.date(1970 + int(m) // 12, int(m) % 12 + 1, 1))
+    cmonth = created.astype("datetime64[M]").astype(np.int64) % 12  # 0..11
+    last = np.full(len(ids), -1, np.int64)  # seconds after the epoch; -1: no KNOWS
+    src_ok = ids[s] < Q15_ID_BOUND
+    np.maximum.at(last, s[src_ok], (created[src_ok] - ldbc.TEMPORAL_EPOCH).astype(np.int64))
+    hours = ldbc.temporal_seconds(np.arange(len(ids)), ldbc.CREATED_SPREAD) // 3600 % 24
+    check(0 < int((last >= 0).sum()) <= 256, "Q50's groups must stay within 256")
+    return {
+        "Q45": [{"y": y, "c": c} for y, c in groups(years, int)],
+        "Q46": [{"n": int((created >= np.datetime64("2012-01-01T00:00:00")).sum())}],
+        "Q47": [{"lo": ldt(created.min()), "hi": ldt(created.max())}],
+        "Q48": [{"n": q11}],
+        "Q49": [{"q": q, "c": c} for q, c in q49],
+        "Q50": [{"id": int(ids[i]), "last": ldt(ldbc.TEMPORAL_EPOCH + last[i])}
+                for i in np.flatnonzero(last >= 0)],
+        "Q51": [{"t": ldt(x)} for x in np.sort(created)[::-1][:20]],
+        "Q52": [{"m": m, "c": c} for m, c in groups((cmonth + 1) % 12 + 1, int)],
+        "Q53": [{"h": h, "c": c} for h, c in groups(hours, int)],
+    }
+
+
+def temporal_graph(torch, session, card, scale=10.0):
+    """SF10 with its temporal properties (``generate_snb(temporal=True)``),
+    generated and ingested through the port's normal graph construction;
+    prints the seconds it takes."""
+    from tpu_cypher_torch.io import ldbc
+    from tpu_cypher_torch.relational.session import PropertyGraph
+
+    t0 = time.perf_counter()
+    gt = PropertyGraph(session, ldbc.generate_snb(scale, session, seed=SEED, temporal=True))
+    torch.cuda.synchronize()
+    print(f"  temporal SF10 graph ({card}): generated and ingested with its date, "
+          f"datetime and localdatetime columns in {time.perf_counter() - t0:.3f} s")
+    return gt
+
+
+def run_temporal_queries(torch, run, card, session, truth):
+    """Phase 4's temporal block: SF10 with its temporal properties, then
+    Q45-Q53, each cold and five times warm against ``temporal_truth``, with
+    its warm median, its own peak device memory and its launches per
+    (kernel, tier); then ``examples/05_temporal.py``'s queries against
+    their printed rows."""
+    from tpu_cypher_torch.backend.cuda.hopper import dispatch
+
+    gt = temporal_graph(torch, session, card)
+    for name, (q, plan_op, kernels) in TEMPORAL_QUERIES.items():
+        label = f"{name} (SF10)"
+        before = dispatch.use_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2**30
+        rows, secs, _ = run(label, gt, q, kernels, plan_op=plan_op, warm=5)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        after = dispatch.use_counts()
+        tiers = {f"{k}/{t}": after[k][t] - before[k][t] for k in after for t in after[k]
+                 if after[k][t] > before[k][t]}
+        rows = [dict(r) for r in rows]
+        check(rows == truth[name], f"{name} {rows[:3]} != {truth[name][:3]}")
+        print(f"    {label} ({card}): cold {secs[0] * 1e3:.3f} ms, warm median "
+              f"{statistics.median(secs[1:]) * 1e3:.3f} ms over {len(secs) - 1} runs; "
+              f"peak device memory {peak:.3f} GiB, {peak - held:.3f} GiB its own; "
+              f"launches per (kernel, tier) over the six runs {tiers}")
+        print(f"    {name} = {rows if len(rows) < 4 else f'{len(rows)} rows'}, "
+              f"equal to numpy datetime64")
+    del gt
+    ex = session.create_graph_from_create_query(EXAMPLE_CREATE)
+    for i, (q, plan_op, want) in enumerate(EXAMPLE_QUERIES):
+        rows, secs, _ = run(f"05_temporal query {i + 1}", ex, q, (), plan_op=plan_op)
+        rows = [dict(r) for r in rows]
+        check(rows == want, f"05_temporal query {i + 1}: {rows} != {want}")
+        print(f"    05_temporal query {i + 1} = {rows}, as written by hand")
 
 
 @contextlib.contextmanager
@@ -3324,6 +3546,7 @@ def main() -> int:
     truth["Q12_left"] = int(young.sum())
     truth["Q12_matched"] = int(hit.sum())
     truth.update(shaping_truth(ids1, s1, d1, ids10, bday10, s10, d10))
+    temporal = temporal_truth(ids10, bday10, s10, d10, truth["Q11"])
     print(f"truth: SF1 {len(ids1)} persons / {len(src1)} KNOWS; SF10 "
           f"{len(ids10)} persons / {len(src10)} KNOWS; Q4 2-hop paths "
           f"{truth['Q4']}; Q5 second-hop rows {truth['Q5_rows']}; Q9 "
@@ -3375,6 +3598,7 @@ def main() -> int:
     check_frontier(torch, session, g10, report)
     check_segment_agg(torch, g1, truth["Q5"], truth["Q5_rows"], report)
     check_segment_agg_q15(torch, g10, truth["Q15"], report)
+    check_segment_agg_q47(torch, session, card, temporal["Q47"], report)
     check_intersect(torch, g10, tri10["triangles"], report)
     check_join_probe(torch, g10, truth["Q11"], report)
     lists = list_truth(ids10, bday10, s10, d10, walks["Q33"])
@@ -3533,6 +3757,8 @@ def main() -> int:
     g05, cliques, q38 = run_factorized_queries(torch, run, last, slice_launches, session,
                                                g10, ids10, s10, d10)
     gjo, jo_truth = run_join_order_queries(run, cold, session)
+    # the temporal kinds at SF10, and examples/05_temporal.py's queries
+    run_temporal_queries(torch, run, card, session, temporal)
     counts = dispatch.use_counts()
     for name, c in counts.items():
         check(c["fallback"] == 0 and c["plain"] == 0, f"{name} fallbacks: {c}")

@@ -16,7 +16,9 @@ package, on the CPU.
   order (the reference holds them as host objects, so kinds are not
   compared).
 * One test per kind the port still refuses, naming its ROADMAP.md item,
-  and ``rand()``.
+  and ``rand()``; the temporal cases it once refused (ROADMAP.md queue 1,
+  item 7) now answer as the reference does, or raise the reference's
+  error.
 * The queries of ``tests/test_tpu_backend.py`` without list values that
   no other port test runs, and ``chip_smoke.py``'s Q27-Q30 at
   ``generate_snb(0.02)``, across the reference's ``CypherSession.tpu()``,
@@ -58,7 +60,6 @@ from tpu_cypher_torch.relational.session import PropertyGraph
 torch.set_num_threads(1)
 
 LISTS = "ROADMAP.md queue 1, item 6.4"
-TEMPORAL = "ROADMAP.md queue 1, item 7"
 I64_MIN, I64_MAX = -(2**63), 2**63 - 1
 
 
@@ -492,25 +493,53 @@ REFUSALS = {
     "map_projection_all": (lambda E: E.MapProjection(_v(E, PT, "a"), (), True), LISTS),
     "inexact_promotion": (lambda E: E.FunctionCall(
         "coalesce", (_p(E, "i"), _p(E, "f"))), "beyond 2\\*\\*53"),
-    "temporal_arithmetic": (lambda E: E.Add(_p(E, "d"), _p(E, "d")), TEMPORAL),
-    "temporal_function": (lambda E: E.FunctionCall(
-        "date.truncate", (E.Lit("month"), _p(E, "d"))), TEMPORAL),
-    "temporal_constant": (lambda E: E.FunctionCall("date", (E.Lit("2020-01-02"),)), TEMPORAL),
-    "temporal_accessor": (lambda E: E.Property(_p(E, "d"), "year"), TEMPORAL),
 }
+
+
+def _dated(table, header, Col, E, n=64):
+    """``table`` and ``header`` with a date column ``d`` (nulls included)."""
+    import datetime
+
+    dates = Col.from_values([datetime.date(2020, 1, d % 28 + 1) if d % 5 else None
+                             for d in range(n)])
+    return type(table)({**table._cols, "d": dates}, n), header.with_expr(_p(E, "d"), "d")
 
 
 @pytest.mark.parametrize("name", sorted(REFUSALS))
 def test_refusal_names_its_item(name):
-    import datetime
-
     build, msg = REFUSALS[name]
-    table = _port_table(_arrays(), 64)
-    dates = PColumn.from_values([datetime.date(2020, 1, d % 28 + 1) for d in range(64)])
-    table = CudaTable({**table._cols, "d": dates}, 64)
-    header = _header(PHeader, PE).with_expr(_p(PE, "d"), "d")
+    table, header = _dated(_port_table(_arrays(), 64), _header(PHeader, PE), PColumn, PE)
     with pytest.raises(TpuUnsupportedExpr, match=msg):
         CudaEvaluator(table, header, {}).eval(build(PE))
+
+
+# the temporal shapes the port refused until it held temporal columns:
+# each answers as the reference's TpuEvaluator does, or raises its error
+TEMPORAL_CASES = {
+    "temporal_arithmetic": lambda E: E.Add(_p(E, "d"), _p(E, "d")),
+    "temporal_function": lambda E: E.FunctionCall(
+        "date.truncate", (E.Lit("month"), _p(E, "d"))),
+    "temporal_constant": lambda E: E.FunctionCall("date", (E.Lit("2020-01-02"),)),
+    "temporal_accessor": lambda E: E.Property(_p(E, "d"), "year"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TEMPORAL_CASES))
+def test_temporal_former_refusal(name):
+    build = TEMPORAL_CASES[name]
+    arrays = _arrays()
+    rt, rh = _dated(_ref_table(arrays, 64), _header(RHeader, RE), RColumn, RE)
+    pt, ph = _dated(_port_table(arrays, 64), _header(PHeader, PE), PColumn, PE)
+    try:
+        want = TpuEvaluator(rt, rh, {}).eval(build(RE))
+    except Exception as exc:  # the reference raises: the port raises the same
+        with pytest.raises(Exception) as got:
+            CudaEvaluator(pt, ph, {}).eval(build(PE))
+        assert (type(got.value).__name__, str(got.value)) == (type(exc).__name__, str(exc))
+        return
+    got = CudaEvaluator(pt, ph, {}).eval(build(PE))
+    assert got.kind == want.kind
+    assert got.to_values()[:64] == want.to_values()[:64]
 
 
 # ---------------------------------------------------------------------------

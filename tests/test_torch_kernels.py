@@ -728,6 +728,40 @@ def test_segment_kernel_arguments_emulated_match_plain(monkeypatch, name, kind, 
             _same(w, g, (name, kind, seg_form, n, density, i))
 
 
+@pytest.mark.parametrize("name", ["min", "max"])
+@pytest.mark.parametrize("kind", ["date", "ldt", "zdt", "zt", "lt"])
+def test_segment_gate_takes_temporal_minmax_on_kernel_tier(monkeypatch, name, kind):
+    """min and max over a one-lane temporal payload (a date's int32 days,
+    the other kinds' int64 micros, before and after 1970) are eligible: on
+    a CUDA tensor the gate takes the kernel tier, and the kernel's ctypes
+    arguments, read by the emulation, give the plain version's 4-tuple bit
+    for bit, nulls and an empty group included."""
+    monkeypatch.setattr(PA, "_lib", lambda: _SegmentKernelEmulation())
+    monkeypatch.setattr(PA._build, "stream", lambda dev: 0)
+    monkeypatch.setattr(PA._build, "scratch_ptr", lambda kernel, dev, nbytes, stream: 0)
+    monkeypatch.setattr(PA, "_segment_aggregate_cuda", PA._launch)
+    monkeypatch.setattr(PA.dispatch, "launch", _as_cuda(PD.launch))
+    rng = np.random.default_rng(zlib.crc32(f"temporal/{name}/{kind}".encode()))
+    n = 300
+    if kind == "date":  # days in years 1..9999
+        data = rng.integers(-719_162, 2_932_897, n).astype(np.int32)
+    else:  # micros within a day, or across years 1..9999
+        hi = 86_400 * 10**6 if kind in ("zt", "lt") else 253_402_300_799 * 10**6
+        data = rng.integers(-hi if kind != "lt" else 0, hi, n).astype(np.int64)
+    valid = rng.random(n) < 0.8
+    for seg in (None, rng.integers(0, 6, n).astype(np.int64)):  # group 6 of 7 is empty
+        k = 1 if seg is None else 7
+        args = (_t(data), _t(valid), None, None if seg is None else _t(seg))
+        want = PJ.segment_aggregate(*args, name, kind, k)
+        got = PA.segment_aggregate(*args, name=name, kind=kind, k=k)
+        for i, (w, g) in enumerate(zip(want, got)):
+            if w is None:
+                assert g is None, i
+                continue
+            _same(w, g, (name, kind, k, i))
+    assert PD.use_counts()["segment_agg"] == {"kernel": 2, "plain": 0, "fallback": 0}
+
+
 def test_segment_kernel_plan_mirrors_plain_fills():
     """Spot values of the identities and fills the wrapper hands the kernel."""
     i64 = np.iinfo(np.int64)

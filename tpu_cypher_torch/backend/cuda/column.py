@@ -30,13 +30,27 @@ map and element values on the device too:
   it is read (``field``, ``fields``), so a list of relationships whose
   lengths alone are read gathers none of them.
 
-Lists nested deeper, lists whose elements mix kinds, and temporal values
-stay host-exact OBJ columns, over which the compiler raises
-``TpuUnsupportedExpr`` (``compiler.py``): ROADMAP.md queue 1, items 6.4
-and 7."""
+Six temporal kinds keep dates, times and durations on the device
+(``temporal.py`` holds their calendar math):
+
+* ``DATE``: int32 days since 1970-01-01;
+* ``LDT`` (localdatetime): int64 microseconds since 1970-01-01T00:00;
+* ``ZDT`` (datetime): int64 UTC microseconds, and ``ZT`` (time): int64
+  unwrapped UTC-adjusted microseconds of the day; the column's one zone
+  offset is its ``vocab`` (``['+02:00']``);
+* ``LT`` (localtime): int64 microseconds since midnight;
+* ``DUR`` (duration): an (n, 3) int64 tensor of (months, days,
+  microseconds), the oracle's ``Duration`` with its seconds and
+  microseconds as one count.
+
+Lists nested deeper, lists whose elements mix kinds, dates mixed with
+datetimes, zoned values whose offsets differ from row to row and zones
+named by region stay host-exact OBJ columns, over which the compiler
+raises ``TpuUnsupportedExpr`` (``compiler.py``)."""
 
 from __future__ import annotations
 
+import datetime as _dt
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -45,7 +59,7 @@ import torch
 
 from ...api import types as T
 from ...api.types import CypherType
-from ...api.values import CypherMap, Node, Relationship
+from ...api.values import CypherMap, Duration, Node, Relationship
 from . import device as _device
 
 # column kinds
@@ -56,14 +70,22 @@ STR = "str"  # dictionary-encoded int32 codes
 OBJ = "obj"  # host-side Python objects — not device resident
 LST = "lst"  # (start, length) per row over one child Column
 STRUCT = "struct"  # named child Columns
+DATE = "date"  # int32 days since 1970-01-01
+LDT = "ldt"  # int64 microseconds since 1970-01-01T00:00, no zone
+ZDT = "zdt"  # int64 UTC microseconds; vocab = [the column's '+HH:MM']
+ZT = "zt"  # int64 unwrapped UTC-adjusted microseconds of the day; vocab as ZDT
+LT = "lt"  # int64 microseconds since midnight, no zone
+DUR = "dur"  # (n, 3) int64: months, days, microseconds
 NESTED_KINDS = (LST, STRUCT)
-SCALAR_KINDS = (I64, F64, BOOL, STR)
+TEMPORAL_KINDS = (DATE, LDT, ZDT, ZT, LT)
+SCALAR_KINDS = (I64, F64, BOOL, STR) + TEMPORAL_KINDS + (DUR,)
 # STRUCT tags; an element's fields are "id", "start", "end", "label:<l>",
 # "type:<t>" and "prop:<key>"
 MAP, PROPS, NODE, REL = "map", "props", "node", "relationship"
-# kinds whose payload is an integer (the temporal ones join with ROADMAP.md
-# queue 1, item 7)
-INTEGRAL_KINDS = (I64, BOOL, STR)
+# kinds whose payload is one integer per row that orders and equates as the
+# values do: the zoned kinds key on their UTC lane, which is the oracle's
+# datetime and time equality and order
+INTEGRAL_KINDS = (I64, BOOL, STR) + TEMPORAL_KINDS
 
 _NULL_CODE = np.int32(-1)
 
@@ -122,7 +144,21 @@ def _decode_host(kind, data, valid, iflag, vocab) -> List[Any]:
             else None
             for i, v in enumerate(data)
         ]
-    raise TpuBackendError(kind)  # pragma: no cover
+    from . import temporal as TP
+
+    if kind in (ZDT, ZT):
+        off = TP.column_offset(vocab)
+        dec = TP.decode_zdt if kind == ZDT else TP.decode_zt
+        return [dec(v, off) if (valid is None or valid[i]) else None
+                for i, v in enumerate(data)]
+    if kind == DUR:
+        return [
+            Duration(months=int(r[0]), days=int(r[1]), microseconds=int(r[2]))
+            if (valid is None or valid[i]) else None
+            for i, r in enumerate(data)
+        ]
+    dec = {DATE: TP.decode_date, LDT: TP.decode_ldt, LT: TP.decode_lt}[kind]
+    return [dec(v) if (valid is None or valid[i]) else None for i, v in enumerate(data)]
 
 
 @dataclass
@@ -283,6 +319,9 @@ class Column:
                 dtype=np.int32,
             )
             return Column._build(STR, codes, hv, vocab=vocab)
+        got = _temporal_from_values(values, non_null, hv)
+        if got is not None:
+            return got
         if all(isinstance(v, (list, tuple)) for v in non_null):
             child = Column.from_values([x for v in non_null for x in v])
             if child.kind in SCALAR_KINDS:
@@ -307,7 +346,7 @@ class Column:
                         MAP if CypherMap in kinds else PROPS,
                     )
         # everything else stays host-exact: nested or mixed lists (ROADMAP.md
-        # queue 1, item 6.4), elements, temporal values (item 7)
+        # queue 1, item 6.4), elements, mixed temporal kinds or offsets
         return Column(OBJ, _obj_array(values), None)
 
     @staticmethod
@@ -321,6 +360,19 @@ class Column:
             return Column._build(I64, arr.astype(np.int64, copy=True), hv)
         if np.issubdtype(arr.dtype, np.floating):
             return Column._build(F64, arr.astype(np.float64, copy=True), hv)
+        if np.issubdtype(arr.dtype, np.datetime64):
+            # datetime64[D] is a date; any finer unit a localdatetime in
+            # microseconds; NaT is null
+            unit = np.datetime_data(arr.dtype)[0]
+            nat = np.isnat(arr)
+            if unit in ("Y", "M", "W", "D"):
+                kind, host = DATE, arr.astype("datetime64[D]").astype(np.int64).astype(np.int32)
+            else:
+                kind, host = LDT, arr.astype("datetime64[us]").astype(np.int64)
+            if nat.any():
+                host = np.where(nat, 0, host).astype(host.dtype)
+                hv = ~nat if hv is None else hv & ~nat
+            return Column._build(kind, host, hv)
         raise TpuBackendError(f"from_numpy: unsupported dtype {arr.dtype}")
 
     def _host_arrays(self):
@@ -441,7 +493,7 @@ class Column:
             dev = self.data.device
             return Column(
                 self.kind,
-                torch.zeros(n, dtype=self.data.dtype, device=dev),
+                torch.zeros((n,) + tuple(self.data.shape[1:]), dtype=self.data.dtype, device=dev),
                 torch.zeros(n, dtype=torch.bool, device=dev),
                 self.vocab,
             )
@@ -471,9 +523,9 @@ class Column:
         """Rows of ``self`` then ``other``. An all-null side adopts the
         other side's kind; I64 and F64 promote to F64 keeping Cypher
         intness, unless an int lies beyond 2**53; every other kind pair
-        becomes OBJ. STR sides are re-coded onto one vocab. (The
-        reference's ZDT/ZT offset branch comes with the temporal kinds,
-        ROADMAP.md queue 1, item 7.)"""
+        becomes OBJ. STR sides are re-coded onto one vocab. Zoned sides
+        whose offsets differ become OBJ: the column holds one offset, and
+        a blind concat would re-zone one side's rows."""
         a, b = self, other
         if a.kind in NESTED_KINDS or b.kind in NESTED_KINDS:
             return _concat_nested(a, b)
@@ -497,6 +549,8 @@ class Column:
             return Column(OBJ, np.concatenate([a.data, b.data]), None)
         if a.kind == STR:
             a, b = _unify_vocab(a, b)
+        if a.kind in (ZDT, ZT) and a.vocab != b.vocab:
+            return Column(OBJ, np.concatenate([a.to_obj().data, b.to_obj().data]), None)
 
         def cat(x, y, fill: bool):
             if x is None and y is None:
@@ -547,7 +601,8 @@ class Column:
         if self.kind == STR:
             data = torch.full((n,), int(_NULL_CODE), dtype=torch.int32, device=dev)
         else:
-            data = torch.zeros(n, dtype=self.data.dtype, device=dev)
+            data = torch.zeros((n,) + tuple(self.data.shape[1:]), dtype=self.data.dtype,
+                               device=dev)
         return Column(self.kind, data, torch.zeros(n, dtype=torch.bool, device=dev), self.vocab)
 
     def as_f64_keeping_intness(self) -> "Column":
@@ -617,6 +672,12 @@ class Column:
             F64: T.CTFloat,
             BOOL: T.CTBoolean,
             STR: T.CTString,
+            DATE: T.CTDate,
+            LDT: T.CTLocalDateTime,
+            ZDT: T.CTDateTime,
+            ZT: T.CTTime,
+            LT: T.CTLocalTime,
+            DUR: T.CTDuration,
             OBJ: T.CTAny,
         }[self.kind]
         if self.kind == F64 and self.int_flag is not None:
@@ -737,8 +798,52 @@ def constant_column(value: Any, n: int) -> Column:
         return Column(F64, torch.full((n,), value, dtype=torch.float64, device=dev), None)
     if isinstance(value, str):
         return Column(STR, torch.zeros(n, dtype=torch.int32, device=dev), None, [value])
+    if isinstance(value, (_dt.date, _dt.time, Duration)):
+        one = Column.from_values([value])
+        if one.kind != OBJ:
+            return one.take(torch.zeros(n, dtype=torch.int64, device=dev))
     if isinstance(value, (list, tuple, dict)):
         one = Column.from_values([value])
         if one.kind in NESTED_KINDS:
             return one.take(torch.zeros(n, dtype=torch.int64, device=dev))
     return Column(OBJ, _obj_array([value] * n), None)
+
+
+def _temporal_from_values(values, non_null, hv) -> Optional[Column]:
+    """A temporal column from Python values, or None when they are not all
+    of one temporal kind. Zoned values need one fixed offset over the
+    column; a zone named by region, offsets that differ from row to row,
+    and dates mixed with datetimes stay OBJ (None here, and the caller's
+    last resort)."""
+    from . import temporal as TP
+
+    def build(kind, enc, dtype, vocab=None):
+        data = np.array([enc(v) if v is not None else 0 for v in values], dtype=dtype)
+        return Column._build(kind, data, hv, vocab=vocab)
+
+    def one_offset():
+        if not all(isinstance(v.tzinfo, _dt.timezone) for v in non_null):
+            return None
+        offs = {TP.offset_seconds_of(v) for v in non_null}
+        return [TP.offset_str(offs.pop())] if len(offs) == 1 else None
+
+    # a datetime is a date: test it first
+    if all(isinstance(v, _dt.datetime) for v in non_null):
+        if all(v.tzinfo is None for v in non_null):
+            return build(LDT, TP.encode_ldt, np.int64)
+        vocab = one_offset()
+        return build(ZDT, TP.encode_zdt, np.int64, vocab) if vocab else None
+    if all(isinstance(v, _dt.date) and not isinstance(v, _dt.datetime) for v in non_null):
+        return build(DATE, TP.encode_date, np.int32)
+    if all(isinstance(v, _dt.time) for v in non_null):
+        if all(v.tzinfo is None for v in non_null):
+            return build(LT, TP.encode_time_of_day, np.int64)
+        vocab = one_offset()
+        return build(ZT, TP.encode_zt, np.int64, vocab) if vocab else None
+    if all(isinstance(v, Duration) for v in non_null):
+        data = np.zeros((len(values), 3), dtype=np.int64)
+        for i, v in enumerate(values):
+            if v is not None:
+                data[i] = (v.months, v.days, v.seconds * 1_000_000 + v.microseconds)
+        return Column._build(DUR, data, hv)
+    return None

@@ -33,14 +33,30 @@ becomes eager torch ops over ``Column``s on the column's device, with
   columns gathered by each element's row, then one reduction per list);
   a registry function that returns lists (``split``) takes the vocab or
   distinct-value route; string ``+`` runs once per distinct pair of
-  operand values.
+  operand values;
+* temporal values (the ``DATE``, ``LDT``, ``ZDT``, ``ZT``, ``LT`` and
+  ``DUR`` columns; ``temporal.py`` holds the calendar math): constants and
+  constructors fold once; the calendar and duration accessors,
+  ``date``/``localdatetime``/``datetime.truncate`` by a constant unit,
+  ``=``/``<>`` and the ordered comparisons (each kind on its own payload,
+  across kinds as the local oracle rules), a temporal plus or minus a
+  duration, durations added, subtracted and negated, and
+  ``duration.between``/``inMonths``/``inDays``/``inSeconds`` over dates
+  and localdatetimes run as torch ops; any other registry function or
+  accessor of a temporal value, and a duration scaled by a number, run
+  once per distinct tuple of operand values on the host, as the string
+  functions do. A result outside years 1 to 9999, and an operator or
+  function the oracle refuses, raise the local oracle's own error after
+  one device read.
 
 No row is ever evaluated in Python. What the port cannot compile raises
 ``TpuUnsupportedExpr``: where the reference evaluates it as a host island
 on its local oracle, the port keeps no island (ROADMAP.md §3). Nested or
 mixed lists, maps as keys or in comparisons, ``reduce``, pattern
-comprehensions and path values name ROADMAP.md queue 1, item 6.4;
-temporal operands item 7. The reference's jit cache of whole expressions
+comprehensions and path values name ROADMAP.md queue 1, item 6.4; the
+temporal shapes the port declines (dates mixed with datetimes in one
+result, zoned values whose offsets differ) name ROADMAP.md §3. The
+reference's jit cache of whole expressions
 has no counterpart: eager PyTorch compiles nothing to cache.
 """
 
@@ -57,11 +73,16 @@ from ...api.values import Duration, to_cypher_string
 from ...ir import expr as E
 from . import device as _device
 from . import lists as LS
+from . import temporal as TP
 from .column import (
     BOOL,
+    DATE,
+    DUR,
     F64,
     I64,
+    LDT,
     LST,
+    LT,
     MAP,
     NESTED_KINDS,
     NODE,
@@ -71,6 +92,9 @@ from .column import (
     SCALAR_KINDS,
     STR,
     STRUCT,
+    TEMPORAL_KINDS,
+    ZDT,
+    ZT,
     Column,
     TpuBackendError,
     _NULL_CODE,
@@ -82,7 +106,12 @@ from .column import (
 )
 
 _LISTS_ITEM = LS.NESTED_ITEM
-_TEMPORAL_ITEM = "ROADMAP.md queue 1, item 7"
+_MIXED_TEMPORAL = "temporal values of mixed kinds, offsets or named zones (ROADMAP.md §3)"
+_TIME_KINDS = TEMPORAL_KINDS + (DUR,)
+_TRUNCATE = frozenset({"date.truncate", "localdatetime.truncate", "datetime.truncate"})
+_BETWEEN = frozenset({
+    "duration.between", "duration.inmonths", "duration.indays", "duration.inseconds",
+})
 _NUMERIC_FUNCTIONS = frozenset({
     "abs", "sign", "tofloat", "tointeger", "ceil", "floor", "round", "sqrt",
     "exp", "log", "log10", "sin", "cos", "tan",
@@ -99,15 +128,25 @@ class TpuUnsupportedExpr(TpuBackendError):
 
 
 def _obj_item(*cols: Column) -> str:
-    """The ROADMAP item that brings these object columns' values to the
-    device: temporal values item 7, nested or mixed lists item 6.4."""
+    """Where these object columns' values are named: temporal values of
+    mixed kinds or offsets in ROADMAP.md §3, nested or mixed lists in
+    queue 1, item 6.4."""
     for c in cols:
         if c.kind != OBJ:
             continue
         for v in c.data:
             if isinstance(v, (_dt.date, _dt.time, Duration)):
-                return _TEMPORAL_ITEM
+                return _MIXED_TEMPORAL
     return _LISTS_ITEM
+
+
+def _oracle(build):
+    """The local oracle's scalar semantics of the expression ``build``
+    makes from literals: a function of the operand values."""
+    from ..local.eval import Evaluator
+
+    ev = Evaluator(None, None, {})
+    return lambda *vals: ev.row_fn(build(*(E.Lit(v) for v in vals)))({})
 
 
 class CudaEvaluator:
@@ -205,6 +244,8 @@ class CudaEvaluator:
             inner = self.eval(expr.expr)
             if inner.kind == OBJ:
                 raise TpuUnsupportedExpr(f"negate object values: {_obj_item(inner)}")
+            if inner.kind == DUR:
+                return Column(DUR, -inner.data, inner.valid)
             if inner.kind not in (I64, F64):
                 raise TpuUnsupportedExpr("negate non-numeric")
             return Column(inner.kind, -inner.data, inner.valid)
@@ -260,6 +301,8 @@ class CudaEvaluator:
         inner = self.eval(owner)
         if inner.kind == STRUCT:
             return self._struct_get(inner, expr.key)
+        if inner.kind in _TIME_KINDS:
+            return self._temporal_accessor(inner, expr.key)
         if inner.kind == OBJ:
             raise TpuUnsupportedExpr(f"property access on object values: {_obj_item(inner)}")
         raise TpuUnsupportedExpr(f"property access on {inner.kind}")
@@ -400,6 +443,11 @@ class CudaEvaluator:
             raise TpuUnsupportedExpr(f"equality on object values: {_obj_item(l, r)}")
         if l.kind in NESTED_KINDS or r.kind in NESTED_KINDS:
             raise TpuUnsupportedExpr(f"equality on lists or maps: {_LISTS_ITEM}")
+        if DUR in (l.kind, r.kind):
+            # equal components; a duration equals no value of another kind
+            eq = (torch.all(l.data == r.data, dim=1) if l.kind == r.kind
+                  else torch.zeros(len(l), dtype=torch.bool, device=l.data.device))
+            return Column(BOOL, eq, _and_valid(l, r))
         try:
             l, r = self._coerce_pair(l, r)
             eq = l.data == r.data
@@ -414,6 +462,10 @@ class CudaEvaluator:
             raise TpuUnsupportedExpr(f"comparison on object values: {_obj_item(l, r)}")
         if l.kind in NESTED_KINDS or r.kind in NESTED_KINDS:
             raise TpuUnsupportedExpr(f"ordering of lists, maps or elements: {_LISTS_ITEM}")
+        if DUR in (l.kind, r.kind):
+            # durations do not compare in the oracle (null), as values of
+            # two kinds do not
+            return Column(BOOL, self._falses(), self._falses())
         if l.kind == BOOL and r.kind == BOOL:
             # false < true
             l = Column(I64, l.data.to(torch.int64), l.valid)
@@ -464,13 +516,22 @@ class CudaEvaluator:
             idx = {s: i for i, s in enumerate(l.vocab or [])}
             cand = [idx[v] for v in values if isinstance(v, str) and v in idx]
             dtype = np.int32
+        elif l.kind in _TIME_KINDS:
+            # the items of the column's own kind, as payloads
+            cand = [c.data[0] for c in (Column.from_values([v]) for v in values if v is not None)
+                    if c.kind == l.kind]
+            dtype = None
         else:
             raise TpuUnsupportedExpr(f"IN over {l.kind}")
-        if cand:
+        if not cand:
+            hit = self._falses()
+        elif l.kind == DUR:
+            hit = torch.any(torch.all(l.data[:, None, :] == torch.stack(cand)[None], dim=2), dim=1)
+        elif dtype is None:
+            hit = torch.isin(l.data.to(torch.int64), torch.stack(cand).to(torch.int64))
+        else:
             items = torch.from_numpy(np.array(cand, dtype=dtype)).to(l.data.device)
             hit = torch.isin(l.data, items)
-        else:
-            hit = self._falses()
         valid = l.valid_mask()
         if any(v is None for v in values):
             # null list element: non-hits become unknown
@@ -528,10 +589,13 @@ class CudaEvaluator:
         l, r = self.eval(expr.lhs), self.eval(expr.rhs)
         if OBJ in (l.kind, r.kind):
             raise TpuUnsupportedExpr(f"arithmetic on object values: {_obj_item(l, r)}")
-        if isinstance(expr, E.Add) and STR in (l.kind, r.kind):
+        timed = l.kind in _TIME_KINDS or r.kind in _TIME_KINDS
+        if isinstance(expr, E.Add) and STR in (l.kind, r.kind) and not timed:
             return self._add_strings(l, r)
         if isinstance(expr, E.Add) and LST in (l.kind, r.kind):
             return self._add_lists(l, r)
+        if timed:
+            return self._temporal_arith(expr, l, r)
         if l.kind not in (I64, F64) or r.kind not in (I64, F64):
             raise TpuUnsupportedExpr(f"arithmetic on {l.kind}/{r.kind}")
         valid = _and_valid(l, r)
@@ -572,8 +636,9 @@ class CudaEvaluator:
     def _same_kind(self, cols: List[Column], what: str) -> List[Column]:
         """Branches of one CASE or coalesce on one kind: I64 with F64 as
         F64 keeping intness; an all-null branch adopts the others' kind;
-        STR branches re-coded onto one merged vocab. Object values and any
-        other mix raise."""
+        STR branches re-coded onto one merged vocab. Object values, zoned
+        branches whose offsets differ (the result holds one offset) and
+        any other mix raise."""
         kinds = {c.kind for c in cols}
         if OBJ in kinds:
             raise TpuUnsupportedExpr(f"{what} over object values: {_obj_item(*cols)}")
@@ -595,6 +660,9 @@ class CudaEvaluator:
         elif kinds == {STR}:
             merged = sorted({s for c in cols for s in (c.vocab or [])})
             cols = [_remap(c, merged) for c in cols]
+        elif kinds <= {ZDT, ZT} and len({tuple(c.vocab or ()) for c in cols}) > 1:
+            raise TpuUnsupportedExpr(f"{what} over zoned values whose offsets differ: "
+                                     f"{_MIXED_TEMPORAL}")
         return cols
 
     def _case(self, expr: E.CaseExpr) -> Column:
@@ -619,7 +687,7 @@ class CudaEvaluator:
             take = cond.data & cond.valid_mask()
             out = Column(
                 then.kind,
-                torch.where(take, then.data, out.data),
+                _where(take, then.data, out.data),
                 torch.where(take, then.valid_mask(), out.valid_mask()),
                 then.vocab,
                 int_flag=_merge_int_flag(take, then, out),
@@ -637,7 +705,7 @@ class CudaEvaluator:
             take = a.valid_mask()
             out = Column(
                 a.kind,
-                torch.where(take, a.data, out.data),
+                _where(take, a.data, out.data),
                 take | out.valid_mask(),
                 a.vocab,
                 int_flag=_merge_int_flag(take, a, out),
@@ -921,6 +989,197 @@ class CudaEvaluator:
         rows = torch.arange(self.n, dtype=torch.int64, device=take.device)
         return both.take(torch.where(take, rows + self.n, rows))
 
+    # -- temporal values ------------------------------------------------------
+
+    def _oracle_raise(self, build, cols: List[Column], mask=None) -> Column:
+        """Raise the local oracle's own error for the expression ``build``
+        makes, at the first row of ``mask`` (default: the first row where
+        no operand is null): one device read. Where no row qualifies the
+        oracle raises nothing and the result is null; where the oracle
+        answers after all, the port lacks the case and raises."""
+        if mask is None:
+            mask = torch.ones(self.n, dtype=torch.bool, device=_device.get())
+            for c in cols:
+                mask = mask & c.valid_mask()
+        first = torch.nonzero(mask)[:1].squeeze(1)
+        if int(first.shape[0]) == 0:
+            return constant_column(None, self.n)
+        _oracle(build)(*(c.take(first).to_values()[0] for c in cols))
+        raise TpuUnsupportedExpr(f"{build.__name__} over {[c.kind for c in cols]}")
+
+    def _temporal_accessor(self, inner: Column, key: str) -> Column:
+        """A calendar field, a zone field or a duration component as torch
+        ops over the payload; any other key runs the oracle's accessor once
+        per distinct value (which raises the oracle's own error for a key
+        the kind lacks)."""
+        k = key.lower()
+        us = TP.US_PER_SECOND
+        out = None
+        off = TP.column_offset(inner.vocab) if inner.kind in (ZDT, ZT) else 0
+        if inner.kind in (ZDT, ZT) and k in ("timezone", "offset"):
+            return Column(STR, torch.zeros(self.n, dtype=torch.int32, device=inner.data.device),
+                          inner.valid, [TP.offset_str(off)])
+        if inner.kind in (ZDT, ZT) and k in ("offsetminutes", "offsetseconds"):
+            v = off // 60 if k == "offsetminutes" else off
+            return Column(I64, torch.full((self.n,), v, dtype=torch.int64,
+                                          device=inner.data.device), inner.valid)
+        if inner.kind == DATE:
+            out = TP.date_accessor(k, inner.data)
+        elif inner.kind == ZDT and k in ("epochseconds", "epochmillis"):
+            out = TP.fdiv(inner.data, us if k == "epochseconds" else 1000)
+        elif inner.kind in (LDT, ZDT):
+            # the civil fields read the local clock
+            days, tod = TP.split_ldt(inner.data + off * us)
+            out = TP.date_accessor(k, days)
+            if out is None:
+                out = TP.time_accessor(k, tod)
+        elif inner.kind in (ZT, LT):
+            out = TP.time_accessor(k, torch.remainder(inner.data + off * us, TP.US_PER_DAY))
+        elif inner.kind == DUR:
+            m, d, u = inner.data.unbind(1)
+            acc = {
+                "years": lambda: TP.fdiv(m, 12),
+                "months": lambda: m,
+                "monthsofyear": lambda: torch.remainder(m, 12),
+                "weeks": lambda: TP.fdiv(d, 7),
+                "days": lambda: d,
+                "hours": lambda: TP.fdiv(u, 3600 * us),
+                "minutes": lambda: TP.fdiv(u, 60 * us),
+                "seconds": lambda: TP.fdiv(u, us),
+                "milliseconds": lambda: TP.fdiv(u, 1000),
+                "microseconds": lambda: u,
+            }.get(k)
+            out = acc() if acc is not None else None
+        if out is None:
+            return self._per_tuple([inner], _oracle(lambda v: E.Property(v, key)))
+        return Column(I64, out, inner.valid)
+
+    def _temporal_arith(self, expr, l: Column, r: Column) -> Column:
+        """``+``/``-`` of durations and a temporal plus or minus a duration
+        as torch ops; a duration times or over a number once per distinct
+        pair; any other operand mix raises the oracle's error (``date +
+        date``: "Cannot add ...")."""
+        add, sub = isinstance(expr, E.Add), isinstance(expr, E.Subtract)
+        valid = _and_valid(l, r)
+        if (add or sub) and l.kind == r.kind == DUR:
+            return Column(DUR, l.data + r.data if add else l.data - r.data, valid)
+        if (add or sub) and l.kind in TEMPORAL_KINDS and r.kind == DUR:
+            return self._shift(expr, [l, r], l, r.data if add else -r.data, valid)
+        if add and l.kind == DUR and r.kind in TEMPORAL_KINDS:
+            return self._shift(expr, [l, r], r, l.data, valid)
+        if (isinstance(expr, E.Multiply) and {l.kind, r.kind} in ({DUR, I64}, {DUR, F64})) or (
+                isinstance(expr, E.Divide) and l.kind == DUR and r.kind in (I64, F64)):
+            return self._per_tuple([l, r], _oracle(type(expr)))
+        return self._oracle_raise(type(expr), [l, r])
+
+    def _shift(self, expr, operands, t: Column, dur, valid) -> Column:
+        """The temporal column ``t`` (one of ``expr``'s ``operands``) plus
+        the (months, days, microseconds) rows ``dur``, as the oracle adds
+        them: a time keeps only the time part and wraps on its local
+        clock; a date or datetime steps its months (the day clamped to the
+        month's end), then its days and time. A result outside years 1 to
+        9999 raises the oracle's error. A date plus a time part becomes a
+        datetime, and a column where some rows would and some would not
+        raises (ROADMAP.md §3)."""
+        months, ddays, dmic = dur.unbind(1)
+        off_us = TP.column_offset(t.vocab) * TP.US_PER_SECOND if t.kind in (ZDT, ZT) else 0
+        if t.kind in (ZT, LT):
+            out = torch.remainder(t.data + off_us + dmic, TP.US_PER_DAY) - off_us
+            return Column(t.kind, out, valid, t.vocab)
+        local = t.data.to(torch.int64) * TP.US_PER_DAY if t.kind == DATE else t.data + off_us
+        out, mid = TP.add_duration_micros(local, months, ddays, dmic)
+        vm = valid if valid is not None else torch.ones(self.n, dtype=torch.bool, device=out.device)
+        lo, hi = TP.MIN_DAYS * TP.US_PER_DAY, (TP.MAX_DAYS + 1) * TP.US_PER_DAY
+        bad = vm & ((mid < TP.MIN_DAYS) | (mid > TP.MAX_DAYS) | (out < lo) | (out >= hi))
+        if t.kind == DATE:
+            timed = vm & (torch.remainder(dmic, TP.US_PER_DAY) != 0)
+            nbad, ntimed, nvalid = (int(x) for x in torch.stack(
+                [bad.sum(), timed.sum(), vm.sum()]).tolist())
+        else:
+            nbad = int(bad.sum())
+        if nbad:
+            self._oracle_raise(type(expr), operands, bad)
+        if t.kind == DATE:
+            if ntimed == 0:
+                return Column(DATE, TP.fdiv(out, TP.US_PER_DAY).to(torch.int32), valid)
+            if ntimed == nvalid:
+                return Column(LDT, out, valid)
+            raise TpuUnsupportedExpr(
+                f"a date plus durations of which some have a time part: {_MIXED_TEMPORAL}")
+        if t.kind == LDT:
+            return Column(LDT, out, valid)
+        return Column(ZDT, out - off_us, valid, t.vocab)
+
+    def _truncate(self, name: str, unit: str, arg: E.Expr) -> Column:
+        """``date``/``localdatetime``/``datetime.truncate`` by a constant
+        unit over a DATE, LDT or ZDT column, on its local clock. Any other
+        input, and a unit the function refuses, run the oracle's function
+        once per distinct value (which raises its error); a decade,
+        century or millennium that starts before year 1 raises it too."""
+        from ...ir.functions import lookup
+
+        fn = lookup(name).fn
+        inner = self.eval(arg)
+        u = unit.lower()
+        sub_day = u in TP.SUB_DAY_UNITS
+        ok = inner.kind in (DATE, LDT, ZDT) and not (
+            (name == "datetime.truncate" and inner.kind != ZDT)
+            or (sub_day and (name == "date.truncate" or inner.kind == DATE))
+        )
+        got = None
+        if ok:
+            off_us = TP.column_offset(inner.vocab) * TP.US_PER_SECOND if inner.kind == ZDT else 0
+            local = (inner.data.to(torch.int64) * TP.US_PER_DAY if inner.kind == DATE
+                     else inner.data + off_us)
+            got = TP.truncate_ldt_micros(u, local)
+        if got is None:
+            return self._per_tuple([inner], lambda v: fn(unit, v))
+        out, first = got
+        if first is not None:
+            bad = inner.valid_mask() & (first < 1)
+            if bool(torch.any(bad)):
+                self._oracle_raise(lambda v: E.FunctionCall(name, (E.Lit(unit), v)), [inner], bad)
+        if name == "date.truncate":
+            return Column(DATE, TP.fdiv(out, TP.US_PER_DAY).to(torch.int32), inner.valid)
+        if name == "localdatetime.truncate":
+            return Column(LDT, out, inner.valid)
+        return Column(ZDT, out - off_us, inner.valid, inner.vocab)
+
+    def _between(self, name: str, a: Column, b: Column) -> Column:
+        """``duration.between``/``inMonths``/``inDays``/``inSeconds`` of two
+        DATE or LDT columns (a date as its midnight), as the oracle
+        decomposes them: whole months toward zero from ``a`` (the day
+        clamped), then whole days, then the time left, each with the sign
+        of what is left."""
+        day = TP.US_PER_DAY
+        au = a.data.to(torch.int64) * day if a.kind == DATE else a.data
+        bu = b.data.to(torch.int64) * day if b.kind == DATE else b.data
+        valid = _and_valid(a, b)
+        zero = torch.zeros_like(au)
+
+        def dur(m, d, u):
+            return Column(DUR, torch.stack([m, d, u], 1), valid)
+
+        def whole_days(x):
+            sign = torch.where(x >= 0, 1, -1)
+            return sign * TP.fdiv(torch.abs(x), day)
+
+        if name in ("duration.indays", "duration.inseconds"):
+            x = bu - au
+            return dur(zero, whole_days(x), zero) if name == "duration.indays" else dur(zero, zero, x)
+        ay, am, _ = TP.civil_from_days(TP.split_ldt(au)[0])
+        by, bm, _ = TP.civil_from_days(TP.split_ldt(bu)[0])
+        months = (by - ay) * 12 + (bm - am)
+        anchor, _ = TP.add_duration_micros(au, months, zero, zero)
+        months = (months - ((months > 0) & (anchor > bu)).to(torch.int64)
+                  + ((months < 0) & (anchor < bu)).to(torch.int64))
+        if name == "duration.inmonths":
+            return dur(months, zero, zero)
+        anchor, _ = TP.add_duration_micros(au, months, zero, zero)
+        left = bu - anchor
+        days = whole_days(left)
+        return dur(months, days, left - days * day)
+
     # -- functions ------------------------------------------------------------
 
     def _const_value(self, e: E.Expr):
@@ -960,7 +1219,11 @@ class CudaEvaluator:
             if f.null_prop and any(c is None for c in consts):
                 return constant_column(None, self.n)
             return _scalar_constant(f.fn(*consts), self.n)
+        if name in _TRUNCATE and len(expr.args) == 2 and isinstance(consts[0], str):
+            return self._truncate(name, consts[0], expr.args[1])
         args = [self.eval(a) for a in expr.args]
+        if name in _BETWEEN and len(args) == 2 and {a.kind for a in args} <= {DATE, LDT}:
+            return self._between(name, args[0], args[1])
         x = args[0]
         if x.kind in (I64, F64) and name in _NUMERIC_FUNCTIONS:
             return self._numeric_function(name, x)
@@ -1021,6 +1284,18 @@ class CudaEvaluator:
         O(distinct) host work, O(n) device work."""
         name = expr.name
         live = [i for i, c in enumerate(consts) if c is _NOT_CONST]
+        if len(live) > 1 and name in _BETWEEN:
+            # once per distinct tuple of the live arguments
+            if f.null_prop and any(c is None for c in consts):
+                return constant_column(None, self.n)
+
+            def per_tuple(*vals, _c=consts, _l=live, _f=f.fn):
+                a = list(_c)
+                for i, v in zip(_l, vals):
+                    a[i] = v
+                return _f(*a)
+
+            return self._per_tuple([args[i] for i in live], per_tuple)
         if len(live) != 1:
             raise TpuUnsupportedExpr(f"{name}() over {len(live)} non-constant arguments")
         pos = live[0]
@@ -1029,6 +1304,17 @@ class CudaEvaluator:
             raise TpuUnsupportedExpr(f"{name}() over object values: {_obj_item(col)}")
         if f.null_prop and any(c is None for i, c in enumerate(consts) if i != pos):
             return constant_column(None, self.n)
+        if col.kind == STRUCT and col.tag == MAP:
+            # a map argument (``date({year: ...})``): once per distinct
+            # tuple of its values
+            keys = list(col.fields)
+
+            def per_map(*vals, _c=consts, _p=pos, _f=f.fn):
+                a = list(_c)
+                a[_p] = dict(zip(keys, vals))
+                return _f(*a)
+
+            return self._per_tuple([col.fields[k] for k in keys], per_map)
 
         def per_value(v, _c=consts, _p=pos, _f=f.fn):
             a = list(_c)
@@ -1064,39 +1350,49 @@ class CudaEvaluator:
         return _lut_apply(col.data, col.valid, [fn(s) for s in (col.vocab or [])])
 
     def _distinct_apply(self, col: Column, fn) -> Column:
-        """``fn`` once per distinct valid value of an I64, F64 or BOOL
-        column. F64 values are told apart by their bits (so -0.0 and 0.0
-        differ) and by their intness; ``torch.unique`` finds them on the
-        device, and one copy brings the distinct values to the host."""
-        valid = col.valid
-        if col.kind == F64:
-            key = col.data.view(torch.int64)
-            if col.int_flag is not None:
-                key = torch.stack([key, col.int_flag.to(torch.int64)], dim=1)
-        else:
-            key = col.data.to(torch.int64)
+        """``fn`` once per distinct valid value of a scalar column."""
+        return self._per_tuple([col], fn)
+
+    def _per_tuple(self, cols: List[Column], fn) -> Column:
+        """``fn`` once per distinct tuple of the columns' values over the
+        rows where none is null (null elsewhere). The tuples are told apart
+        on the device by ``torch.unique`` over their int64 payloads (an F64
+        by its bits, so -0.0 and 0.0 differ, and by its intness; a duration
+        by its three components); one gather brings a row of each to the
+        host, where it decodes as the values it holds."""
+        keys, valid = [], None
+        for c in cols:
+            if c.kind not in SCALAR_KINDS:
+                raise TpuUnsupportedExpr(f"a function of {c.kind} values")
+            if c.kind == F64:
+                keys.append(c.data.view(torch.int64))
+                if c.int_flag is not None:
+                    keys.append(c.int_flag.to(torch.int64))
+            elif c.kind == DUR:
+                keys.extend(c.data.unbind(1))
+            else:
+                keys.append(c.data.to(torch.int64))
+            if c.valid is not None:
+                valid = c.valid if valid is None else valid & c.valid
+        key = keys[0] if len(keys) == 1 else torch.stack(keys, 1)
         rows = None if valid is None else torch.nonzero(valid).squeeze(1)
         sel = key if rows is None else key[rows]
-        if key.dim() == 1:
+        if sel.dim() == 1:
             uniq, inv = torch.unique(sel, return_inverse=True)
         else:
             uniq, inv = torch.unique(sel, dim=0, return_inverse=True)
-        host = to_host(uniq)
-        if col.kind == F64:
-            bits = host if host.ndim == 1 else host[:, 0]
-            floats = bits.view(np.float64)
-            ints = host[:, 1] if host.ndim == 2 else np.zeros(len(host), bool)
-            values = [int(v) if i else float(v) for v, i in zip(floats, ints)]
-        elif col.kind == BOOL:
-            values = [bool(v) for v in host]
-        else:
-            values = [int(v) for v in host]
+        src = torch.arange(int(sel.shape[0]), dtype=torch.int64, device=sel.device)
+        if rows is not None:
+            src = rows
+        rep = torch.zeros(int(uniq.shape[0]), dtype=torch.int64, device=sel.device).scatter_reduce(
+            0, inv, src, "amin", include_self=False)
+        values = list(zip(*(c.take(rep).to_values() for c in cols))) if len(rep) else []
         if rows is None:
             codes = inv
         else:
             codes = torch.full((self.n,), -1, dtype=inv.dtype, device=inv.device)
             codes[rows] = inv
-        return _lut_apply(codes, valid, [fn(v) for v in values])
+        return _lut_apply(codes, valid, [fn(*v) for v in values])
 
 
 def _fmod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -1112,12 +1408,11 @@ def _fmod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _scalar_constant(value, n: int) -> Column:
     """A folded constant as a device column; a nested or mixed list and a
-    temporal value have no device column kind yet."""
-    if value is None or isinstance(value, (bool, int, float, str, list, tuple, dict)):
-        col = constant_column(value, n)
-        if col.kind != OBJ:
-            return col
-    item = _TEMPORAL_ITEM if isinstance(value, (_dt.date, _dt.time, Duration)) else _LISTS_ITEM
+    zoned value named by its region have no device column kind."""
+    col = constant_column(value, n)
+    if col.kind != OBJ:
+        return col
+    item = _MIXED_TEMPORAL if isinstance(value, (_dt.date, _dt.time)) else _LISTS_ITEM
     raise TpuUnsupportedExpr(f"constant {type(value).__name__} value: {item}")
 
 
@@ -1149,10 +1444,12 @@ def _lut_apply(codes, valid, outs: List[Any]) -> Column:
         kind, dtype = F64, np.float64
         outs = [float(o) if o is not None else None for o in outs]
     else:
-        # list (or map) results: one value per code, gathered by the codes
+        # list, map or temporal results: one value per code, gathered by
+        # the codes
         table = Column.from_values(outs)
-        if table.kind not in NESTED_KINDS:
-            raise TpuUnsupportedExpr(f"a function result of mixed or nested values: {_LISTS_ITEM}")
+        if table.kind == OBJ:
+            raise TpuUnsupportedExpr(
+                f"a function result of mixed or nested values: {_obj_item(table)}")
         ok = (codes >= 0) if valid is None else (codes >= 0) & valid
         return table.take_or_null(torch.where(ok, codes.to(torch.int64), 0), ok)
     ok = np.array([o is not None for o in outs] + [False], dtype=bool)
@@ -1193,6 +1490,11 @@ def _identity_of(col: Column) -> Tuple[Optional[str], Column]:
     if col.kind == STRUCT and col.tag in (NODE, REL):
         return col.tag, Column(I64, col.field("id").data, col.valid)
     return None, col
+
+
+def _where(take, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.where`` by row, for one value per row or a duration's three."""
+    return torch.where(take[:, None] if a.dim() == 2 else take, a, b)
 
 
 def _merge_int_flag(take, a: Column, b: Column):

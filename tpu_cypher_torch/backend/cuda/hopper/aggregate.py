@@ -25,8 +25,13 @@ Segment ids are int32 or int64, or ``None`` for a global aggregate
 
 Eligibility keeps the reference's semantic rules (count over anything; sum
 over I64 only, since float sums reorder; min/max over I64/BOOL/STR/F64
-without int_flag bookkeeping) and re-derives the size cap: k <= 256 keeps
-one block's per-warp partials in 32 KB of shared memory, and fewer than
+without int_flag bookkeeping) and adds min/max over the one-lane temporal
+kinds (DATE's int32 days, LDT/ZDT/ZT/LT's int64 micros), whose payloads
+order as their values do, so the plain version reduces them as integers and
+the kernel does the same (the reference's eligibility,
+``pallas/aggregate.py:199``, lists no temporal kind and sends them to its
+jnp path). The size cap is re-derived: k <= 256 keeps one block's per-warp
+partials in 32 KB of shared memory, and fewer than
 2**31 rows keeps the counts exact in int32. The group cap is
 ``optimizer.cost.pallas_cap("aggregate")``, which a pinned
 ``TPU_CYPHER_PALLAS_MAX_GROUPS`` may lower.
@@ -42,6 +47,7 @@ from typing import NamedTuple
 import torch
 
 from .. import jit_ops as J
+from ..column import TEMPORAL_KINDS
 from ..jit_ops import BOOL, F64, I64, STR
 from . import _build, dispatch
 
@@ -181,7 +187,7 @@ def segment_aggregate(data, valid, iflag, seg_j, *, name: str, kind: str, k: int
             or (name == "sum" and kind == I64 and iflag is None)
             or (
                 name in ("min", "max")
-                and kind in (I64, BOOL, STR, F64)
+                and kind in (I64, BOOL, STR, F64) + TEMPORAL_KINDS
                 and iflag is None
             )
         )

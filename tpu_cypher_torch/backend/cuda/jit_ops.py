@@ -27,6 +27,17 @@ I64 = "i64"
 F64 = "f64"
 BOOL = "bool"
 STR = "str"
+DUR = "dur"  # (n, 3) int64: months, days, microseconds (column.DUR)
+
+# the duration order key (api.values.duration_order_us, the oracle's): a
+# month is 30.4375 days
+from ...api.values import _DUR_DAY_US as DUR_DAY_US  # noqa: E402
+from ...api.values import _DUR_MONTH_US as DUR_MONTH_US  # noqa: E402
+
+
+def dur_order_key(d: torch.Tensor) -> torch.Tensor:
+    """The average-length microseconds of (months, days, micros) rows."""
+    return d[:, 0] * DUR_MONTH_US + d[:, 1] * DUR_DAY_US + d[:, 2]
 
 
 def _arange(n: int, like: torch.Tensor) -> torch.Tensor:
@@ -1019,6 +1030,46 @@ def segment_aggregate(data, valid, iflag, seg_j, name: str, kind: str, k: int):
     return agged, cnt > 0, out_iflag, iflag_any
 
 
+def segment_duration_agg(data, valid, seg_j, k: int, name: str):
+    """sum, avg, min or max of (months, days, micros) rows per group, as
+    the oracle aggregates durations: sum and avg component by component
+    (avg floors the months, the days, the whole seconds and the
+    microseconds left over each on its own, as ``Duration(m // k, d // k,
+    s // k, us // k)`` does), min and max by the average-length key, the
+    first row in row order winning a tie (Python's ``min``/``max``).
+    ``seg_j`` None is one group. Returns ((k, 3) int64, the count of
+    non-null rows per group)."""
+    n = data.shape[0]
+    dev = data.device
+    if seg_j is None:
+        seg_j = torch.zeros((), dtype=torch.int64, device=dev).expand(n)
+    seg = seg_j.to(torch.int64)
+    v = valid if valid is not None else torch.ones(n, dtype=torch.bool, device=dev)
+    cnt = _segment_reduce(v.to(torch.int64), seg, k, "sum", 0)
+    if name in ("sum", "avg"):
+        z = torch.where(v[:, None], data, torch.zeros_like(data))
+        m, d, us = (_segment_reduce(c, seg, k, "sum", 0) for c in z.unbind(1))
+        if name == "sum":
+            return torch.stack([m, d, us], 1), cnt
+        c = torch.clamp(cnt, min=1)
+        s_n, us_n = torch.div(us, 1_000_000, rounding_mode="floor"), torch.remainder(us, 1_000_000)
+        out = torch.stack([
+            torch.div(m, c, rounding_mode="floor"), torch.div(d, c, rounding_mode="floor"),
+            torch.div(s_n, c, rounding_mode="floor") * 1_000_000
+            + torch.div(us_n, c, rounding_mode="floor"),
+        ], 1)
+        return out, cnt
+    key = dur_order_key(data)
+    info = torch.iinfo(torch.int64)
+    op, fill = ("min", info.max) if name == "min" else ("max", info.min)
+    best = _segment_reduce(torch.where(v, key, torch.full_like(key, fill)), seg, k, op, fill)
+    hit = v & (key == best[seg])
+    first = _segment_reduce(torch.where(hit, _arange(n, key), torch.full_like(key, n)),
+                            seg, k, "min", n)
+    return data[torch.clamp(first, 0, max(n - 1, 0))] if n else torch.zeros(
+        (k, 3), dtype=torch.int64, device=dev), cnt
+
+
 # ---------------------------------------------------------------------------
 # equivalence sort (distinct / group factorization)
 # ---------------------------------------------------------------------------
@@ -1033,6 +1084,13 @@ def _equivalence_keys(datas, valids, kinds):
     matches)."""
     keys = []
     for d, v, k in zip(datas, valids, kinds):
+        if k == DUR:
+            # one key per component: row equality is Duration equality
+            for c in d.unbind(1):
+                keys.append(c if v is None else torch.where(v, c, torch.zeros_like(c)))
+            if v is not None:
+                keys.append(~v)
+            continue
         if k == F64:
             valid = v if v is not None else torch.ones(d.shape[0], dtype=torch.bool, device=d.device)
             nan = torch.isnan(d) & valid
@@ -1130,6 +1188,10 @@ def order_permutation(datas, valids, kinds, ascs):
     keys = []
     for d, v, k, asc in zip(datas, valids, kinds, ascs):
         null = ~v if v is not None else torch.zeros(d.shape[0], dtype=torch.bool, device=d.device)
+        if k == DUR:
+            # equal average lengths keep their row order (the sort is
+            # stable), as the oracle's order key does
+            d = dur_order_key(d)
         if k == BOOL:
             d = d.to(torch.int8)
         if k == F64:

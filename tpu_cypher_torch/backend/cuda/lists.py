@@ -28,6 +28,7 @@ from .column import (
     SCALAR_KINDS,
     STR,
     STRUCT,
+    TEMPORAL_KINDS,
     Column,
     concat_children,
 )
@@ -121,10 +122,11 @@ def _ordered_f64_key(d: torch.Tensor) -> torch.Tensor:
 
 def element_key(col: Column) -> Tuple[torch.Tensor, torch.Tensor]:
     """(int64 key in Cypher order, validity) per row of a scalar or element
-    column: elements by id, strings by their sorted-vocab code."""
+    column: elements by id, strings by their sorted-vocab code, temporal
+    values by their payload (zoned ones by the UTC lane)."""
     if col.kind == STRUCT and col.tag in (NODE, REL):
         return col.field("id").data, col.valid_mask()
-    if col.kind in (I64, BOOL, STR):
+    if col.kind in (I64, BOOL, STR) + TEMPORAL_KINDS:
         return col.data.to(torch.int64), col.valid_mask()
     if col.kind == F64:
         return _ordered_f64_key(col.data), col.valid_mask()

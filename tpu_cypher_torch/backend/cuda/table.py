@@ -39,6 +39,8 @@ from . import jit_ops as J
 from . import lists as LS
 from .column import (
     BOOL,
+    DATE,
+    DUR,
     F64,
     I64,
     INTEGRAL_KINDS,
@@ -46,8 +48,10 @@ from .column import (
     NESTED_KINDS,
     OBJ,
     STR,
+    TEMPORAL_KINDS,
     Column,
     TpuBackendError,
+    _obj_array,
     _unify_vocab,
     to_host,
 )
@@ -103,12 +107,14 @@ class CudaTable(Table):
 
     @classmethod
     def from_arrays(cls, cols: Dict[str, Any]) -> "CudaTable":
-        """Numeric/bool numpy arrays take the bulk path; anything else
-        (value lists, string/object arrays) decodes per value."""
+        """Numeric, bool and ``datetime64`` numpy arrays take the bulk path
+        (``datetime64[D]`` a date, finer units a localdatetime); anything
+        else (value lists, string/object arrays) decodes per value."""
         out: Dict[str, Column] = {}
         for c, v in cols.items():
             if isinstance(v, np.ndarray) and (
                 np.issubdtype(v.dtype, np.number) or v.dtype == np.bool_
+                or np.issubdtype(v.dtype, np.datetime64)
             ):
                 out[c] = Column.from_numpy(v)
             else:
@@ -292,11 +298,24 @@ class CudaTable(Table):
         """One key pair on a common device encoding, or None when the kinds
         can never be equal: STR sides share one vocab; mixed I64/F64 joins
         as exact int64 (casting the int side to f64 would collapse ints
-        above 2**53, where graph-tagged ids live)."""
+        above 2**53, where graph-tagged ids live). A temporal kind equals
+        only its own kind (a date never equals a datetime): dates join as
+        int64 days, zoned values on their UTC lanes whatever their
+        offsets, durations on a dense rank of their components taken over
+        both sides."""
         if lc.kind == STR or rc.kind == STR:
             if lc.kind != STR or rc.kind != STR:
                 return None
             return _unify_vocab(lc, rc)
+        if lc.kind in TEMPORAL_KINDS + (DUR,) or rc.kind in TEMPORAL_KINDS + (DUR,):
+            if lc.kind != rc.kind:
+                return None
+            if lc.kind == DUR:
+                _, rank = torch.unique(torch.cat([lc.data, rc.data]), dim=0, return_inverse=True)
+                return (Column(I64, rank[:len(lc)], lc.valid),
+                        Column(I64, rank[len(lc):], rc.valid))
+            return (Column(I64, lc.data.to(torch.int64), lc.valid),
+                    Column(I64, rc.data.to(torch.int64), rc.valid))
         if lc.kind != rc.kind:
             if {lc.kind, rc.kind} != {I64, F64}:
                 return None
@@ -758,6 +777,11 @@ class CudaTable(Table):
 
         fault_point("agg")
         kind = col.kind
+        if kind == DUR and name in ("sum", "avg", "min", "max"):
+            return _duration_agg(name, seg_j, col, k)
+        if kind == DUR and name == "count":  # the non-null durations
+            mask = col.valid_mask()
+            col, kind = Column(BOOL, mask, mask), BOOL
         if name in ("sum", "avg", "stdev", "stdevp") and kind not in (I64, F64):
             raise TpuUnsupportedExpr(f"{name} over {kind}")
         out_data, out_valid, out_iflag, iflag_any = segment_aggregate(
@@ -838,9 +862,30 @@ class CudaTable(Table):
 
 
 def _empty_column(kind: str) -> Column:
-    dtype = {I64: torch.int64, F64: torch.float64, BOOL: torch.bool, STR: torch.int32}[kind]
-    return Column(kind, torch.zeros(0, dtype=dtype, device=_device.get()), None,
+    dtype = {F64: torch.float64, BOOL: torch.bool, STR: torch.int32,
+             DATE: torch.int32}.get(kind, torch.int64)
+    shape = (0, 3) if kind == DUR else (0,)
+    return Column(kind, torch.zeros(shape, dtype=dtype, device=_device.get()), None,
                   [] if kind == STR else None)
+
+
+def _duration_agg(name: str, seg_j, col: Column, k: int) -> Column:
+    """sum, avg, min or max of a duration column per group
+    (``jit_ops.segment_duration_agg``). A group with no duration is null,
+    but its sum is the INTEGER 0 in the oracle: where every group is such,
+    the result is INTEGER zeros; where only some are, the k sums mix kinds
+    and come back as host values (an OBJ column, which later operators
+    refuse, ROADMAP.md §3)."""
+    out, cnt = J.segment_duration_agg(col.data, col.valid, seg_j, k, name)
+    nempty = int(torch.sum(cnt == 0))
+    if nempty == 0:
+        return Column(DUR, out, None)
+    if name != "sum":
+        return Column(DUR, out, cnt > 0)
+    if nempty == k:
+        return Column(I64, torch.zeros(k, dtype=torch.int64, device=out.device), None)
+    sums = Column(DUR, out, cnt > 0).to_values()
+    return Column(OBJ, _obj_array([0 if v is None else v for v in sums]), None)
 
 
 def _percentile(name: str, agg, seg_j, col: Column, k: int, parameters) -> Column:
@@ -864,7 +909,8 @@ def _percentile(name: str, agg, seg_j, col: Column, k: int, parameters) -> Colum
     p = float(p)
     fault_point("agg")
     kind = col.kind
-    if kind not in (I64, F64, STR) or (name == "percentilecont" and kind == STR):
+    disc_kinds = (I64, F64, STR) + TEMPORAL_KINDS
+    if kind not in disc_kinds or (name == "percentilecont" and kind not in (I64, F64)):
         raise TpuUnsupportedExpr(f"{name} over {kind}")
     if kind == F64 and bool(J.any_nan_valid(col.data, col.valid)):
         raise TpuUnsupportedExpr("percentile over NaN values")

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import csv
 import os
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -103,12 +103,34 @@ def load_snb_csv(directory: str, session, delimiter: str = "|") -> ScanGraph:
     )
 
 
+# the temporal graph's spans: creation times fall in 2010-2013, to the second
+TEMPORAL_EPOCH = np.datetime64("2010-01-01T00:00:00", "s")
+TEMPORAL_SPAN_S = 1461 * 86_400
+# the multipliers of ``temporal_seconds`` for Person.created and
+# KNOWS.creationDate
+CREATED_SPREAD = 40_503
+KNOWS_SPREAD = 2_654_435_761
+
+
+def temporal_seconds(index: np.ndarray, mult: int) -> np.ndarray:
+    """Seconds after ``TEMPORAL_EPOCH`` for rows ``index``: a fixed
+    multiplicative spread over the span."""
+    return (index.astype(np.int64) * mult) % TEMPORAL_SPAN_S
+
+
 def generate_snb(
-    scale: float, session, seed: int = 42
+    scale: float, session, seed: int = 42, temporal: bool = False
 ) -> ScanGraph:
     """Synthetic SNB-like Person/KNOWS graph. ``scale=1.0`` approximates SF1
     density (~10k persons, ~450k directed KNOWS edges); degrees are
-    power-law-ish (preferential-attachment flavored)."""
+    power-law-ish (preferential-attachment flavored).
+
+    ``temporal=True`` makes the LDBC SNB temporal properties device
+    temporal columns: ``Person.birthday`` a date (the same days since
+    1970-01-01, ingested value by value), ``Person.created`` a datetime at
+    +02:00 (value by value) and ``KNOWS.creationDate`` a localdatetime (a
+    ``datetime64[us]`` array, the bulk path), both in 2010-2013 by
+    ``temporal_seconds`` of the row index."""
     num_people = max(2, int(10_000 * scale))
     num_knows = int(num_people * 45)
     rng = np.random.default_rng(seed)
@@ -121,16 +143,32 @@ def generate_snb(
     src, dst = ids[src_i[keep]], ids[dst_i[keep]]
     # birthday: days-since-epoch ints (IS3-style property filters); numpy so
     # the bulk ingestion path stays one H2D copy per column at SF10 scale
-    person_cols: Dict[str, List] = {
-        "id": ids,
-        "birthday": rng.integers(0, 18_000, size=num_people, dtype=np.int64),
-    }
+    birthday = rng.integers(0, 18_000, size=num_people, dtype=np.int64)
+    person_cols: Dict[str, Any] = {"id": ids, "birthday": birthday}
     # expose the id column as a property too (LDBC queries anchor on
     # ``a.id`` ranges; the bench's var-length source filter does the same)
     prop_types: Dict[str, T.CypherType] = {
         "id": T.CTInteger.nullable,
         "birthday": T.CTInteger.nullable,
     }
+    knows_cols: Dict[str, Any] = {}
+    knows_types: Dict[str, T.CypherType] = {}
+    if temporal:
+        import datetime as _dt
+
+        epoch = _dt.date(1970, 1, 1)
+        person_cols["birthday"] = [epoch + _dt.timedelta(days=int(b)) for b in birthday]
+        prop_types["birthday"] = T.CTDate.nullable
+        tz = _dt.timezone(_dt.timedelta(hours=2))
+        start = _dt.datetime(2010, 1, 1, tzinfo=tz)
+        person_cols["created"] = [
+            start + _dt.timedelta(seconds=int(x))
+            for x in temporal_seconds(np.arange(num_people), CREATED_SPREAD)
+        ]
+        prop_types["created"] = T.CTDateTime.nullable
+        secs = temporal_seconds(np.arange(len(src)), KNOWS_SPREAD)
+        knows_cols["creationDate"] = (TEMPORAL_EPOCH + secs).astype("datetime64[us]")
+        knows_types["creationDate"] = T.CTLocalDateTime.nullable
     if num_people <= 200_000:  # string props only at list-walkable sizes
         person_cols["firstname"] = [f"p{i}" for i in range(num_people)]
         prop_types["firstname"] = T.CTString.nullable
@@ -142,6 +180,8 @@ def generate_snb(
         src,
         dst,
         undirected_knows=False,
+        knows_cols=knows_cols,
+        knows_types=knows_types,
     )
 
 
@@ -153,30 +193,36 @@ def _graph_from_arrays(
     src: np.ndarray,
     dst: np.ndarray,
     undirected_knows: bool,
+    knows_cols: Optional[Dict[str, Any]] = None,
+    knows_types: Optional[Dict[str, T.CypherType]] = None,
 ) -> ScanGraph:
     """Assemble the Person/KNOWS ScanGraph. LDBC datagen stores KNOWS once
     per unordered pair; Cypher's SNB queries traverse it both ways, so
     ``undirected_knows=True`` materializes both orientations (the reference
     models undirected traversal as a union of orientations at plan time; for
     a benchmark-focused loader, storing both directions keeps every hop a
-    plain directed expand)."""
+    plain directed expand). ``knows_cols`` adds KNOWS properties, one
+    value per edge in ``src`` order (both orientations share it), typed by
+    ``knows_types``."""
+    knows_cols = dict(knows_cols or {})
     if undirected_knows:
         src, dst = (
             np.concatenate([src, dst]),
             np.concatenate([dst, src]),
         )
+        knows_cols = {k: np.concatenate([v, v]) for k, v in knows_cols.items()}
     edge_ids = np.arange(len(src), dtype=np.int64) + EDGE_ID_OFFSET
     if len(ids) and int(ids.max(initial=0)) >= EDGE_ID_OFFSET:
         raise DataSourceError("LDBC ids exceed the supported id range")
 
     node_table = session.table_cls.from_arrays(person_cols)
     rel_table = session.table_cls.from_arrays(
-        {"id": edge_ids, "source": src, "target": dst}
+        {"id": edge_ids, "source": src, "target": dst, **knows_cols}
     )
     schema = (
         PropertyGraphSchema.empty()
         .with_node_combination(frozenset({PERSON_LABEL}), prop_types)
-        .with_relationship_type(KNOWS_TYPE, {})
+        .with_relationship_type(KNOWS_TYPE, dict(knows_types or {}))
     )
     return ScanGraph(
         [
@@ -194,6 +240,7 @@ def _graph_from_arrays(
                     source_key="source",
                     target_key="target",
                     rel_type=KNOWS_TYPE,
+                    property_mapping=tuple((k, k) for k in knows_cols),
                 ),
                 rel_table,
             ),

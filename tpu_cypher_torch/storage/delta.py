@@ -31,6 +31,7 @@ object it started with; a commit publishes a new one.
 
 from __future__ import annotations
 
+import datetime as _dt
 import hashlib
 import itertools
 import json
@@ -41,7 +42,7 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 from ..api import types as T
 from ..api.mapping import NodeMapping, NodeMappingBuilder, RelationshipMappingBuilder
 from ..api.schema import PropertyGraphSchema
-from ..api.values import Node, Relationship
+from ..api.values import Duration, Node, Relationship
 from ..backend.cuda import device as _device
 from ..errors import MutationError
 from ..ir import expr as E
@@ -101,11 +102,15 @@ class WriteBatch:
         )
 
     def to_json(self) -> Dict[str, Any]:
+        """JSON-safe form; a temporal property value rides as a tagged
+        ``{"$temporal": [kind, text]}`` (``_temporal_to_json``), every
+        other value as itself."""
+        j = _props_to_json
         return {
-            "nc": [[i, list(l), p] for i, l, p in self.nodes_created],
-            "rc": [[i, s, d, t, p] for i, s, d, t, p in self.rels_created],
-            "nw": [[i, list(l), p] for i, l, p in self.nodes_rewritten],
-            "rw": [[i, s, d, t, p] for i, s, d, t, p in self.rels_rewritten],
+            "nc": [[i, list(l), j(p)] for i, l, p in self.nodes_created],
+            "rc": [[i, s, d, t, j(p)] for i, s, d, t, p in self.rels_created],
+            "nw": [[i, list(l), j(p)] for i, l, p in self.nodes_rewritten],
+            "rw": [[i, s, d, t, j(p)] for i, s, d, t, p in self.rels_rewritten],
             "nd": list(self.nodes_deleted),
             "rd": list(self.rels_deleted),
         }
@@ -113,10 +118,11 @@ class WriteBatch:
     @staticmethod
     def from_json(d: Dict[str, Any]) -> "WriteBatch":
         b = WriteBatch()
-        b.nodes_created = [(i, tuple(l), p) for i, l, p in d.get("nc", ())]
-        b.rels_created = [(i, s, dd, t, p) for i, s, dd, t, p in d.get("rc", ())]
-        b.nodes_rewritten = [(i, tuple(l), p) for i, l, p in d.get("nw", ())]
-        b.rels_rewritten = [(i, s, dd, t, p) for i, s, dd, t, p in d.get("rw", ())]
+        j = _props_from_json
+        b.nodes_created = [(i, tuple(l), j(p)) for i, l, p in d.get("nc", ())]
+        b.rels_created = [(i, s, dd, t, j(p)) for i, s, dd, t, p in d.get("rc", ())]
+        b.nodes_rewritten = [(i, tuple(l), j(p)) for i, l, p in d.get("nw", ())]
+        b.rels_rewritten = [(i, s, dd, t, j(p)) for i, s, dd, t, p in d.get("rw", ())]
         b.nodes_deleted = list(d.get("nd", ()))
         b.rels_deleted = list(d.get("rd", ()))
         return b
@@ -125,6 +131,60 @@ class WriteBatch:
         """Canonical content digest — the fingerprint-chain increment."""
         text = json.dumps(self.to_json(), sort_keys=True, separators=(",", ":"))
         return hashlib.sha256(text.encode()).hexdigest()[:16]
+
+
+_TEMPORAL_TAG = "$temporal"
+
+
+def _temporal_to_json(v: Any) -> Any:
+    """A property value in its JSON form: a date, time, datetime or
+    duration as ``{"$temporal": [kind, text(, zone)]}`` (a property value
+    is never a map, so the tag cannot collide), a list element by element,
+    anything else as itself."""
+    if isinstance(v, list):
+        return [_temporal_to_json(x) for x in v]
+    if isinstance(v, Duration):
+        return {_TEMPORAL_TAG: ["duration", [v.months, v.days, v.seconds, v.microseconds]]}
+    if isinstance(v, _dt.datetime):
+        if v.tzinfo is None:
+            return {_TEMPORAL_TAG: ["localdatetime", v.isoformat()]}
+        zone = getattr(v.tzinfo, "key", None)  # a zone named by region
+        return {_TEMPORAL_TAG: ["datetime", v.isoformat()] + ([zone] if zone else [])}
+    if isinstance(v, _dt.date):
+        return {_TEMPORAL_TAG: ["date", v.isoformat()]}
+    if isinstance(v, _dt.time):
+        return {_TEMPORAL_TAG: ["localtime" if v.tzinfo is None else "time", v.isoformat()]}
+    return v
+
+
+def _temporal_from_json(v: Any) -> Any:
+    """The inverse of ``_temporal_to_json``."""
+    if isinstance(v, list):
+        return [_temporal_from_json(x) for x in v]
+    if not (isinstance(v, dict) and _TEMPORAL_TAG in v):
+        return v
+    kind, text, *zone = v[_TEMPORAL_TAG]
+    if kind == "duration":
+        m, d, sec, us = text
+        return Duration(months=m, days=d, seconds=sec, microseconds=us)
+    if kind == "date":
+        return _dt.date.fromisoformat(text)
+    if kind in ("time", "localtime"):
+        return _dt.time.fromisoformat(text)
+    out = _dt.datetime.fromisoformat(text)
+    if zone:
+        from zoneinfo import ZoneInfo
+
+        out = out.astimezone(ZoneInfo(zone[0]))
+    return out
+
+
+def _props_to_json(props: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: _temporal_to_json(v) for k, v in props.items()}
+
+
+def _props_from_json(props: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: _temporal_from_json(v) for k, v in props.items()}
 
 
 def advance_fingerprint(prev: str, batch_digest: str) -> str:
