@@ -282,12 +282,10 @@ def test_from_rows_builds_device_columns():
 
 
 def test_count_distinct_of_a_map_raises(engines):
-    """A map has no key yet: ``count(DISTINCT`` of one names item 6.4."""
-    from tpu_cypher_torch.backend.cuda.compiler import TpuUnsupportedExpr
-
-    with pytest.raises(TpuUnsupportedExpr, match="a map as a key: ROADMAP.md queue 1, item 6.4"):
-        engines[0].cypher("MATCH (a:Person) RETURN count(DISTINCT {n: a.name}) AS c"
-                          ).records.collect()
+    """A map is a key (it raised, naming item 6.4, before maps had a dense
+    rank): ``count(DISTINCT`` of one answers as the two references do."""
+    _three(engines, "MATCH (a:Person) RETURN count(DISTINCT {n: a.name}) AS c, "
+           "count(DISTINCT {n: a.age % 2}) AS d", ORDERED)
 
 
 def test_no_list_query_reaches_the_local_evaluator(engines, monkeypatch):
@@ -330,6 +328,7 @@ def snb():
                                np.arange(start, start + w), 2, pairs=True)
     truth = CS.list_truth(ids, bday, s, d, counts)
     truth["Q33 params"] = CS.window_params(ids, start, w)
+    truth["Q54 rows params"] = CS.undirected_window(ids, s, d, 20_000)
     truth["edges"] = set(zip(src.tolist(), dst.tolist()))
     return engines, truth
 
@@ -343,7 +342,7 @@ def test_chip_smoke_list_queries(snb, qname):
     as multisets)."""
     engines, truth = snb
     query, plan_op, kernels = CS.LIST_QUERIES[qname]
-    params = truth["Q33 params"] if qname.startswith("Q33") else None
+    params = truth["Q33 params"] if qname.startswith("Q33") else truth.get(f"{qname} params")
     result = engines[0].cypher(query, params)
     rows = [dict(r) for r in result.records.collect()]
     assert plan_op in result.plans
@@ -352,11 +351,14 @@ def test_chip_smoke_list_queries(snb, qname):
     if qname == "Q33 rows":
         assert len(rows) == min(1000, sum(r["c"] for r in truth["Q33"]))
         CS.check_rel_lists(rows, truth["edges"])
+    elif qname == "Q54 rows":  # a LIMIT without ORDER BY: rows of the port's choice
+        assert rows
+        CS.check_path_rows(rows, truth["edges"])
     elif qname == "Q34 values":
         assert sorted(rows, key=lambda r: r["id"]) == truth[qname]
     elif qname == "Q35":
         assert {r["a"]: sorted(n.id for n in r["fs"]) for r in rows} == truth[qname]
     else:
-        assert rows == truth[qname]
-    if not qname.startswith("Q33"):
-        _three(engines, query, MULTISET)
+        assert CS.list_surface_rows(qname, rows) == truth[qname]
+    if not qname.startswith("Q33") and qname != "Q54 rows":
+        _three(engines, query, MULTISET, params)

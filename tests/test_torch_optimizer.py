@@ -268,6 +268,43 @@ def test_feedback_observes_rows_with_bucketing_off(skewed):
     assert wcoj_threshold(plan.graph, plan.context) != int(PCFG.WCOJ_MIN_ROWS.default)
 
 
+def test_one_outlier_leaves_wcoj_routing(skewed):
+    """One span 100x its class's others (a collector pause on a served
+    query) cannot pull an estimate past the class's other samples: each is
+    the median of the class's last samples, so ``prefer_wcoj`` decides as
+    it did. The reference's rule,
+    an EMA at 20% a step, moves the binary tier's cost 20.8-fold here and
+    flips the choice; the port departs from it (ROADMAP.md §3)."""
+    _, _, port = skewed
+    _, plan = _model_for(port)
+    graph, ctx = plan.graph, plan.context
+    cal = feedback.get(graph, ctx)
+    for _ in range(4):
+        cal.observe_span("MultiwayIntersectOp", 0.002, 1000, 1000)
+        cal.observe_span("CsrExpandIntoOp", 0.001, 1000, 1000)
+    base = wcoj_threshold(graph, ctx)
+    est = base + base // 2  # above the threshold: WCOJ
+    assert PCOST.prefer_wcoj(est, graph, ctx)
+    cal.observe_span("CsrExpandIntoOp", 0.1, 1000, 1000)
+    assert cal.unit_cost("CsrExpandIntoOp") == pytest.approx(1e-3)
+    assert wcoj_threshold(graph, ctx) == base
+    assert PCOST.prefer_wcoj(est, graph, ctx)
+    ema = 1e-3 + 0.2 * (0.1 - 1e-3)  # the reference's rule on the same samples
+    assert int(int(PCFG.WCOJ_MIN_ROWS.default) * max(0.25, 2e-3 / ema)) < base // 2
+
+
+def test_calibration_round_trips_its_window():
+    cal = feedback.Calibration()
+    for v in (3.0, 1.0, 2.0):
+        cal.observe_span("CsrExpandOp", v, 1000, 500)
+    back = feedback.Calibration.from_json(cal.to_json())
+    assert back.unit_cost("CsrExpandOp") == cal.unit_cost("CsrExpandOp") == 2.0
+    back.observe_span("CsrExpandOp", 300.0, 1000, 500)
+    assert back.unit_cost("CsrExpandOp") == 2.0 and back.samples() == 4
+    old = feedback.Calibration.from_json({"sec_per_krow": {"CsrExpandOp": [5.0, 9]}})
+    assert old.unit_cost("CsrExpandOp") == 5.0 and old.samples() == 9
+
+
 # ---------------------------------------------------------------------------
 # overrides
 # ---------------------------------------------------------------------------

@@ -498,25 +498,30 @@ def test_group_matches_reference(by):
 
 
 def test_group_refusals_raise():
-    """What the reference answers on its host oracle raises here (``o``:
-    lists of mixed kinds, an object column)."""
+    """What the reference answers on its host oracle raises here: a
+    percentile over NaN values. A fraction outside [0, 1] raises the
+    oracle's error, as the reference does. Lists of mixed kinds (``o``)
+    raised too until they were device columns (ROADMAP.md item 6.4): they
+    group, deduplicate and order as the reference's host oracle does."""
     from tpu_cypher_torch.backend.cuda.compiler import TpuUnsupportedExpr
+    from tpu_cypher_torch.ir.functions import CypherTypeError
 
-    cols = {"o": [[1, "a"], [2], None], "f": [1.0, float("nan"), 2.0], "i": [1, 2, 3]}
+    cols = {"o": [[1, "a"], [2], None, [1, "a"]], "f": [1.0, float("nan"), 2.0, 3.0],
+            "i": [1, 2, 3, 4]}
     t = CudaTable.from_columns(cols)
+    ref = TpuTable.from_columns(cols)
     header = PHeader({PE.Var(c): c for c in cols})
-    for by, specs in (
-        (["o"], [("n", "count", None, False, ())]),
-        ([], [("p", "percentileDisc", "f", False, (0.5,))]),
-        ([], [("p", "percentileCont", "i", False, (1.5,))]),
-    ):
-        with pytest.raises(TpuUnsupportedExpr):
-            t.group(by, _aggs(PE, specs), header, {})
+    rheader = RHeader({RE.Var(c): c for c in cols})
     with pytest.raises(TpuUnsupportedExpr):
-        t.distinct(["o"])
-    with pytest.raises(TpuUnsupportedExpr):
-        t.order_by([("o", True)])
-    assert t.distinct_count(["o"]) is None
+        t.group([], _aggs(PE, [("p", "percentileDisc", "f", False, (0.5,))]), header, {})
+    with pytest.raises(CypherTypeError):
+        t.group([], _aggs(PE, [("p", "percentileCont", "i", False, (1.5,))]), header, {})
+    spec = [("n", "count", None, False, ())]
+    assert _rows(t.group(["o"], _aggs(PE, spec), header, {})) == _rows(
+        ref.group(["o"], _aggs(RE, spec), rheader, {}))
+    assert _rows(t.distinct(["o"])) == _rows(ref.distinct(["o"]))
+    assert _rows(t.order_by([("o", True)])) == _rows(ref.order_by([("o", True)]))
+    assert t.distinct_count(["o"]) == 3
 
 
 UNIONS = {
@@ -537,7 +542,9 @@ def test_union_all_promotion_matches_reference(case):
     want = TpuTable.from_columns({"x": left}).union_all(TpuTable.from_columns({"x": right}))
     got = CudaTable.from_columns({"x": left}).union_all(CudaTable.from_columns({"x": right}))
     assert _rows(got) == _rows(want)
-    assert got._cols["x"].kind == want._cols["x"].kind
+    # the reference keeps values of two kinds as host objects ("to obj");
+    # the port keeps them on the device, one part per kind
+    assert got._cols["x"].kind == ("mix" if case.endswith("to obj") else want._cols["x"].kind)
     assert str(got.column_type("x")) == str(want.column_type("x"))
 
 

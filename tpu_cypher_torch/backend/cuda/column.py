@@ -12,7 +12,8 @@ The scalar kinds are I64, F64, BOOL and STR. Two nested kinds keep list,
 map and element values on the device too:
 
 * ``LST``: ``data`` is an (n, 2) int64 tensor of (start, length) per row
-  over one ``child`` Column of a scalar kind or of ``STRUCT``; row i holds
+  over one ``child`` Column of any device kind (a list of lists nests the
+  layout: its child is an ``LST``); row i holds
   the child rows ``start:start + length``. Rows may share child ranges,
   so a gather of rows moves two integers a row and never copies elements
   (an UNWIND keeps the list column beside each of its elements); a
@@ -28,7 +29,13 @@ map and element values on the device too:
   count and the device. A gather of a STRUCT's rows is deferred: it
   keeps the fields and composes a row index, and a field moves only when
   it is read (``field``, ``fields``), so a list of relationships whose
-  lengths alone are read gathers none of them.
+  lengths alone are read gathers none of them. A path is a ``STRUCT``
+  tagged ``path`` of two lists, ``nodes`` and ``relationships``.
+* ``MIX``: values of several kinds in one column (a list's elements, a
+  ``CASE`` whose branches differ, a ``UNION`` of kinds). ``data`` is an
+  (n, 2) int64 tensor of (part, row) per row over ``parts``, one device
+  Column per kind: row i is row ``row`` of ``parts[part]``. Like a list's
+  child, the parts are shared by gathers.
 
 Six temporal kinds keep dates, times and durations on the device
 (``temporal.py`` holds their calendar math):
@@ -43,10 +50,10 @@ Six temporal kinds keep dates, times and durations on the device
   microseconds), the oracle's ``Duration`` with its seconds and
   microseconds as one count.
 
-Lists nested deeper, lists whose elements mix kinds, dates mixed with
-datetimes, zoned values whose offsets differ from row to row and zones
-named by region stay host-exact OBJ columns, over which the compiler
-raises ``TpuUnsupportedExpr`` (``compiler.py``)."""
+Dates mixed with datetimes, zoned values whose offsets differ from row to
+row, zones named by region and elements given as Python values stay
+host-exact OBJ columns, over which the compiler raises
+``TpuUnsupportedExpr`` (``compiler.py``)."""
 
 from __future__ import annotations
 
@@ -59,7 +66,7 @@ import torch
 
 from ...api import types as T
 from ...api.types import CypherType
-from ...api.values import CypherMap, Duration, Node, Relationship
+from ...api.values import CypherMap, Duration, Node, Path, Relationship
 from . import device as _device
 
 # column kinds
@@ -70,18 +77,19 @@ STR = "str"  # dictionary-encoded int32 codes
 OBJ = "obj"  # host-side Python objects — not device resident
 LST = "lst"  # (start, length) per row over one child Column
 STRUCT = "struct"  # named child Columns
+MIX = "mix"  # (part, row) per row over one part Column per kind
 DATE = "date"  # int32 days since 1970-01-01
 LDT = "ldt"  # int64 microseconds since 1970-01-01T00:00, no zone
 ZDT = "zdt"  # int64 UTC microseconds; vocab = [the column's '+HH:MM']
 ZT = "zt"  # int64 unwrapped UTC-adjusted microseconds of the day; vocab as ZDT
 LT = "lt"  # int64 microseconds since midnight, no zone
 DUR = "dur"  # (n, 3) int64: months, days, microseconds
-NESTED_KINDS = (LST, STRUCT)
+NESTED_KINDS = (LST, STRUCT, MIX)
 TEMPORAL_KINDS = (DATE, LDT, ZDT, ZT, LT)
 SCALAR_KINDS = (I64, F64, BOOL, STR) + TEMPORAL_KINDS + (DUR,)
 # STRUCT tags; an element's fields are "id", "start", "end", "label:<l>",
 # "type:<t>" and "prop:<key>"
-MAP, PROPS, NODE, REL = "map", "props", "node", "relationship"
+MAP, PROPS, NODE, REL, PATH = "map", "props", "node", "relationship", "path"
 # kinds whose payload is one integer per row that orders and equates as the
 # values do: the zoned kinds key on their UTC lane, which is the oracle's
 # datetime and time equality and order
@@ -195,6 +203,11 @@ class Column:
     _fields: Optional[Dict[str, "Column"]] = None
     tag: Optional[str] = None
     _rows: Optional[Any] = None
+    # MIX: the part columns, one per kind
+    parts: Optional[List["Column"]] = None
+    # STRUCT map or props: the fields whose key is absent where their value
+    # is null (None: every field of ``props``, none of ``map``)
+    sparse: Optional[frozenset] = None
 
     def __len__(self) -> int:
         return len(self.data) if self.kind == OBJ else int(self.data.shape[0])
@@ -324,10 +337,10 @@ class Column:
             return got
         if all(isinstance(v, (list, tuple)) for v in non_null):
             child = Column.from_values([x for v in non_null for x in v])
-            if child.kind in SCALAR_KINDS:
+            if child.kind != OBJ:
                 lens = np.array([len(v) if v is not None else 0 for v in values], np.int64)
                 starts = np.cumsum(lens) - lens
-                return Column(LST, to_device(np.stack([starts, lens], 1)),
+                return Column(LST, to_device(np.stack([starts, lens], 1).reshape(n, 2)),
                               to_device(hv) if hv is not None else None, child=child)
         elif all(type(v) in (dict, CypherMap) for v in non_null):
             kinds = {type(v) for v in non_null}
@@ -340,13 +353,16 @@ class Column:
                     k: Column.from_values([v[k] if v is not None else None for v in values])
                     for k in next(iter(keys))
                 }
-                if all(f.kind in SCALAR_KINDS for f in fields.values()):
+                if all(f.kind != OBJ for f in fields.values()):
                     return struct_column(
                         fields, n, to_device(hv) if hv is not None else None,
-                        MAP if CypherMap in kinds else PROPS,
+                        MAP if CypherMap in kinds else PROPS, device=_device.get(),
                     )
-        # everything else stays host-exact: nested or mixed lists (ROADMAP.md
-        # queue 1, item 6.4), elements, mixed temporal kinds or offsets
+        got = _mixed_from_values(values, valid_np)
+        if got is not None:
+            return got
+        # everything else stays host-exact: elements given as Python
+        # values, mixed temporal kinds or offsets
         return Column(OBJ, _obj_array(values), None)
 
     @staticmethod
@@ -441,17 +457,22 @@ class Column:
                 vals[off[i]:off[i] + lens[i]] if valid is None or valid[i] else None
                 for i in range(n)
             ]
+        if self.kind == MIX:
+            return _decode_mix(self, valid)
         cols = {k: f.to_values() for k, f in self.fields.items()}
+        if self.tag == PATH:
+            return [None if valid is not None and not valid[i] else Path(
+                _interleave(cols["nodes"][i], cols["relationships"][i])) for i in range(n)]
         out: List[Any] = []
         for i in range(n):
             if valid is not None and not valid[i]:
                 out.append(None)
                 continue
             row = {k: v[i] for k, v in cols.items()}
-            if self.tag == MAP:
-                out.append(CypherMap(row))
-            elif self.tag == PROPS:
-                out.append({k: v for k, v in row.items() if v is not None})
+            if self.tag in (MAP, PROPS):
+                sparse = sparse_names(self)
+                row = {k: v for k, v in row.items() if v is not None or k not in sparse}
+                out.append(CypherMap(row) if self.tag == MAP else row)
             else:
                 props = {k[5:]: v for k, v in row.items()
                          if k.startswith("prop:") and v is not None}
@@ -473,6 +494,8 @@ class Column:
         valid = None if self.valid is None else self.valid[idx]
         if self.kind == LST:  # two integers a row: the child is shared
             return Column(LST, self.data[idx], valid, child=self.child)
+        if self.kind == MIX:  # two integers a row: the parts are shared
+            return Column(MIX, self.data[idx], valid, parts=self.parts)
         if self.kind == STRUCT:  # deferred: the fields move when read
             rows = idx if self._rows is None else self._rows[idx]
             return self._struct_with(self._fields, self.data[idx], valid, rows)
@@ -511,7 +534,7 @@ class Column:
             if self.kind == STRUCT:
                 return taken._struct_with(taken._fields, taken.data, valid, taken._rows)
             data = torch.where(valid[:, None], taken.data, torch.zeros_like(taken.data))
-            return Column(LST, data, valid, child=self.child)
+            return Column(self.kind, data, valid, child=self.child, parts=self.parts)
         from .jit_ops import cols_take_or_null
 
         d, v, i = cols_take_or_null(
@@ -522,10 +545,11 @@ class Column:
     def concat(self, other: "Column") -> "Column":
         """Rows of ``self`` then ``other``. An all-null side adopts the
         other side's kind; I64 and F64 promote to F64 keeping Cypher
-        intness, unless an int lies beyond 2**53; every other kind pair
-        becomes OBJ. STR sides are re-coded onto one vocab. Zoned sides
-        whose offsets differ become OBJ: the column holds one offset, and
-        a blind concat would re-zone one side's rows."""
+        intness, unless an int lies beyond 2**53; any other pair of kinds
+        becomes a MIX column, but two temporal kinds become OBJ. STR sides
+        are re-coded onto one vocab. Zoned sides whose offsets differ
+        become OBJ: the column holds one offset, and a blind concat would
+        re-zone one side's rows."""
         a, b = self, other
         if a.kind in NESTED_KINDS or b.kind in NESTED_KINDS:
             return _concat_nested(a, b)
@@ -544,6 +568,9 @@ class Column:
                 else:
                     a, b = a.as_f64_keeping_intness(), b.as_f64_keeping_intness()
             else:
+                got = None if OBJ in (a.kind, b.kind) else _mix_concat(a, b)
+                if got is not None:
+                    return got
                 a, b = a.to_obj(), b.to_obj()
         if a.kind == OBJ:
             return Column(OBJ, np.concatenate([a.data, b.data]), None)
@@ -593,6 +620,9 @@ class Column:
         if self.kind == LST:
             return Column(LST, torch.zeros((n, 2), dtype=torch.int64, device=dev), nulls,
                           child=self.child.null_like(0))
+        if self.kind == MIX:
+            return Column(MIX, torch.zeros((n, 2), dtype=torch.int64, device=dev), nulls,
+                          parts=self.parts)
         if self.kind == STRUCT:
             return self._struct_with(
                 {k: f.null_like(n) for k, f in self._fields.items()},
@@ -638,7 +668,8 @@ class Column:
         return self.valid
 
     def _struct_with(self, fields, data, valid, rows=None) -> "Column":
-        return Column(STRUCT, data, valid, _fields=fields, tag=self.tag, _rows=rows)
+        return Column(STRUCT, data, valid, _fields=fields, tag=self.tag, _rows=rows,
+                      sparse=self.sparse)
 
     def slice(self, lo: int, hi: int) -> "Column":
         """Contiguous row slice (a view — no gather; a list keeps sharing
@@ -646,8 +677,8 @@ class Column:
         if self.kind == OBJ:
             return Column(OBJ, self.data[lo:hi], None)
         valid = self.valid[lo:hi] if self.valid is not None else None
-        if self.kind == LST:
-            return Column(LST, self.data[lo:hi], valid, child=self.child)
+        if self.kind in (LST, MIX):
+            return Column(self.kind, self.data[lo:hi], valid, child=self.child, parts=self.parts)
         if self.kind == STRUCT:
             if self._rows is not None:
                 return self._struct_with(self._fields, self.data[lo:hi], valid,
@@ -663,8 +694,11 @@ class Column:
     def cypher_type(self) -> CypherType:
         if self.kind == LST:
             base = T.CTList(self.child.cypher_type())
+        elif self.kind == MIX:
+            base = T.join_types(p.cypher_type().material for p in self.parts)
         elif self.kind == STRUCT:
-            base = {NODE: T.CTNode(), REL: T.CTRelationship()}.get(self.tag, T.CTMap())
+            base = {NODE: T.CTNode(), REL: T.CTRelationship(),
+                    PATH: T.CTPath}.get(self.tag, T.CTMap())
         if self.kind in NESTED_KINDS:
             return base.nullable if self.valid is not None else base
         base = {
@@ -688,15 +722,23 @@ class Column:
         return base.nullable if has_null else base
 
 
+def sparse_names(s: Column) -> frozenset:
+    """The fields of a map or props STRUCT whose key is absent where the
+    value is null."""
+    if s.sparse is not None:
+        return s.sparse
+    return frozenset(s._fields) if s.tag == PROPS else frozenset()
+
+
 def struct_column(fields: Dict[str, Column], n: int, valid=None, tag: str = MAP,
-                  device=None, rows=None) -> Column:
+                  device=None, rows=None, sparse=None) -> Column:
     """A STRUCT column of ``n`` rows over ``fields``; with ``rows``, row i
     is row ``rows[i]`` of every field (``n`` is then ``len(rows)``)."""
     dev = device if device is not None else (
         next(iter(fields.values())).data.device if fields else _device.get()
     )
     return Column(STRUCT, torch.empty((n, 0), dtype=torch.bool, device=dev), valid,
-                  _fields=dict(fields), tag=tag, _rows=rows)
+                  _fields=dict(fields), tag=tag, _rows=rows, sparse=sparse)
 
 
 def _cat_mask(a: Column, b: Column):
@@ -706,23 +748,23 @@ def _cat_mask(a: Column, b: Column):
 
 
 def _concat_nested(a: Column, b: Column) -> Column:
-    """``concat`` where a side is LST or STRUCT: an all-null side adopts the
-    other's kind; two lists concatenate their children and shift the
-    second side's starts; two structs of one tag take the union of their
-    fields, a field one side lacks null there. Anything else becomes
-    OBJ."""
+    """``concat`` where a side is LST, STRUCT or MIX: an all-null side
+    adopts the other's kind; two lists concatenate their children and
+    shift the second side's starts; two structs of one tag (maps of one
+    key set) take the union of their fields, a field one side lacks null
+    there. Any other pair becomes a MIX column, or OBJ where a side is."""
     if a.kind != b.kind:
-        if a.kind in NESTED_KINDS and b.is_all_null():
+        if a.kind in NESTED_KINDS and b.kind != MIX and b.is_all_null():
             b = a.null_like(len(b))
-        elif b.kind in NESTED_KINDS and a.is_all_null():
+        elif b.kind in NESTED_KINDS and a.kind != MIX and a.is_all_null():
             a = b.null_like(len(a))
     if a.kind == b.kind == LST:
         child = concat_children(a.child, b.child)
-        if child.kind in SCALAR_KINDS or child.kind == STRUCT:
+        if child.kind != OBJ:
             shift = torch.tensor([len(a.child), 0], dtype=torch.int64, device=b.data.device)
             data = torch.cat([a.data, b.data + shift])
             return Column(LST, data, _cat_mask(a, b), child=child)
-    if a.kind == b.kind == STRUCT and a.tag == b.tag:
+    if a.kind == b.kind == STRUCT and _part_sig(a) == _part_sig(b):
         names = list(a.fields) + [k for k in b.fields if k not in a.fields]
         fields = {}
         for k in names:
@@ -731,8 +773,148 @@ def _concat_nested(a: Column, b: Column) -> Column:
             fb = fb if fb is not None else fa.null_like(len(b))
             fields[k] = fa.concat(fb)
         return struct_column(fields, len(a) + len(b), _cat_mask(a, b), a.tag,
-                             device=a.data.device)
+                             device=a.data.device, sparse=a.sparse)
+    got = None if OBJ in (a.kind, b.kind) else _mix_concat(a, b)
+    if got is not None:
+        return got
     return Column(OBJ, np.concatenate([a.to_obj().data, b.to_obj().data]), None)
+
+
+# -- MIX columns ---------------------------------------------------------------
+
+
+def _part_sig(c: Column):
+    """What a MIX part holds one of: its kind; a struct's tag too, and a
+    map's key set (a map decodes with every key it has, null or not); a
+    zoned kind's offset."""
+    if c.kind == STRUCT:
+        return (STRUCT, c.tag) + ((tuple(c._fields), c.sparse) if c.tag == MAP else ())
+    if c.kind in (ZDT, ZT):
+        return (c.kind, tuple(c.vocab or ()))
+    return (c.kind,)
+
+
+def as_mix(c: Column) -> Column:
+    """``c`` as a MIX column (itself when it is one): one part."""
+    if c.kind == MIX:
+        return c
+    n = len(c)
+    dev = c.data.device
+    data = torch.stack([torch.zeros(n, dtype=torch.int64, device=dev),
+                        torch.arange(n, dtype=torch.int64, device=dev)], 1)
+    return Column(MIX, data, c.valid, parts=[c])
+
+
+def mix_parts(c: Column) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MIX: (part, row) per row."""
+    return c.data[:, 0], c.data[:, 1]
+
+
+def _mix_concat(a: Column, b: Column) -> Optional[Column]:
+    """Rows of ``a`` then ``b`` as one MIX column: ``b``'s parts join
+    ``a``'s part of the same kind (concatenated, its rows shifted), or
+    come after them. None where two parts of one kind would not stay one
+    device column (temporal kinds that differ: the caller keeps OBJ)."""
+    kinds = {k for c in (a, b) for k in ((p.kind for p in c.parts) if c.kind == MIX
+                                          else (c.kind,))}
+    if len(kinds & set(TEMPORAL_KINDS)) > 1:
+        return None
+    A, B = as_mix(a), as_mix(b)
+    parts = list(A.parts)
+    tag_lut, shift_lut = [], []
+    for p in B.parts:
+        same = next((i for i, q in enumerate(parts) if q is p), None)
+        if same is not None:  # a shared part (a gather of one column)
+            tag_lut.append(same)
+            shift_lut.append(0)
+            continue
+        j = next((i for i, q in enumerate(parts) if _part_sig(q) == _part_sig(p)), None)
+        if j is None:
+            parts.append(p)
+            tag_lut.append(len(parts) - 1)
+            shift_lut.append(0)
+            continue
+        merged = parts[j].concat(p)
+        if merged.kind in (OBJ, MIX):
+            return None
+        tag_lut.append(j)
+        shift_lut.append(len(parts[j]))
+        parts[j] = merged
+    dev = B.data.device
+    btag, brow = mix_parts(B)
+    if tag_lut:
+        t = torch.clamp(btag, 0, len(tag_lut) - 1)
+        btag = torch.tensor(tag_lut, dtype=torch.int64, device=dev)[t]
+        brow = brow + torch.tensor(shift_lut, dtype=torch.int64, device=dev)[t]
+    data = torch.cat([A.data, torch.stack([btag, brow], 1)])
+    return Column(MIX, data, _cat_mask(A, B), parts=parts)
+
+
+def _value_class(v):
+    """The MIX part a Python value goes to (numbers share one)."""
+    if isinstance(v, (bool, np.bool_)):
+        return "bool"
+    if isinstance(v, (int, float, np.integer, np.floating)):
+        return "num"
+    if isinstance(v, (list, tuple)):
+        return "list"
+    if isinstance(v, CypherMap):
+        return ("map", tuple(v.keys()))
+    if isinstance(v, dict):
+        return "props"
+    return type(v).__name__
+
+
+_TEMPORAL_CLASSES = frozenset({"date", "datetime", "time"})
+
+
+def _mixed_from_values(values, valid_np) -> Optional[Column]:
+    """Values of several kinds as a MIX column: one part per class of
+    value, each built by ``from_values``; None where a part has no device
+    column kind."""
+    classes: Dict[Any, List[int]] = {}
+    for i, v in enumerate(values):
+        if v is not None:
+            classes.setdefault(_value_class(v), []).append(i)
+    if len(classes) < 2 or sum(c in _TEMPORAL_CLASSES for c in classes) > 1:
+        return None  # dates mixed with datetimes stay host values
+    n = len(values)
+    tags = np.zeros(n, np.int64)
+    rows = np.zeros(n, np.int64)
+    parts = []
+    for j, idx in enumerate(classes.values()):
+        part = Column.from_values([values[i] for i in idx])
+        if part.kind in (OBJ, MIX):
+            return None
+        parts.append(part)
+        tags[idx] = j
+        rows[idx] = np.arange(len(idx))
+    hv = None if valid_np.all() else to_device(valid_np)
+    return Column(MIX, to_device(np.stack([tags, rows], 1).reshape(n, 2)), hv, parts=parts)
+
+
+def _decode_mix(c: Column, valid) -> List[Any]:
+    """MIX -> Python values: each part decodes the rows it holds."""
+    tags, rows = (to_host(x) for x in mix_parts(c))
+    out: List[Any] = [None] * len(c)
+    for j, part in enumerate(c.parts):
+        sel = tags == j
+        if valid is not None:
+            sel &= valid
+        idx = np.nonzero(sel)[0]
+        if len(idx):
+            vals = part.take(to_device(rows[idx])).to_values()
+            for i, v in zip(idx.tolist(), vals):
+                out[i] = v
+    return out
+
+
+def _interleave(nodes, rels) -> List[Any]:
+    """A path's elements: its nodes with its relationships between them."""
+    out = [nodes[0]]
+    for r, nd in zip(rels, nodes[1:]):
+        out += [r, nd]
+    return out
 
 
 def concat_children(a: Column, b: Column) -> Column:

@@ -34,6 +34,18 @@ becomes eager torch ops over ``Column``s on the column's device, with
   a registry function that returns lists (``split``) takes the vocab or
   distinct-value route; string ``+`` runs once per distinct pair of
   operand values;
+* the rest of the list surface: lists of lists and lists whose elements
+  mix kinds (the ``MIX`` column), a ``CASE`` or ``coalesce`` whose
+  branches differ in kind, ``=``/``<>`` and ``IN`` on lists and maps and
+  ``<`` on lists (``values.py``: the oracle's three-valued equality, and
+  an exact rank in Cypher order), ``reduce`` (an integer ``acc + g(x)`` as
+  one segment sum, any other fold step by step over element positions),
+  ``v{.*}``, ``properties()`` of a map, and a named path as a value: a
+  ``path`` STRUCT of its node and relationship lists, with ``length``,
+  ``nodes`` and ``relationships``;
+* a registry function of several non-constant arguments, and a string
+  predicate whose pattern is a column, run once per distinct tuple of
+  operand values;
 * temporal values (the ``DATE``, ``LDT``, ``ZDT``, ``ZT``, ``LT`` and
   ``DUR`` columns; ``temporal.py`` holds the calendar math): constants and
   constructors fold once; the calendar and duration accessors,
@@ -51,13 +63,15 @@ becomes eager torch ops over ``Column``s on the column's device, with
 
 No row is ever evaluated in Python. What the port cannot compile raises
 ``TpuUnsupportedExpr``: where the reference evaluates it as a host island
-on its local oracle, the port keeps no island (ROADMAP.md §3). Nested or
-mixed lists, maps as keys or in comparisons, ``reduce``, pattern
-comprehensions and path values name ROADMAP.md queue 1, item 6.4; the
-temporal shapes the port declines (dates mixed with datetimes in one
-result, zoned values whose offsets differ) name ROADMAP.md §3. The
-reference's jit cache of whole expressions
-has no counterpart: eager PyTorch compiles nothing to cache.
+on its local oracle, the port keeps no island (ROADMAP.md §3). Pattern
+comprehensions name ROADMAP.md queue 1, item 6.5; the temporal shapes
+the port declines (dates mixed with datetimes in one result, zoned values
+whose offsets differ) name ROADMAP.md §3. Where the oracle raises on a
+kind (``true + 1``, ``-'a'``, a property of an integer, an aggregate in a
+``WHERE``), the port raises the oracle's own error, read off the first
+row that has the operands (one device read). The reference's jit cache
+of whole expressions has no counterpart: eager PyTorch compiles nothing
+to cache.
 """
 
 from __future__ import annotations
@@ -74,6 +88,7 @@ from ...ir import expr as E
 from . import device as _device
 from . import lists as LS
 from . import temporal as TP
+from . import values as V
 from .column import (
     BOOL,
     DATE,
@@ -84,9 +99,11 @@ from .column import (
     LST,
     LT,
     MAP,
+    MIX,
     NESTED_KINDS,
     NODE,
     OBJ,
+    PATH,
     PROPS,
     REL,
     SCALAR_KINDS,
@@ -101,6 +118,7 @@ from .column import (
     _remap,
     _unify_vocab,
     constant_column,
+    sparse_names,
     struct_column,
     to_host,
 )
@@ -128,16 +146,15 @@ class TpuUnsupportedExpr(TpuBackendError):
 
 
 def _obj_item(*cols: Column) -> str:
-    """Where these object columns' values are named: temporal values of
-    mixed kinds or offsets in ROADMAP.md §3, nested or mixed lists in
-    queue 1, item 6.4."""
+    """What these object columns hold: temporal values of mixed kinds or
+    offsets (ROADMAP.md §3), or values of no device column kind."""
     for c in cols:
         if c.kind != OBJ:
             continue
         for v in c.data:
             if isinstance(v, (_dt.date, _dt.time, Duration)):
                 return _MIXED_TEMPORAL
-    return _LISTS_ITEM
+    return "values with no device column kind"
 
 
 def _oracle(build):
@@ -184,9 +201,7 @@ class CudaEvaluator:
             return constant_column(self.params.get(expr.name), self.n)
         if isinstance(expr, E.Var):
             if self._is_path(expr):
-                raise TpuUnsupportedExpr(
-                    f"path variable {expr.name} as a value: {_LISTS_ITEM}"
-                )
+                return self._path(expr)
             got = self._element_struct(expr)
             if got is None:
                 raise TpuUnsupportedExpr(f"variable {expr.name} unmapped")
@@ -210,8 +225,10 @@ class CudaEvaluator:
             return self._comprehension(expr)
         if isinstance(expr, E.Quantified):
             return self._quantified(expr)
-        if isinstance(expr, (E.Reduce, E.PatternComprehension)):
-            raise TpuUnsupportedExpr(f"{type(expr).__name__}: {_LISTS_ITEM}")
+        if isinstance(expr, E.Reduce):
+            return self._reduce(expr)
+        if isinstance(expr, E.PatternComprehension):
+            raise TpuUnsupportedExpr(f"a pattern comprehension: {_LISTS_ITEM}")
         if isinstance(expr, E.PrefixId):
             inner = self.eval(expr.expr)
             if inner.kind != I64:
@@ -247,7 +264,8 @@ class CudaEvaluator:
             if inner.kind == DUR:
                 return Column(DUR, -inner.data, inner.valid)
             if inner.kind not in (I64, F64):
-                raise TpuUnsupportedExpr("negate non-numeric")
+                # the oracle's error at the first non-null row, or null
+                return self._oracle_raise(E.Neg, [inner])
             return Column(inner.kind, -inner.data, inner.valid)
         if isinstance(expr, E.ArithmeticExpr):
             return self._arith(expr)
@@ -259,6 +277,14 @@ class CudaEvaluator:
             return self._string_predicate(expr)
         if isinstance(expr, E.Property):
             return self._property(expr)
+        if isinstance(expr, (E.HasLabel, E.HasType)):
+            return self._absent_flag(expr)
+        if isinstance(expr, (E.Agg, E.CountStar)):
+            # an aggregate outside an aggregation (``WHERE count(n) > 0``):
+            # the local oracle's own error
+            from ..local.eval import EvalError
+
+            raise EvalError(f"Cannot evaluate {type(expr).__name__}: {expr.pretty_expr()}")
         raise TpuUnsupportedExpr(type(expr).__name__)
 
     # -- elements -------------------------------------------------------------
@@ -305,7 +331,27 @@ class CudaEvaluator:
             return self._temporal_accessor(inner, expr.key)
         if inner.kind == OBJ:
             raise TpuUnsupportedExpr(f"property access on object values: {_obj_item(inner)}")
-        raise TpuUnsupportedExpr(f"property access on {inner.kind}")
+        # a value with no properties: the oracle's error at its first
+        # non-null row, or null where there is none
+        return self._oracle_raise(lambda v: E.Property(v, expr.key), [inner])
+
+    def _absent_flag(self, expr) -> Column:
+        """``n:L`` or ``r:T`` where the header holds no flag column: a label
+        or type absent from the graph, so false wherever the element is not
+        null. Of an element value the struct's flag field decides."""
+        got = self._element(expr.expr)
+        if got is not None:
+            return Column(BOOL, self._falses(), got[1].valid)
+        inner = self.eval(expr.expr)
+        if inner.kind == STRUCT and inner.tag in (NODE, REL):
+            f = inner.field("label:" + expr.label if isinstance(expr, E.HasLabel)
+                            else "type:" + expr.rel_type)
+            if f is None:
+                return Column(BOOL, self._falses(), inner.valid)
+            return Column(BOOL, f.data & f.valid_mask(), inner.valid)
+        if inner.is_all_null():
+            return Column(BOOL, self._falses(), self._falses())
+        raise TpuUnsupportedExpr(f"{type(expr).__name__} of {inner.kind}")
 
     def _rel_type(self, arg: E.Expr) -> Optional[Column]:
         """``type(r)`` from the header's ``HasType`` flags: one STR column
@@ -324,6 +370,64 @@ class CudaEvaluator:
             codes = torch.where(c.data & c.valid_mask(), code, codes)
         valid = got[1].valid
         return Column(STR, codes, valid, [f.rel_type for f in flags])
+
+    def _path(self, var: E.Var, parts=("nodes", "relationships")) -> Column:
+        """A named path as a value: a ``path`` STRUCT of its node list and
+        relationship list, built from the header's member columns as
+        ``relational/materialize.py``'s ``path_materializer`` builds the
+        path: a relationship member adds itself, a var-length member its
+        relationship list and the list of its intermediate nodes (the
+        companion column the planner or ``CsrVarExpandOp`` emits), a node
+        member itself, but not after a var-length member of length 0
+        (there it is the node before). Null where any member is. Only the
+        lists named in ``parts`` are built (``length(p)`` reads the
+        relationships alone)."""
+        from ...api import types as T
+        from ...relational.header import path_nodes_companion
+
+        h = self.header
+        dev = _device.get()
+        ones = torch.ones(self.n, dtype=torch.int64, device=dev)
+        valid = torch.ones(self.n, dtype=torch.bool, device=dev)
+        nodes = rels = None
+        after_var = None  # the lengths of the var-length member just added
+
+        def cat(a, b, part):
+            if part not in parts:
+                return a
+            return b if a is None else LS.concat_rows(a, b, None)
+
+        for f in h.path_entities(var.name):
+            v = h.var(f)
+            m = (v.cypher_type or T.CTAny.nullable).material
+            if isinstance(m, (T.CTNodeType, T.CTRelationshipType)):
+                el = self._element_struct(v)
+                if el is None:
+                    raise TpuUnsupportedExpr(f"path member {f} unmapped")
+                valid = valid & el.valid_mask()
+                one = LS.list_column(ones, el)
+                if isinstance(m, T.CTRelationshipType):
+                    rels = cat(rels, one, "relationships")
+                else:
+                    if after_var is not None:
+                        one = LS.list_column((after_var > 0).to(torch.int64), el,
+                                             starts=torch.cumsum(ones, 0) - 1)
+                    nodes = cat(nodes, one, "nodes")
+                after_var = None
+                continue
+            lst = self.eval(v)
+            comp = h.get(E.Var(path_nodes_companion(f)))
+            if lst.kind != LST or comp is None:
+                raise TpuUnsupportedExpr(f"path member {f} without its nodes")
+            valid = valid & lst.valid_mask()
+            rels = cat(rels, lst, "relationships")
+            nodes = cat(nodes, self._as_list(self._col(comp)), "nodes")
+            after_var = lst.lengths()
+        if rels is None:  # a path of one node
+            rels = LS.list_column(torch.zeros(self.n, dtype=torch.int64, device=dev),
+                                  constant_column(None, 0))
+        fields = {"nodes": nodes, "relationships": rels}
+        return struct_column({k: fields[k] for k in parts}, self.n, valid, PATH, device=dev)
 
     def _element_struct(self, var: E.Var) -> Optional[Column]:
         """An element variable as a value: a ``STRUCT`` of the header
@@ -379,7 +483,11 @@ class CudaEvaluator:
         return torch.zeros(self.n, dtype=torch.bool, device=_device.get())
 
     def _as_bool(self, c: Column) -> Column:
+        """A boolean operand; a column that is null everywhere (a null
+        literal compiles as an I64 null) is a boolean null."""
         if c.kind != BOOL:
+            if c.is_all_null():
+                return Column(BOOL, self._falses(), self._falses())
             raise TpuUnsupportedExpr(f"expected boolean, got {c.kind}")
         return c
 
@@ -438,11 +546,13 @@ class CudaEvaluator:
         return Column(BOOL, eq, _and_valid(l, r))
 
     def _equal_values(self, l: Column, r: Column) -> Column:
-        """Three-valued ``=`` of two value columns of one length."""
+        """Three-valued ``=`` of two value columns of one length; lists,
+        maps, paths and mixed values as the oracle's ``cypher_equals``
+        (``values.equal``)."""
         if OBJ in (l.kind, r.kind):
             raise TpuUnsupportedExpr(f"equality on object values: {_obj_item(l, r)}")
         if l.kind in NESTED_KINDS or r.kind in NESTED_KINDS:
-            raise TpuUnsupportedExpr(f"equality on lists or maps: {_LISTS_ITEM}")
+            return V.equal(l, r)
         if DUR in (l.kind, r.kind):
             # equal components; a duration equals no value of another kind
             eq = (torch.all(l.data == r.data, dim=1) if l.kind == r.kind
@@ -461,7 +571,7 @@ class CudaEvaluator:
         if OBJ in (l.kind, r.kind):
             raise TpuUnsupportedExpr(f"comparison on object values: {_obj_item(l, r)}")
         if l.kind in NESTED_KINDS or r.kind in NESTED_KINDS:
-            raise TpuUnsupportedExpr(f"ordering of lists, maps or elements: {_LISTS_ITEM}")
+            return self._compare_nested(expr, l, r)
         if DUR in (l.kind, r.kind):
             # durations do not compare in the oracle (null), as values of
             # two kinds do not
@@ -475,6 +585,26 @@ class CudaEvaluator:
         except TpuUnsupportedExpr:
             # cross-kind ordering (1 < 'a') is null in openCypher
             return Column(BOOL, self._falses(), self._falses())
+        out = self._comparison_values(expr, l, r)
+        if l.kind == F64:
+            # a comparison with NaN is false
+            out.data = out.data & ~(torch.isnan(l.data) | torch.isnan(r.data))
+        return out
+
+    def _compare_nested(self, expr, l: Column, r: Column) -> Column:
+        """An ordered comparison where a side is a list, map, element or
+        mixed value: two lists compare by their rank in Cypher order, as
+        the oracle compares them element by element; any other pair is
+        null, as in the oracle."""
+        if l.kind == r.kind == LST:
+            lr, rr = V.joint_rank([l, r])
+            return self._comparison_values(expr, lr, rr)
+        if MIX in (l.kind, r.kind):
+            raise TpuUnsupportedExpr("an ordered comparison of mixed values")
+        return Column(BOOL, self._falses(), self._falses())
+
+    @staticmethod
+    def _comparison_values(expr, l: Column, r: Column) -> Column:
         if isinstance(expr, E.LessThan):
             v = l.data < r.data
         elif isinstance(expr, E.LessThanOrEqual):
@@ -483,9 +613,6 @@ class CudaEvaluator:
             v = l.data > r.data
         else:
             v = l.data >= r.data
-        if l.kind == F64:
-            # a comparison with NaN is false
-            v = v & ~(torch.isnan(l.data) | torch.isnan(r.data))
         return Column(BOOL, v, _and_valid(l, r))
 
     def _in(self, expr) -> Column:
@@ -548,8 +675,7 @@ class CudaEvaluator:
                 return Column(BOOL, self._falses(), self._falses())
             raise TpuUnsupportedExpr(f"IN over {lst.kind}")
         parent, pos = LS.elements(lst)
-        eq = self._equal_identities(_identity_of(x.take(parent)),
-                                    _identity_of(lst.child.take(pos)))
+        eq = self._equal_values(x.take(parent), lst.child.take(pos))
         known = eq.valid_mask()
         hit = LS.segment_sum(eq.data & known, parent, self.n) > 0
         unknown = LS.segment_sum(~known, parent, self.n) > 0
@@ -557,16 +683,26 @@ class CudaEvaluator:
 
     def _string_predicate(self, expr) -> Column:
         """A constant pattern over a STR column: the predicate runs once per
-        vocab entry. A null pattern is null everywhere."""
+        vocab entry. A null pattern or subject is null everywhere, and so is
+        ``STARTS WITH``, ``ENDS WITH`` or ``CONTAINS`` over a value that is
+        not a string, as in the local oracle. A pattern that is a column
+        runs the oracle's predicate once per distinct (subject, pattern)
+        pair of values."""
         pat = self._const_value(expr.rhs)
         l = self.eval(expr.lhs)
-        if pat is None:
-            return Column(BOOL, self._falses(), self._falses())
+        null = Column(BOOL, self._falses(), self._falses())
+        if pat is None or l.is_all_null():
+            return null
+        regex = isinstance(expr, E.RegexMatch)
         if pat is _NOT_CONST or not isinstance(pat, str):
-            raise TpuUnsupportedExpr("non-constant string pattern")
+            r = self.eval(expr.rhs)
+            if r.is_all_null() or not (regex or l.kind == r.kind == STR):
+                return null
+            got = self._per_tuple([l, r], _oracle(type(expr)))
+            return got if got.kind == BOOL else null  # no row holds both
         if l.kind != STR:
-            if l.is_all_null():
-                return Column(BOOL, self._falses(), self._falses())
+            if not regex and l.kind in SCALAR_KINDS + NESTED_KINDS:
+                return null
             raise TpuUnsupportedExpr(f"string predicate over {l.kind}")
         if isinstance(expr, E.StartsWith):
             fn = lambda s: s.startswith(pat)
@@ -591,13 +727,17 @@ class CudaEvaluator:
             raise TpuUnsupportedExpr(f"arithmetic on object values: {_obj_item(l, r)}")
         timed = l.kind in _TIME_KINDS or r.kind in _TIME_KINDS
         if isinstance(expr, E.Add) and STR in (l.kind, r.kind) and not timed:
+            if not (self._concatenable(l) and self._concatenable(r)):
+                # a string and a list or map: the oracle's error, or null
+                return self._oracle_raise(E.Add, [l, r])
             return self._add_strings(l, r)
         if isinstance(expr, E.Add) and LST in (l.kind, r.kind):
             return self._add_lists(l, r)
         if timed:
             return self._temporal_arith(expr, l, r)
         if l.kind not in (I64, F64) or r.kind not in (I64, F64):
-            raise TpuUnsupportedExpr(f"arithmetic on {l.kind}/{r.kind}")
+            # the oracle's error at the first row with both operands, or null
+            return self._oracle_raise(type(expr), [l, r])
         valid = _and_valid(l, r)
         if l.kind == I64 and r.kind == I64:
             a, b = l.data, r.data
@@ -633,12 +773,13 @@ class CudaEvaluator:
             raise TpuUnsupportedExpr(type(expr).__name__)
         return Column(F64, out, valid)
 
-    def _same_kind(self, cols: List[Column], what: str) -> List[Column]:
+    def _same_kind(self, cols: List[Column], what: str) -> Optional[List[Column]]:
         """Branches of one CASE or coalesce on one kind: I64 with F64 as
         F64 keeping intness; an all-null branch adopts the others' kind;
-        STR branches re-coded onto one merged vocab. Object values, zoned
-        branches whose offsets differ (the result holds one offset) and
-        any other mix raise."""
+        STR branches re-coded onto one merged vocab. None where the kinds
+        still differ (the result is a MIX column). Object values and zoned
+        branches whose offsets differ (the result holds one offset)
+        raise."""
         kinds = {c.kind for c in cols}
         if OBJ in kinds:
             raise TpuUnsupportedExpr(f"{what} over object values: {_obj_item(*cols)}")
@@ -656,7 +797,7 @@ class CudaEvaluator:
                 raise TpuUnsupportedExpr(f"{what}: integers beyond 2**53 with floats")
             cols = [c.as_f64_keeping_intness() for c in cols]
         elif len(kinds) > 1:
-            raise TpuUnsupportedExpr(f"heterogeneous {what}")
+            return None
         elif kinds == {STR}:
             merged = sorted({s for c in cols for s in (c.vocab or [])})
             cols = [_remap(c, merged) for c in cols]
@@ -676,12 +817,14 @@ class CudaEvaluator:
             else constant_column(None, self.n)
         )
         branches = [self.eval(t) for t in expr.thens] + [default]
-        if any(c.kind in NESTED_KINDS for c in branches):
+        same = None if any(c.kind in NESTED_KINDS for c in branches) else (
+            self._same_kind(branches, "CASE"))
+        if same is None:
             *thens, out = branches
             for cond, then in zip(reversed(conds), reversed(thens)):
                 out = self._where_nested(cond.data & cond.valid_mask(), then, out)
             return out
-        *thens, out = self._same_kind(branches, "CASE")
+        *thens, out = same
         # from the last WHEN to the first, so earlier WHENs win
         for cond, then in zip(reversed(conds), reversed(thens)):
             take = cond.data & cond.valid_mask()
@@ -695,12 +838,14 @@ class CudaEvaluator:
         return out
 
     def _coalesce(self, args: List[Column]) -> Column:
-        if any(c.kind in NESTED_KINDS for c in args):
+        same = None if any(c.kind in NESTED_KINDS for c in args) else (
+            self._same_kind(args, "coalesce"))
+        if same is None:
             *firsts, out = args
             for a in reversed(firsts):
                 out = self._where_nested(a.valid_mask(), a, out)
             return out
-        *firsts, out = self._same_kind(args, "coalesce")
+        *firsts, out = same
         for a in reversed(firsts):
             take = a.valid_mask()
             out = Column(
@@ -725,8 +870,8 @@ class CudaEvaluator:
         child = items[0]
         for c in items[1:]:
             child = child.concat(c)
-        if child.kind not in SCALAR_KINDS and child.kind != STRUCT:
-            raise TpuUnsupportedExpr(f"a list of mixed or nested values: {_LISTS_ITEM}")
+        if child.kind == OBJ:
+            raise TpuUnsupportedExpr(f"a list of {_obj_item(child)}")
         k, dev = len(items), child.data.device
         rows = torch.arange(self.n, dtype=torch.int64, device=dev)
         perm = (rows[:, None] + self.n * torch.arange(k, device=dev)[None, :]).reshape(-1)
@@ -734,17 +879,27 @@ class CudaEvaluator:
                               child.take(perm))
 
     def _map_projection(self, expr: E.MapProjection) -> Column:
-        """``v{.key, key: expr}``: a map per row, null where ``v`` is."""
-        if expr.all_props:
-            raise TpuUnsupportedExpr(f"map projection of all properties: {_LISTS_ITEM}")
+        """``v{.key, key: expr, .*}``: a map per row, null where ``v`` is.
+        ``.*`` takes an element's non-null properties, or every entry of a
+        map; a named item after it replaces its key."""
         base = self.eval(expr.var)
-        if base.kind != STRUCT:
+        if base.kind != STRUCT or base.tag == PATH:
             raise TpuUnsupportedExpr(f"map projection of {base.kind}")
-        fields = {
-            k: self._struct_get(base, k) if v is None else self.eval(v)
-            for k, v in expr.items
-        }
-        return struct_column(fields, self.n, base.valid, device=base.data.device)
+        fields: Dict[str, Column] = {}
+        sparse = set()
+        if expr.all_props:
+            if base.tag in (MAP, PROPS):
+                fields = {k: self._struct_get(base, k) for k in base.fields}
+                sparse = set(sparse_names(base))
+            else:
+                fields = {k[5:]: self._struct_get(base, k[5:]) for k in base.fields
+                          if k.startswith("prop:")}
+                sparse = set(fields)
+        for k, v in expr.items:
+            fields[k] = self._struct_get(base, k) if v is None else self.eval(v)
+            sparse.discard(k)
+        return struct_column(fields, self.n, base.valid, device=base.data.device,
+                             sparse=frozenset(sparse) if sparse else None)
 
     def _as_list(self, col: Column) -> Column:
         """``col`` as a list column: a column of nulls is null lists."""
@@ -780,6 +935,9 @@ class CudaEvaluator:
             if not isinstance(key, str):
                 raise TpuUnsupportedExpr("map index that is not a constant string")
             return self._struct_get(base, key)
+        if base.kind != LST and not base.is_all_null():
+            # ``1[0]``: the oracle's error at the first row with both, or null
+            return self._oracle_raise(E.Index, [base, self.eval(expr.index)])
         return self._element_at(self._as_list(base), self._int_arg(expr.index))
 
     def _sub_list(self, lst: Column, lo: Optional[Column], hi: Optional[Column]) -> Column:
@@ -810,14 +968,73 @@ class CudaEvaluator:
         hi = self._int_arg(expr.to) if expr.to is not None else None
         return self._sub_list(lst, lo, hi)
 
-    def _bind(self, parent, var: E.Var, value: Column) -> "CudaEvaluator":
-        """An evaluator over element rows: ``var`` bound to ``value``, every
-        outer column and local gathered by the element's row ``parent``."""
+    def _bind(self, parent, var: E.Var, value: Column, **more: Column) -> "CudaEvaluator":
+        """An evaluator over element rows: ``var`` bound to ``value`` (and
+        each name of ``more`` to its column), every outer column and local
+        gathered by the element's row ``parent``."""
         rows = parent if self.rows is None else self.rows[parent]
         sub = CudaEvaluator(self.table, self.header, self.params, rows)
         sub.locals = {k: v.take(parent) for k, v in self.locals.items()}
         sub.locals[var.name] = value
+        sub.locals.update(more)
         return sub
+
+    def _reduce(self, expr: E.Reduce) -> Column:
+        """``reduce(acc = init, x IN list | f)``, folded in element order as
+        the oracle folds it; null for a null list, ``init`` for an empty
+        one. An integer fold ``acc + g(x)`` (``g`` free of ``acc``) is the
+        per-list sum of ``g`` over every element at once: integer addition
+        is associative (and wraps as the device's does). Any other fold
+        steps over element positions: step ``j`` evaluates ``f`` over the
+        lists longer than ``j``, so its cost grows with the longest list.
+        The elements are read once, on the ``expand_rows`` gate."""
+        lst = self._as_list(self.eval(expr.list_expr))
+        init = self.eval(expr.init)
+        valid = lst.valid_mask()
+        parent, pos = LS.elements(lst)
+        got = self._additive_fold(expr, lst, init, parent, pos)
+        if got is not None:
+            return got
+        # the lanes by their position in their list, each step a slice in
+        # row order
+        j = pos - lst.starts()[parent]
+        order = torch.sort(j, stable=True).indices
+        counts = to_host(torch.bincount(j, minlength=1)).tolist() if len(j) else []
+        acc, lo = init, 0
+        for cnt in counts:
+            lanes = order[lo:lo + cnt]
+            lo += cnt
+            rows = parent[lanes]
+            sub = self._bind(rows, expr.var, lst.child.take(pos[lanes]),
+                             **{expr.acc.name: acc.take(rows)})
+            acc = _put_rows(acc, rows, sub.eval(expr.expr), self.n)
+        if lst.valid is None:
+            return acc
+        rows = torch.arange(self.n, dtype=torch.int64, device=valid.device)
+        return acc.take_or_null(rows, valid)
+
+    def _additive_fold(self, expr: E.Reduce, lst: Column, init: Column, parent, pos):
+        """``reduce(acc = i, x IN l | acc + g(x))`` over integers as
+        ``i + sum(g(x))`` per list, null where ``i``, the list or any
+        ``g(x)`` is; None where the fold is not of that form."""
+        body, acc = expr.expr, expr.acc.name
+        if not isinstance(body, E.Add) or init.kind != I64:
+            return None
+        uses_acc = lambda e: e.exists(lambda n: isinstance(n, E.Var) and n.name == acc)
+        if body.lhs == E.Var(acc) and not uses_acc(body.rhs):
+            g = body.rhs
+        elif body.rhs == E.Var(acc) and not uses_acc(body.lhs):
+            g = body.lhs
+        else:
+            return None
+        vals = self._bind(parent, expr.var, lst.child.take(pos)).eval(g)
+        if vals.kind != I64:
+            return None
+        vm = vals.valid_mask()
+        total = LS.segment_sum(torch.where(vm, vals.data, 0), parent, self.n)
+        nulls = LS.segment_sum(~vm, parent, self.n)
+        valid = init.valid_mask() & lst.valid_mask() & (nulls == 0)
+        return Column(I64, init.data + total, valid)
 
     def _predicate_on(self, sub: "CudaEvaluator", pred: E.Expr) -> Column:
         got = sub.eval(pred)
@@ -842,8 +1059,8 @@ class CudaEvaluator:
             parent, vals = parent[keep], vals.take(keep)
         if expr.projection is not None:  # over the kept elements only
             vals = self._bind(parent, expr.var, vals).eval(expr.projection)
-        if vals.kind == LST or vals.kind == OBJ:
-            raise TpuUnsupportedExpr(f"a list of lists or mixed values: {_LISTS_ITEM}")
+        if vals.kind == OBJ:
+            raise TpuUnsupportedExpr(f"a list of {_obj_item(vals)}")
         return LS.list_column(lens, vals, lst.valid)
 
     def _quantified(self, expr: E.Quantified) -> Column:
@@ -872,13 +1089,18 @@ class CudaEvaluator:
     def _list_function(self, name: str, args: List[E.Expr]) -> Optional[Column]:
         """The list functions over list, map or element columns; None where
         the registry routes answer (a string's ``size``, ``reverse`` ...)."""
-        if name in ("nodes", "relationships") or (
-            name == "length" and isinstance(args[0], E.Var) and self._is_path(args[0])
-        ):
-            raise TpuUnsupportedExpr(f"{name}() of a path: {_LISTS_ITEM}")
         if name == "range":
             return self._range(args)
+        part = "nodes" if name == "nodes" else "relationships"
+        if (name in ("nodes", "relationships", "length") and isinstance(args[0], E.Var)
+                and args[0].name not in self.locals and self._is_path(args[0])):
+            got = _path_list(self._path(args[0], (part,)), part)
+            return Column(I64, got.lengths(), got.valid) if name == "length" else got
         col = self.eval(args[0])
+        if col.kind == STRUCT and col.tag == PATH and name in ("nodes", "relationships",
+                                                                 "length"):
+            got = _path_list(col, part)
+            return Column(I64, got.lengths(), got.valid) if name == "length" else got
         if name in ("labels", "keys", "properties"):
             if col.kind != STRUCT:
                 return None
@@ -903,8 +1125,11 @@ class CudaEvaluator:
         """``labels`` of a node, ``keys`` and ``properties`` of an element
         or map."""
         if name == "properties":
-            if s.tag in (MAP, PROPS):
-                raise TpuUnsupportedExpr(f"properties() of a map: {_LISTS_ITEM}")
+            if s.tag in (MAP, PROPS):  # the same entries, as a plain dict
+                return struct_column(s.fields, self.n, s.valid, PROPS, device=s.data.device,
+                                     sparse=sparse_names(s))
+            if s.tag == PATH:
+                raise TpuUnsupportedExpr("properties() of a path")
             props = {k[5:]: f for k, f in s.fields.items() if k.startswith("prop:")}
             return struct_column(props, self.n, s.valid, PROPS, device=s.data.device)
         if name == "labels":
@@ -912,13 +1137,13 @@ class CudaEvaluator:
                 raise TpuUnsupportedExpr("labels() of a value that is not a node")
             names = {k[6:]: f for k, f in s.fields.items() if k.startswith("label:")}
             flags = [f.data & f.valid_mask() for f in names.values()]
-        elif s.tag == MAP:  # every key, null values included
+        elif s.tag in (MAP, PROPS):  # every key, a sparse one where its value is not null
             names = dict(s.fields)
-            flags = [torch.ones(self.n, dtype=torch.bool, device=s.data.device)] * len(names)
+            sparse = sparse_names(s)
+            ones = torch.ones(self.n, dtype=torch.bool, device=s.data.device)
+            flags = [f.valid_mask() if k in sparse else ones for k, f in names.items()]
         else:  # the keys of the non-null values
-            names = dict(s.fields) if s.tag == PROPS else {
-                k[5:]: f for k, f in s.fields.items() if k.startswith("prop:")
-            }
+            names = {k[5:]: f for k, f in s.fields.items() if k.startswith("prop:")}
             flags = [f.valid_mask() for f in names.values()]
         return _flag_lists(dict(zip(names, flags)), s.valid, self.n, s.data.device)
 
@@ -979,13 +1204,18 @@ class CudaEvaluator:
                           self._falses(), [])
         raise TpuUnsupportedExpr(f"string concatenation with {c.kind}")
 
+    def _concatenable(self, c: Column) -> bool:
+        """Whether string ``+`` takes ``c``: a string, a number, a boolean
+        or a column of nulls."""
+        return c.kind in (STR, I64, F64, BOOL) or c.is_all_null()
+
     def _where_nested(self, take, a: Column, b: Column) -> Column:
-        """``where(take, a, b)`` row by row for list, map or element
-        columns: one concatenation (which unifies the kinds) and one
-        gather."""
+        """``where(take, a, b)`` row by row for list, map, element or mixed
+        columns, or columns of two kinds: one concatenation (which unifies
+        the kinds, or mixes them) and one gather."""
         both = b.concat(a)
         if both.kind == OBJ:
-            raise TpuUnsupportedExpr(f"branches of mixed list, map or element kinds: {_LISTS_ITEM}")
+            raise TpuUnsupportedExpr(f"branches over {_obj_item(both)}")
         rows = torch.arange(self.n, dtype=torch.int64, device=take.device)
         return both.take(torch.where(take, rows + self.n, rows))
 
@@ -1284,7 +1514,7 @@ class CudaEvaluator:
         O(distinct) host work, O(n) device work."""
         name = expr.name
         live = [i for i, c in enumerate(consts) if c is _NOT_CONST]
-        if len(live) > 1 and name in _BETWEEN:
+        if len(live) > 1:
             # once per distinct tuple of the live arguments
             if f.null_prop and any(c is None for c in consts):
                 return constant_column(None, self.n)
@@ -1296,8 +1526,6 @@ class CudaEvaluator:
                 return _f(*a)
 
             return self._per_tuple([args[i] for i in live], per_tuple)
-        if len(live) != 1:
-            raise TpuUnsupportedExpr(f"{name}() over {len(live)} non-constant arguments")
         pos = live[0]
         col = args[pos]
         if col.kind == OBJ:
@@ -1358,13 +1586,16 @@ class CudaEvaluator:
         rows where none is null (null elsewhere). The tuples are told apart
         on the device by ``torch.unique`` over their int64 payloads (an F64
         by its bits, so -0.0 and 0.0 differ, and by its intness; a duration
-        by its three components); one gather brings a row of each to the
-        host, where it decodes as the values it holds."""
+        by its three components; a list, map or mixed value by its rank);
+        one gather brings a row of each to the host, where it decodes as
+        the values it holds."""
         keys, valid = [], None
         for c in cols:
-            if c.kind not in SCALAR_KINDS:
-                raise TpuUnsupportedExpr(f"a function of {c.kind} values")
-            if c.kind == F64:
+            if c.kind == OBJ:
+                raise TpuUnsupportedExpr(f"a function of {_obj_item(c)}")
+            if c.kind in NESTED_KINDS:  # equal values share their rank
+                keys.append(V.rank(c).data)
+            elif c.kind == F64:
                 keys.append(c.data.view(torch.int64))
                 if c.int_flag is not None:
                     keys.append(c.int_flag.to(torch.int64))
@@ -1412,8 +1643,8 @@ def _scalar_constant(value, n: int) -> Column:
     col = constant_column(value, n)
     if col.kind != OBJ:
         return col
-    item = _MIXED_TEMPORAL if isinstance(value, (_dt.date, _dt.time)) else _LISTS_ITEM
-    raise TpuUnsupportedExpr(f"constant {type(value).__name__} value: {item}")
+    raise TpuUnsupportedExpr(f"constant {type(value).__name__} value: "
+                             f"{_obj_item(col)}")
 
 
 def _lut_apply(codes, valid, outs: List[Any]) -> Column:
@@ -1483,6 +1714,25 @@ def _flag_lists(flags: Dict[str, torch.Tensor], valid, n: int, dev) -> Column:
     rows_cols = torch.nonzero(mat)
     child = Column(STR, rows_cols[:, 1].to(torch.int32), None, names)
     return LS.list_column(mat.sum(1), child, valid)
+
+
+def _path_list(path: Column, name: str) -> Column:
+    """A path's node or relationship list, null where the path is."""
+    f = path.field(name)
+    if path.valid is None:
+        return f
+    return f.take_or_null(torch.arange(len(path), device=path.valid.device), path.valid)
+
+
+def _put_rows(acc: Column, rows, vals: Column, n: int) -> Column:
+    """``acc`` with its rows ``rows`` replaced by ``vals``: one
+    concatenation (which unifies or mixes the kinds) and one gather."""
+    both = acc.concat(vals)
+    if both.kind == OBJ:
+        raise TpuUnsupportedExpr(f"a fold over {_obj_item(both)}")
+    idx = torch.arange(n, dtype=torch.int64, device=rows.device)
+    idx[rows] = n + torch.arange(int(rows.shape[0]), dtype=torch.int64, device=rows.device)
+    return both.take(idx)
 
 
 def _identity_of(col: Column) -> Tuple[Optional[str], Column]:

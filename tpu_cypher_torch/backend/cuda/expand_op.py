@@ -62,7 +62,7 @@ from ...runtime.faults import fault_point
 from . import bucketing
 from . import device as _device
 from . import jit_ops as J
-from .column import OBJ, REL, Column, TpuBackendError, struct_column
+from .column import I64, NODE, OBJ, REL, Column, TpuBackendError, struct_column
 from .column import mask_to_idx_bucketed as _mask_to_idx_bucketed
 from .graph_index import CANON_NODE, CANON_REL, GraphIndex, GraphIndexError, rekey_element_expr
 from .table import ensure_flat
@@ -1180,7 +1180,11 @@ class CsrVarExpandOp(_FusedExpandBase):
     emitted path the walked edge scan rows of its levels, in path order,
     as an ``LST`` over a ``relationship`` STRUCT gathered from the
     canonical relationship scan (the reference answers a relationship list
-    from its classic cascade)."""
+    from its classic cascade). Under a named path it also emits the path's
+    intermediate nodes (the planner's companion column): from the start
+    node, each relationship's end that is not the previous node, so an
+    undirected walk comes out in path order, as an ``LST`` over a ``node``
+    STRUCT gathered from the canonical node scan."""
 
     def __init__(
         self,
@@ -1239,6 +1243,12 @@ class CsrVarExpandOp(_FusedExpandBase):
             f"{upper}]{arrow}({self.target_fld}){uniq}"
         )
 
+    @property
+    def _companion(self) -> str:
+        from ...relational.header import path_nodes_companion
+
+        return path_nodes_companion(self.rel_fld)
+
     def _forbid_arrays(self, gi: GraphIndex, ctx):
         """Per-input-row forbidden canonical scan rows (one int64 tensor per
         enforced pair, -1 = unconstrained): fixed-rel global ids from the
@@ -1281,7 +1291,8 @@ class CsrVarExpandOp(_FusedExpandBase):
         fault_point("var_expand")
         in_op = self.children[0]
         header = self.header
-        rel_list = any(_owner_name(e) == self.rel_fld for e in header.expressions)
+        rel_list = any(_owner_name(e) in (self.rel_fld, self._companion)
+                       for e in header.expressions)
         count_only = not header.expressions
         gi = GraphIndex.of(self.graph)
         ctx = self.context
@@ -1378,7 +1389,7 @@ class CsrVarExpandOp(_FusedExpandBase):
         else:
             row0, far = J.concat_rows(tuple(lv[:2] for lv in levels))
         n_out = int(row0.shape[0])
-        rel_col = None
+        rel_col = nodes_col = None
         node_cols, node_header, _ = gi.node_scan(self.far_labels, ctx)
         canon_node = E.Var(CANON_NODE)
         plan: Dict[str, Tuple[Column, str]] = {}
@@ -1398,18 +1409,81 @@ class CsrVarExpandOp(_FusedExpandBase):
             if e == E.Var(self.rel_fld):
                 rel_col = col
                 continue
+            if e == E.Var(self._companion):
+                nodes_col = col
+                continue
             raise GraphIndexError(f"unmapped var-expand expr {e!r}")
         out = self._gather_plan(plan, {"row": row0, "far": far})
+        ends = None
+        if nodes_col is not None or (rel_col is not None and self.undirected):
+            ends = self._walk_ends(gi, in_t, levels)
         if rel_col is not None:
-            out[rel_col] = self._rel_list(gi, [lv[2] for lv in levels])
+            out[rel_col] = self._rel_list(
+                gi, [lv[2] for lv in levels],
+                [f for _, f in ends] if self.undirected else None)
+        if nodes_col is not None:
+            out[nodes_col] = self._path_nodes(gi, [ids for ids, _ in ends])
         return CudaTable(out, n_out)
 
-    def _rel_list(self, gi: GraphIndex, walked) -> Column:
+    def _walk_ends(self, gi: GraphIndex, in_t, levels):
+        """Per level, two (paths, level) tensors: the node each walked
+        relationship leads to (from the source node, the endpoint that is
+        not the previous node), and whether it was walked from its start
+        node."""
+        ctx = self.context
+        h = self.children[0].header
+        src_ids = in_t._cols[h.column(h.id_expr(h.var(self.source_fld)))].data
+        rel_cols, rel_header = gi.rel_scan(self.types_key, ctx)
+        owned = rel_header.expressions_for(E.Var(CANON_REL))
+        start, end = (rel_cols[rel_header.column(next(e for e in owned if isinstance(e, c)))].data
+                      for c in (E.StartNode, E.EndNode))
+        out = []
+        for lv in levels:
+            walked = lv[2]
+            prev = src_ids[lv[0]]
+            ids, fwd = [], []
+            for j in range(int(walked.shape[1])):
+                a, b = start[walked[:, j]], end[walked[:, j]]
+                fwd.append(a == prev)
+                prev = torch.where(fwd[-1], b, a)
+                ids.append(prev)
+            out.append((torch.stack(ids, 1) if ids else walked,
+                        torch.stack(fwd, 1) if fwd else walked.to(torch.bool)))
+        return out
+
+    def _path_nodes(self, gi: GraphIndex, ends) -> Column:
+        """The intermediate nodes of each emitted path (``level - 1`` per
+        path, ``_walk_ends``), as a list over a ``node`` STRUCT read
+        through the canonical node scan's rows."""
+        from .lists import list_column
+
+        ctx = self.context
+        blocks = [e[:, :-1].reshape(-1) for e in ends]
+        lens = [torch.full((int(e.shape[0]),), max(int(e.shape[1]) - 1, 0), dtype=torch.int64,
+                           device=e.device) for e in ends]
+        ids = torch.cat(blocks) if blocks else _empty_i64()
+        node_cols, node_header, row_map = gi.node_scan((), ctx)
+        pos, _ = gi.compact_of(Column(I64, ids, None), ctx)
+        canon = E.Var(CANON_NODE)
+        fields = [("id", node_header.id_expr(canon))]
+        fields += [("label:" + f.label, f) for f in node_header.labels_for(canon)]
+        fields += [("prop:" + f.key, f) for f in node_header.properties_for(canon)]
+        child = struct_column(
+            {n: node_cols[node_header.column(e)] for n, e in fields},
+            int(ids.shape[0]), None, NODE, device=ids.device, rows=row_map[pos],
+        )
+        return list_column(torch.cat(lens) if lens else _empty_i64(), child)
+
+    def _rel_list(self, gi: GraphIndex, walked, forward=None) -> Column:
         """The relationship list per emitted path: each level's block holds
         ``level`` walked edge scan rows per row, in path order; the child is
         a ``relationship`` STRUCT over the canonical relationship scan's
         columns read through those rows, gathered only where a field is
-        read (``size(rs)`` reads the lengths alone)."""
+        read (``size(rs)`` reads the lengths alone). An undirected walk
+        passes ``forward`` (per level, whether each relationship was walked
+        from its start): a relationship walked backwards has its start and
+        end swapped, as the classic cascade's both-orientation scan
+        (``SwapStartEndOp``) gives it, so its fields are gathered here."""
         from .lists import list_column
 
         rel_cols, rel_header = gi.rel_scan(self.types_key, self.context)
@@ -1429,6 +1503,13 @@ class CsrVarExpandOp(_FusedExpandBase):
             {n: rel_cols[rel_header.column(e)] for n, e in exprs},
             int(rows.shape[0]), None, REL, device=rows.device, rows=rows,
         )
+        if forward is not None:
+            fwd = torch.cat([f.reshape(-1) for f in forward]) if forward else rows.to(torch.bool)
+            fields = dict(child.fields)
+            s, e = fields["start"], fields["end"]
+            fields["start"] = Column(s.kind, torch.where(fwd, s.data, e.data), s.valid)
+            fields["end"] = Column(e.kind, torch.where(fwd, e.data, s.data), e.valid)
+            child = struct_column(fields, int(rows.shape[0]), None, REL, device=rows.device)
         return list_column(lens, child)
 
 
@@ -1570,11 +1651,11 @@ def plan_var_expand_fastpath(planner, op, lhs, rhs, classic) -> Optional[Relatio
     """Swap the unrolled var-length join cascade for ``CsrVarExpandOp`` when
     statically safe; None keeps the classic plan. Directed and undirected
     steps and zero-length lower bounds all fuse (undirected walks ride the
-    both-orientation CSR); named-path capture and pre-bound endpoints keep
-    the general machinery."""
+    both-orientation CSR), a named path's intermediate nodes too; pre-bound
+    endpoints keep the general machinery."""
     from ...logical import ops as L
 
-    if op.direction not in (">", "-") or getattr(op, "capture_path_nodes", False):
+    if op.direction not in (">", "-"):
         return None
     lhs_vars = {v.name for v in lhs.header.vars}
     if op.rel in lhs_vars or op.source not in lhs_vars or op.target in lhs_vars:

@@ -45,7 +45,9 @@ dispatch.register(
 
 def deg_sum_plain(rp, pos, present):
     """Sum over present frontier rows of ``rp[pos+1] - rp[pos]`` (int64)."""
-    deg = (rp[pos + 1] - rp[pos]).to(torch.int64)
+    from ..jit_ops import row_degrees
+
+    deg = row_degrees(rp, pos)
     return torch.sum(torch.where(present, deg, torch.zeros_like(deg)))
 
 
@@ -98,8 +100,12 @@ def _launch(rp, pos, present):
 
 def csr_frontier_degree_sum(rp, pos, present):
     """``sum over frontier rows of (rp[pos+1] - rp[pos])`` with ``present``
-    masking, as a 0-d int64 tensor."""
+    masking, as a 0-d int64 tensor. A graph with no node has no degree to
+    read: zero, before the gate."""
     from ....optimizer.cost import pallas_cap
+
+    if int(rp.shape[0]) < 2:
+        return torch.zeros((), dtype=torch.int64, device=pos.device)
 
     eligible = (
         int(pos.shape[0]) > 0

@@ -345,11 +345,20 @@ def compact_lookup(dev_ids, ids, valid):
     return pos.to(torch.int64), ok
 
 
+def row_degrees(rp, pos) -> torch.Tensor:
+    """``rp[pos + 1] - rp[pos]`` as int64. ``pos`` comes from
+    ``compact_lookup``, clipped to [0, num_nodes-1], so ``pos + 1`` stays
+    inside ``rp``, except on a graph with no node: there ``rp`` has one
+    entry, every row is absent, and no gather runs (on the card it would
+    read past the row pointers)."""
+    if int(rp.shape[0]) < 2:
+        return torch.zeros(pos.shape, dtype=torch.int64, device=pos.device)
+    return (rp[pos + 1] - rp[pos]).to(torch.int64)
+
+
 def expand_degrees_total(rp, pos, present):
-    """Per-frontier-row degree (0 for absent rows) and its device total.
-    ``pos`` comes from ``compact_lookup``, clipped to [0, num_nodes-1], so
-    ``pos + 1`` stays inside ``rp``."""
-    deg = (rp[pos + 1] - rp[pos]).to(torch.int64)
+    """Per-frontier-row degree (0 for absent rows) and its device total."""
+    deg = row_degrees(rp, pos)
     deg = torch.where(present, deg, torch.zeros_like(deg))
     return deg, torch.sum(deg)
 
@@ -499,7 +508,7 @@ def optional_expand_degrees(rp, pos, present, nrows=None):
     ``nrows``: the table's logical row count; rows past it (bucket pads)
     are not input rows and emit NOTHING (a pad row is not an unmatched
     row). Returns (deg, counts, total)."""
-    deg = (rp[pos + 1] - rp[pos]).to(torch.int64)
+    deg = row_degrees(rp, pos)
     zero = torch.zeros_like(deg)
     deg = torch.where(present, deg, zero)
     counts = torch.clamp(deg, min=1)

@@ -19,29 +19,23 @@ from typing import Optional, Tuple
 import torch
 
 from .column import (
-    BOOL,
-    F64,
-    I64,
     LST,
-    NODE,
-    REL,
-    SCALAR_KINDS,
-    STR,
+    MIX,
+    OBJ,
     STRUCT,
-    TEMPORAL_KINDS,
     Column,
     concat_children,
 )
 
-# what lists and maps still lack on the device
-NESTED_ITEM = "ROADMAP.md queue 1, item 6.4"
+# what lists still lack on the device: pattern comprehensions
+NESTED_ITEM = "ROADMAP.md queue 1, item 6.5"
 _INT32_MAX = 2**31 - 1
 
 
 def _unsupported(what: str):
     from .compiler import TpuUnsupportedExpr
 
-    return TpuUnsupportedExpr(f"{what}: {NESTED_ITEM}")
+    return TpuUnsupportedExpr(what)
 
 
 def list_column(lens: torch.Tensor, child: Column, valid=None, starts=None) -> Column:
@@ -103,8 +97,6 @@ def collect(seg, col: Column, k: int) -> Column:
     """collect per group on the device: nulls dropped, each group's values
     in row order (a stable sort of the group ids), the lengths from a count
     per group."""
-    if col.kind == LST:
-        raise _unsupported("collect of lists")
     keep = col.valid_mask()
     rows = torch.nonzero(keep).squeeze(1)
     g = seg[rows]
@@ -112,92 +104,50 @@ def collect(seg, col: Column, k: int) -> Column:
     return list_column(torch.bincount(g, minlength=k), col.take(rows[order]))
 
 
-def _ordered_f64_key(d: torch.Tensor) -> torch.Tensor:
-    """int64 keys of float64 values in numeric order, -0.0 equal to 0.0 and
-    every NaN one key above +inf."""
-    d = torch.where(torch.isnan(d), torch.full_like(d, float("nan")), d + 0.0)
-    b = d.view(torch.int64)
-    return torch.where(b < 0, b ^ 0x7FFFFFFFFFFFFFFF, b)
-
-
-def element_key(col: Column) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(int64 key in Cypher order, validity) per row of a scalar or element
-    column: elements by id, strings by their sorted-vocab code, temporal
-    values by their payload (zoned ones by the UTC lane)."""
-    if col.kind == STRUCT and col.tag in (NODE, REL):
-        return col.field("id").data, col.valid_mask()
-    if col.kind in (I64, BOOL, STR) + TEMPORAL_KINDS:
-        return col.data.to(torch.int64), col.valid_mask()
-    if col.kind == F64:
-        return _ordered_f64_key(col.data), col.valid_mask()
-    if col.kind == STRUCT:
-        raise _unsupported("a map as a key")
-    raise _unsupported(f"a list of {col.kind} as a key")
-
-
 def list_rank(col: Column) -> Column:
-    """An exact dense rank per list, in Cypher's list order (element by
+    """An exact dense rank per list in Cypher's list order (element by
     element, a shorter prefix first, a null element after every value):
-    lists are equal iff their ranks are. Null lists keep their nullness.
-    Rows that share a (start, length) pair are ranked once, and no list is
-    padded: by prefix doubling over the distinct lists' elements, the rank
-    of the run of ``2 * step`` elements that starts at an element (cut at
-    its list's end, which ranks below every value) is the rank of the pair
-    (its run of ``step``, the run of ``step`` after it). ceil(log2 of the
-    longest list) rounds of a sort over the elements rank each list by its
-    first element's run."""
-    n = len(col)
-    dev = col.data.device
-    pairs, inv = torch.unique(col.data, dim=0, return_inverse=True)
-    lens = pairs[:, 1]
-    width = int(lens.max()) if n else 0
-    if width == 0:
-        return Column(I64, torch.zeros(n, dtype=torch.int64, device=dev), col.valid)
-    first = torch.cumsum(lens, 0) - lens  # each distinct list's first lane
-    parent, pos = segment_lanes(pairs[:, 0], torch.arange(len(pairs), device=dev), lens,
-                                len(col.child))
-    key, kvalid = element_key(col.child.take(pos))
-    cls = torch.where(kvalid, 1, 2)  # a value, or a null element
-    _, r = torch.unique(torch.stack([cls, torch.where(kvalid, key, 0)], 1), dim=0,
-                        return_inverse=True)
-    r = r + 1  # 0: past the list's end
-    total = int(r.shape[0])
-    lane = torch.arange(total, dtype=torch.int64, device=dev)
-    left = lens[parent] - (lane - first[parent])  # elements from here to the end
-    step = 1
-    while step < width:
-        after = torch.where(left > step, r[torch.clamp(lane + step, max=total - 1)], 0)
-        _, r = torch.unique(r * (total + 1) + after, return_inverse=True)
-        r = r + 1
-        step *= 2
-    head = torch.where(lens > 0, r[torch.clamp(first, max=total - 1)], 0)
-    _, dense = torch.unique(head, return_inverse=True)
-    return Column(I64, dense[inv].to(torch.int64), col.valid)
+    lists are equal iff their ranks are. Null lists keep their nullness
+    (``values.rank``)."""
+    from .values import rank
+
+    return rank(col)
 
 
 def key_column(col: Column) -> Column:
     """The scalar column that stands in for ``col`` as a grouping, DISTINCT
-    or ORDER BY key: an element's id, a list's dense rank; a map raises."""
-    if col.kind == LST:
-        return list_rank(col)
-    if col.kind == STRUCT:
-        return Column(I64, element_key(col)[0], col.valid)
+    or ORDER BY key: a list's, map's, element's or mixed value's dense
+    rank in Cypher order (``values.rank``); a scalar column is its own
+    key."""
+    if col.kind in (LST, STRUCT, MIX):
+        from .values import rank
+
+        return rank(col)
     return col
 
 
 def concat_rows(a: Column, b: Column, valid: Optional[torch.Tensor]) -> Column:
     """Per-row list concatenation ``a[i] ++ b[i]`` (rows where ``valid`` is
-    False are null): the lanes of both sides, stably sorted by their row."""
+    False are null): each side's lanes placed at their row's offset in the
+    result, ``a``'s first."""
     la, lb = a.lengths(), b.lengths()
     if valid is not None:
         zero = torch.zeros_like(la)
         la, lb = torch.where(valid, la, zero), torch.where(valid, lb, zero)
     child = concat_children(a.child, b.child)
-    if child.kind not in SCALAR_KINDS and child.kind != STRUCT:
-        raise _unsupported("concatenation of lists of mixed kinds")
-    rows = torch.arange(len(a), dtype=torch.int64, device=la.device)
-    ra, pa = segment_lanes(a.starts(), rows, la, len(a.child))
-    rb, pb = segment_lanes(b.starts(), rows, lb, len(b.child))
-    order = torch.sort(torch.cat([ra, rb]), stable=True).indices
-    pos = torch.cat([pa, pb + len(a.child)])[order]
-    return list_column(la + lb, child.take(pos), valid)
+    if child.kind == OBJ:
+        raise _unsupported("concatenation of lists of temporal values of mixed kinds "
+                           "(ROADMAP.md §3)")
+    n = len(a)
+    dev = la.device
+    rows = torch.arange(n, dtype=torch.int64, device=dev)
+    out_lens = la + lb
+    out_start = torch.cumsum(out_lens, 0) - out_lens
+    pos = torch.empty(int(out_lens.sum()) if n else 0, dtype=torch.int64, device=dev)
+    for lens, side, shift, lead in ((la, a, 0, None), (lb, b, len(a.child), la)):
+        r, p = segment_lanes(side.starts(), rows, lens, len(side.child))
+        j = torch.arange(int(r.shape[0]), dtype=torch.int64, device=dev) - (
+            torch.cumsum(lens, 0) - lens)[r]
+        dst = out_start[r] + j + (lead[r] if lead is not None else 0)
+        pos[dst] = p + shift
+    return list_column(out_lens, child.take(pos), valid)

@@ -45,6 +45,7 @@ from .column import (
     I64,
     INTEGRAL_KINDS,
     LST,
+    MIX,
     NESTED_KINDS,
     OBJ,
     STR,
@@ -55,7 +56,7 @@ from .column import (
     _unify_vocab,
     to_host,
 )
-from .compiler import CudaEvaluator, TpuUnsupportedExpr
+from .compiler import CudaEvaluator, TpuUnsupportedExpr, _obj_item
 
 
 def ensure_flat(t):
@@ -284,14 +285,22 @@ class CudaTable(Table):
         return self._join_keys_on_device(other, kind, join_cols)
 
     def _join_keys_on_device(self, other, kind, join_cols) -> "CudaTable":
-        """The reference answers object-valued keys on its host oracle; the
-        port keeps no host path, so they raise."""
+        """A key pair where a side is a list, map, element or mixed value
+        joins on their dense rank in Cypher order, taken over both sides
+        together (``values.joint_rank``), as an int64 key pair on the
+        ``join_probe`` gate: equal ranks are the oracle's equivalent keys.
+        The reference answers such keys, and object-valued ones, on its
+        host oracle; the port raises on object values."""
+        from .values import joint_rank
+
+        left, right = dict(self._cols), dict(other._cols)
         for l, r in join_cols:
-            if not (self._cols[l].flat and other._cols[r].flat):
-                raise TpuUnsupportedExpr(
-                    f"join on object, list or map keys: {LS.NESTED_ITEM}"
-                )
-        return self._join_device(other, kind, join_cols)
+            lc, rc = left[l], right[r]
+            if OBJ in (lc.kind, rc.kind):
+                raise TpuUnsupportedExpr(f"join on object keys: {_obj_item(lc, rc)}")
+            if not (lc.flat and rc.flat):
+                left[l], right[r] = joint_rank([lc, rc])
+        return self._join_device(other, kind, join_cols, left, right)
 
     @staticmethod
     def _exact_key_pair(lc: Column, rc: Column):
@@ -324,32 +333,33 @@ class CudaTable(Table):
             return lc, _float_as_exact_int(rc)
         return lc, rc
 
-    def _join_device(self, other, kind, join_cols) -> "CudaTable":
+    def _join_device(self, other, kind, join_cols, lkeys=None, rkeys=None) -> "CudaTable":
         """Device sort-probe equi-join: the build (right) side is sorted
         valid-first by key once, the probe side looks its keys up through
         the ``join_probe`` kernel gate, and the matches materialize as
         (left row, right row) pairs. Multi-key joins probe on the first key
-        and post-filter the rest on device."""
+        and post-filter the rest on device. ``lkeys``/``rkeys`` hold the
+        key columns where they stand in for the tables' own."""
         from .hopper import join_probe
 
         fault_point("join")
         # the admission estimate per output row: the two int64 index lanes
         # plus 8 B data and 1 B mask per gathered column
         join_row_bytes = 16 + 9 * max(len(self._cols) + len(other._cols), 1)
-        pair = self._exact_key_pair(
-            self._cols[join_cols[0][0]], other._cols[join_cols[0][1]]
-        )
+        lkeys = self._cols if lkeys is None else lkeys
+        rkeys = other._cols if rkeys is None else rkeys
+        pair = self._exact_key_pair(lkeys[join_cols[0][0]], rkeys[join_cols[0][1]])
         if pair is None:  # cross-kind keys never match
             return self._join_empty_result(other, kind)
         lk, rk = pair
         # validity beyond the probe key's own: extra key columns must be
         # non-null to match
         l_extra = tuple(
-            c.valid for c in (self._cols[l] for l, _ in join_cols[1:])
+            c.valid for c in (lkeys[l] for l, _ in join_cols[1:])
             if c.valid is not None
         )
         r_extra = tuple(
-            c.valid for c in (other._cols[r] for _, r in join_cols[1:])
+            c.valid for c in (rkeys[r] for _, r in join_cols[1:])
             if c.valid is not None
         )
         lvalids = l_extra + ((lk.valid,) if lk.valid is not None else ())
@@ -367,7 +377,7 @@ class CudaTable(Table):
         left_rows, right_rows = J.join_materialize(r_idx_valid, lo, counts, total)
         if len(join_cols) > 1 and total:
             left_rows, right_rows = self._extra_keys_filter(
-                other, join_cols[1:], left_rows, right_rows
+                lkeys, rkeys, join_cols[1:], left_rows, right_rows
             )
         nmatched = int(left_rows.shape[0])
         left_matched = right_matched = None
@@ -387,11 +397,11 @@ class CudaTable(Table):
             )
         return self._combine(other, left_rows, right_rows, right_matched, left_matched)
 
-    def _extra_keys_filter(self, other, extra_cols, left_rows, right_rows):
+    def _extra_keys_filter(self, lkeys, rkeys, extra_cols, left_rows, right_rows):
         """Keep the match pairs whose every extra key pair is equal."""
         l_datas, l_valids, r_datas, r_valids, kinds = [], [], [], [], []
         for lcn, rcn in extra_cols:
-            pair = self._exact_key_pair(self._cols[lcn], other._cols[rcn])
+            pair = self._exact_key_pair(lkeys[lcn], rkeys[rcn])
             if pair is None:  # a cross-kind key pair never matches
                 empty = left_rows[:0]
                 return empty, empty
@@ -551,8 +561,9 @@ class CudaTable(Table):
         t = self._depad()
         if t is not self:
             return t.order_by(items)
-        if any(self._cols[c].kind == OBJ for c, _ in items):
-            raise TpuUnsupportedExpr("ORDER BY on object-valued keys")
+        objs = [self._cols[c] for c, _ in items if self._cols[c].kind == OBJ]
+        if objs:
+            raise TpuUnsupportedExpr(f"ORDER BY on object-valued keys: {_obj_item(*objs)}")
         if not items:
             return self
         cols = [self._key_col(c) for c, _ in items]
@@ -638,8 +649,9 @@ class CudaTable(Table):
         if t is not self:
             return t.distinct(cols)
         on = list(cols) if cols is not None else self.physical_columns
-        if any(self._cols[c].kind == OBJ for c in on):
-            raise TpuUnsupportedExpr("DISTINCT on object-valued keys")
+        objs = [self._cols[c] for c in on if self._cols[c].kind == OBJ]
+        if objs:
+            raise TpuUnsupportedExpr(f"DISTINCT on object-valued keys: {_obj_item(*objs)}")
         if not on:
             return self.limit(1) if self._nrows > 1 else self
         if self._nrows == 0:
@@ -673,8 +685,9 @@ class CudaTable(Table):
                 raise TpuUnsupportedExpr(f"device agg {getattr(agg, 'name', agg)}")
             if agg.distinct and agg.name.lower() not in self._DISTINCT_AGGS:
                 raise TpuUnsupportedExpr(f"device agg DISTINCT {agg.name}")
-        if any(self._cols[c].kind == OBJ for c in by):
-            raise TpuUnsupportedExpr("object-valued group keys")
+        objs = [self._cols[c] for c in by if self._cols[c].kind == OBJ]
+        if objs:
+            raise TpuUnsupportedExpr(f"object-valued group keys: {_obj_item(*objs)}")
         n = self._nrows
         if not by and all(agg.name.lower() == "count" and agg.expr is None
                           for _, agg in aggregations):
@@ -715,14 +728,16 @@ class CudaTable(Table):
                 raise TpuUnsupportedExpr("object-valued aggregation input")
             if col.kind in NESTED_KINDS:
                 if name == "count" and agg.distinct:
-                    # a list's dense rank or an element's id, each keeping
-                    # its nulls; a map raises (no key for it yet)
+                    # the dense rank in Cypher order, keeping its nulls
                     col = LS.key_column(col)
-                elif name == "count":  # counts the non-null lists or maps
+                elif name == "count":  # counts the non-null values
                     mask = col.valid_mask()
                     col = Column(BOOL, mask, mask)
+                elif name in ("min", "max") and not agg.distinct:
+                    out_cols[out_col] = _extreme_by_rank(name, seg_j, col, k)
+                    continue
                 elif name != "collect":
-                    raise TpuUnsupportedExpr(f"{name} over {col.kind}: {LS.NESTED_ITEM}")
+                    raise TpuUnsupportedExpr(f"{name} over {col.kind} values")
             seg_a, col_a = seg_j, col
             if agg.distinct or name in ("collect", "percentilecont", "percentiledisc"):
                 if seg_a is None:  # these take explicit ids, all in group 0
@@ -807,7 +822,9 @@ class CudaTable(Table):
         t = self._depad()
         c = CudaEvaluator(t, header, parameters).eval(expr)
         if c.kind == OBJ:
-            raise TpuUnsupportedExpr(f"UNWIND of object values: {LS.NESTED_ITEM}")
+            raise TpuUnsupportedExpr(f"UNWIND of {_obj_item(c)}")
+        if c.kind == MIX and any(p.kind == LST for p in c.parts):
+            raise TpuUnsupportedExpr("UNWIND of a column of lists mixed with other values")
         if c.kind == LST:
             pos = torch.nonzero(c.valid_mask() & (c.lengths() > 0)).squeeze(1)
             row, child_pos = LS.segment_lanes(c.starts(), pos, c.lengths()[pos], len(c.child))
@@ -904,7 +921,19 @@ def _percentile(name: str, agg, seg_j, col: Column, k: int, parameters) -> Colum
         p = (parameters or {}).get(pe.name)
     else:
         raise TpuUnsupportedExpr("non-literal percentile fraction")
-    if not isinstance(p, (int, float)) or not 0 <= float(p) <= 1:
+    if not isinstance(p, (int, float)) or isinstance(p, bool) or not 0 <= float(p) <= 1:
+        # the oracle raises its error on the first group that holds a value
+        # (one device read), and answers null where none does
+        valid = col.valid_mask()
+        if not bool(torch.any(valid)):
+            return Column(F64 if name == "percentilecont" else I64,
+                          torch.zeros(k, dtype=torch.float64 if name == "percentilecont"
+                                      else torch.int64, device=valid.device),
+                          torch.zeros(k, dtype=torch.bool, device=valid.device))
+        from ..local.eval import aggregate_values
+
+        first = col.take(torch.nonzero(valid)[:1].squeeze(1)).to_values()
+        aggregate_values(name, first, False, [p])
         raise TpuUnsupportedExpr("percentile fraction out of range")
     p = float(p)
     fault_point("agg")
@@ -923,6 +952,28 @@ def _percentile(name: str, agg, seg_j, col: Column, k: int, parameters) -> Colum
     if col.int_flag is not None and len(col):
         iflag = J.take_take(col.int_flag, order, pos)
     return Column(kind, out, out_valid, col.vocab, int_flag=iflag)
+
+
+def _extreme_by_rank(name: str, seg_j, col: Column, k: int) -> Column:
+    """``min``/``max`` of list, map, element or mixed values per group: the
+    first row of the least (greatest) rank in Cypher order, as the
+    oracle's ``min(vals, key=order_key)``; null for a group of nulls."""
+    n = len(col)
+    if n == 0:
+        return col.null_like(k)
+    dev = col.data.device
+    rank = LS.key_column(col).data
+    valid = col.valid_mask()
+    seg = torch.zeros(n, dtype=torch.int64, device=dev) if seg_j is None else seg_j
+    rows = torch.arange(n, dtype=torch.int64, device=dev)
+    key = (rank if name == "min" else rank.max() - rank) * max(n, 1) + rows
+    sentinel = torch.iinfo(torch.int64).max
+    key = torch.where(valid, key, sentinel)
+    best = torch.full((k,), sentinel, dtype=torch.int64, device=dev).scatter_reduce(
+        0, seg, key, "amin", include_self=True)
+    found = best != sentinel
+    pick = torch.where(found, torch.remainder(best, max(n, 1)), 0)
+    return col.take_or_null(pick, found)
 
 
 def _float_as_exact_int(c: Column) -> Column:

@@ -2,7 +2,7 @@
 
 Every successfully executed traced query already stamps, per operator
 span, the wall seconds and the true-vs-padded row pair (``obs/trace.py``).
-This module reduces those spans to per-operator-class EMAs of
+This module reduces those spans to per-operator-class estimates of
 
 * **seconds per padded kilorow** — the empirical unit cost the
   :class:`~tpu_cypher.optimizer.cost.CostModel` weights with, and the
@@ -28,8 +28,11 @@ from typing import Dict, Optional
 
 from ..utils.config import OPT_FEEDBACK
 
-# EMA smoothing: one observation moves the estimate 20% of the way
-_ALPHA = 0.2
+# each estimate is the median of a class's last _WINDOW samples (the lower
+# median of an even count), so one outlying span (a collector pause, a
+# first-run build) cannot pull an estimate past the class's other samples;
+# the reference folds every sample into an EMA at 20% a step instead
+_WINDOW = 5
 # operator classes whose per-krow cost is compared against the multiway
 # intersect tier to place the measured WCOJ threshold
 _BINARY_EXPAND_CLASSES = ("CsrExpandOp", "CsrExpandIntoOp")
@@ -46,9 +49,9 @@ class Calibration:
     (they return the neutral 1.0)."""
 
     def __init__(self):
-        # op class -> [ema seconds-per-padded-kilorow, samples]
+        # op class -> [median seconds-per-padded-kilorow, samples, window]
         self.sec_per_krow: Dict[str, list] = {}
-        # op class -> [ema true/padded occupancy, samples]
+        # op class -> [median true/padded occupancy, samples, window]
         self.occ: Dict[str, list] = {}
 
     # -- updates ---------------------------------------------------------
@@ -59,22 +62,21 @@ class Calibration:
         if seconds <= 0.0 or rows_padded <= 0:
             return
         krow = rows_padded / 1000.0
-        self._ema(self.sec_per_krow, op_class, seconds / krow)
-        self._ema(self.occ, op_class, min(rows_true / rows_padded, 1.0))
+        self._observe(self.sec_per_krow, op_class, seconds / krow)
+        self._observe(self.occ, op_class, min(rows_true / rows_padded, 1.0))
 
     @staticmethod
-    def _ema(table: Dict[str, list], key: str, value: float) -> None:
-        got = table.get(key)
-        if got is None:
-            table[key] = [float(value), 1]
-        else:
-            got[0] += _ALPHA * (float(value) - got[0])
-            got[1] += 1
+    def _observe(table: Dict[str, list], key: str, value: float) -> None:
+        """Add one sample to ``key``'s window and re-take its median."""
+        got = table.setdefault(key, [0.0, 0, []])
+        window = got[2] = (got[2] + [float(value)])[-_WINDOW:]
+        got[0] = sorted(window)[(len(window) - 1) // 2]
+        got[1] += 1
 
     # -- reads -----------------------------------------------------------
 
     def samples(self) -> int:
-        return sum(n for _, n in self.sec_per_krow.values())
+        return sum(v[1] for v in self.sec_per_krow.values())
 
     def unit_cost(self, op_class: str) -> Optional[float]:
         got = self.sec_per_krow.get(op_class)
@@ -131,10 +133,11 @@ class Calibration:
             for k, v in (data.get(field) or {}).items():
                 if (
                     isinstance(v, list)
-                    and len(v) == 2
+                    and len(v) in (2, 3)
                     and isinstance(v[0], (int, float))
                 ):
-                    table[str(k)] = [float(v[0]), int(v[1])]
+                    window = [float(x) for x in v[2]] if len(v) == 3 else [float(v[0])]
+                    table[str(k)] = [float(v[0]), int(v[1]), window[-_WINDOW:]]
         return cal
 
 
