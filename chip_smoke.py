@@ -9,7 +9,9 @@ Phases (any failure exits non-zero and prints no result line):
             that CUDA is available;
 2. build  — builds every kernel source in ``tpu_cypher_torch/csrc`` with
             ``nvcc`` (all in parallel) and prints each build's ``ptxas``
-            resource line;
+            resource line, and the native host tier
+            (``tpu_cypher_torch/native/csr_builder.cpp``) with ``g++``; a
+            native build that fails fails the run;
 3. kernels — calls each kernel's wrapper on the card at the shapes the
             slice's queries give it (``expand_rows``, ``intersect`` and
             ``join_probe``: the very inputs of an extra Q6 and Q11 run,
@@ -138,7 +140,22 @@ Phases (any failure exits non-zero and prints no result line):
             and launches per (kernel, tier), against numpy ``datetime64``
             (temporal min and max on the ``segment_agg`` kernel), and
             examples/05_temporal.py's four queries against the rows it
-            prints. The walk counts' truth
+            prints; then the dense count tier at SF1: Q13
+            (TWO_HOP_DISTINCT) and Q6 (TRIANGLE, which WCOJ's ``auto``
+            hands back) under the defaults, each answered by the bf16
+            products once a run, under ``TPU_CYPHER_MXU_DENSE=0`` (the
+            walk; the triangle also under ``TPU_CYPHER_WCOJ=off``) and
+            under the tiled tier (``force`` with the dense cap pinned at
+            8,192), all equal to the truth, with warm medians, own peak
+            device memory and the products alone against their flop
+            bound (Q13 itself runs under ``0`` among Q13-Q16, where its
+            fused-walk checks stay); the standalone kernel API at SF10
+            (``CsrGraph.build`` through the native tier against numpy's,
+            ``two_hop_count`` on ``frontier_deg_sum``, ``two_hop_expand``
+            on ``expand_rows``, ``triangle_count`` on ``intersect``,
+            ``walk_counts`` against numpy); and SF10's KNOWS written as an
+            edge list, parsed natively by ``load_edge_list`` and counted
+            by Q2's shape. The walk counts' truth
             honours relationship uniqueness: by rule (the homomorphic
             count less the walks that reuse an edge), each rule held to a
             brute-force enumeration on 20 sources, or by the enumeration
@@ -155,7 +172,8 @@ Phases (any failure exits non-zero and prints no result line):
             Q11 and Q12 warm on the ``join_probe`` kernel tier against the
             plain version called in the gate's place, and the triangle
             count on the WCOJ tier (``force``) against the binary plan
-            (``off``: ``CsrExpandIntoOp``'s fused close count, Q23) on four
+            (``off`` with ``TPU_CYPHER_MXU_DENSE=0``: ``CsrExpandIntoOp``'s
+            fused close count on the walk, Q23) on four
             graphs up to SF10, ABBA-interleaved, every answer checked, and
             under ``auto`` on the 100-node graph (the binary plan: its
             blowup estimate lies under ``TPU_CYPHER_WCOJ_MIN_ROWS``, and
@@ -190,8 +208,9 @@ Phases (any failure exits non-zero and prints no result line):
             ``tests/test_torch_tck.py``'s rules and its list of unanswered
             scenarios: each whitelisted scenario passes (an expected error
             of the class the ``local()`` oracle raises), each blacklisted
-            one fails; it prints the counts, the seconds and the launches
-            per (kernel, tier) the phase made.
+            one fails; it prints the counts, the seconds, the launches per
+            (kernel, tier) the phase made and the counts the dense tiers
+            answered.
 
 The kernel launch counts are zeroed just before phase 4 and read just after
 it; the comparisons of phase 3 and the runs of phase 5 do not count. Phase
@@ -2404,7 +2423,8 @@ def run_tck(torch, card):
     rules and its list of unanswered scenarios: each whitelisted scenario
     passes, every error it expects of the class the port's ``local()``
     oracle raises, and each blacklisted one fails. Prints the counts, the
-    seconds and the launches per (kernel, tier)."""
+    seconds, the launches per (kernel, tier) and the counts the dense tiers
+    answered."""
     sys.path.insert(0, os.path.join(HERE, "tests"))
     import test_torch_tck as TCK
 
@@ -2414,6 +2434,7 @@ def run_tck(torch, card):
 
     runner, oracle = TckRunner(CypherSession.cuda), TckRunner(CypherSession.local)
     dispatch.reset()
+    mxu0 = mxu_tiers()
     t0 = time.perf_counter()
     passed = listed = 0
     for sc in TCK._scenarios.white_list:
@@ -2436,9 +2457,11 @@ def run_tck(torch, card):
     secs = time.perf_counter() - t0
     counts = dispatch.use_counts()
     tiers = {f"{k}/{t}": c[t] for k, c in counts.items() for t in c if c[t]}
+    dense = {k: v - mxu0[k] for k, v in mxu_tiers().items()}
     print(f"  TCK on the card ({card}): {passed} whitelisted scenarios passed, {listed} "
           f"listed as unanswered raised their refusal, {len(TCK._scenarios.black_list)} "
-          f"blacklisted failed, in {secs:.1f} s; launches per (kernel, tier) {tiers}")
+          f"blacklisted failed, in {secs:.1f} s; launches per (kernel, tier) {tiers}; "
+          f"counts on the dense tiers {dense}")
 
 
 def print_times(name, times):
@@ -3555,9 +3578,11 @@ def run_shaping_queries(torch, run, slice_launches, g1, g10, truth):
 
     calls, distinct_calls = {}, []
     launched = slice_launches.get("expand_rows", 0)
+    # the fused walk, which the dense tier replaces under the defaults
+    # (run_dense_queries)
     with counted(J, ("distinct_pairs_count_final",), calls), \
-            recorded(CudaTable, "distinct_count", distinct_calls):
-        rows = shaped("Q13 (SF1)", g1, Q13, ("expand_rows",), "DistinctOp")
+            recorded(CudaTable, "distinct_count", distinct_calls), pinned(MXU_DENSE="0"):
+        rows = shaped("Q13 (SF1, MXU_DENSE=0)", g1, Q13, ("expand_rows",), "DistinctOp")
     launched = slice_launches["expand_rows"] - launched
     check(rows == [{"pairs": truth["Q13"]}], f"Q13 {rows} != {truth['Q13']}")
     check(calls == {"distinct_pairs_count_final": 6} and not distinct_calls
@@ -3586,6 +3611,255 @@ def run_shaping_queries(torch, run, slice_launches, g1, g10, truth):
     check(rows == truth["Q16"], f"Q16 rows differ from numpy: {rows[:3]} ...")
     print(f"    Q16 = {len(rows)} of {truth['Q16_distinct']} distinct birthdays after "
           f"SKIP 100, equal to numpy row for row; {topk_said(topk)}")
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the dense count tier, the standalone kernel API, the edge list
+# ---------------------------------------------------------------------------
+
+# H100 SXM dense bf16 tensor-core rate (NVIDIA's data sheet; 700 W)
+BF16_FLOPS_PER_S = 989e12
+DENSE_TILED_CAP = 8192  # TPU_CYPHER_MXU_DENSE_MAX pinned below SF1's 10,000 persons
+
+
+def mxu_tiers():
+    from tpu_cypher_torch.backend.cuda import expand_op as X
+
+    return dict(X.MXU_TIER_COUNTS)
+
+
+# the triangle with its arrows reversed: the same directed 3-cycles, so
+# the same count, with the hops over in-edges
+Q6R = ("MATCH (a:Person)<-[:KNOWS]-(b:Person)<-[:KNOWS]-(c:Person)<-[:KNOWS]-(a) "
+       "RETURN count(*) AS triangles")
+
+
+def run_dense_queries(torch, run, last, g1, q13_truth, tri1):
+    """Phase 4's dense count tier at SF1 (10,000 persons, padded to 10,240:
+    40 row blocks of 256). Q13 (TWO_HOP_DISTINCT) under the defaults runs
+    as bf16 products on the tensor cores; so does Q6R, the triangle with
+    its arrows reversed (WCOJ's ``auto`` hands its count back). Q6 itself
+    is handed back too, but the reference's float32 guard (max row sum x
+    max entry x max closing entry <= 2**24) declines it over out-edges, so
+    it walks the binary plan, as the reference does. Each also under
+    ``TPU_CYPHER_MXU_DENSE=0`` (the walk: the fused DISTINCT walk, WCOJ's
+    count, and for Q6R under ``TPU_CYPHER_WCOJ=off`` the binary plan's
+    walk, the path the dense tier takes over) and under the tiled tier
+    (``force`` with ``TPU_CYPHER_MXU_DENSE_MAX`` pinned below SF1's N).
+    Each runs cold and five times warm (tiled: twice), held to the
+    numpy/scipy truth and to its tiers per run, with its warm median and
+    own peak device memory. Then the products alone, on the arguments the
+    queries passed (CUDA events), against the flop bound 2 * Npad**3 over
+    the card's dense bf16 rate, and one whole ``torch.mm`` beside them."""
+    from tpu_cypher_torch.backend.cuda import jit_ops as J
+    from tpu_cypher_torch.backend.cuda.graph_index import GraphIndex
+
+    dense0, walk0 = {"dense": 1, "tiled": 0}, {"dense": 0, "tiled": 0}
+    tiled0 = {"dense": 0, "tiled": 1}
+    walks = ("expand_rows", "intersect")
+    mxu0, wcoj0 = {"MXU_DENSE": "0"}, {"MXU_DENSE": "0", "WCOJ_MODE": "off"}
+    tiled = {"MXU_DENSE": "force", "MXU_DENSE_MAX": DENSE_TILED_CAP}
+    mwi = "MultiwayIntersectOp"
+    variants = (
+        # label, query, pins, plan operator, kernels, WCOJ tiers and MXU
+        # tiers per run, warm runs
+        ("Q13 dense (SF1)", Q13, {}, "CsrExpandOp", (), (), dense0, 5),
+        ("Q13 walk (SF1, MXU_DENSE=0)", Q13, mxu0, "CsrExpandOp", ("expand_rows",), (),
+         walk0, 5),
+        ("Q13 tiled (SF1)", Q13, tiled, "CsrExpandOp", (), (), tiled0, 2),
+        ("Q6 defaults (SF1)", Q6, {}, mwi, walks, ("handback",), walk0, 5),
+        ("Q6 WCOJ count (SF1, MXU_DENSE=0)", Q6, mxu0, mwi, walks, ("count",), walk0, 5),
+        ("Q6R dense (SF1)", Q6R, {}, mwi, (), ("handback",), dense0, 5),
+        ("Q6R WCOJ count (SF1, MXU_DENSE=0)", Q6R, mxu0, mwi, walks, ("count",), walk0, 5),
+        ("Q6R binary walk (SF1, MXU_DENSE=0, WCOJ off)", Q6R, wcoj0, "CsrExpandIntoOp",
+         walks, (), walk0, 5),
+        ("Q6R tiled (SF1)", Q6R, tiled, mwi, (), ("handback",), tiled0, 2),
+    )
+    want = {"Q13": [{"pairs": q13_truth}], "Q6": [{"triangles": tri1}],
+            "Q6R": [{"triangles": tri1}]}
+    medians, captured = {}, {}
+    products = {name: getattr(J, name) for name in ("mxu_distinct_pairs", "mxu_close_count")}
+
+    def capture(name):
+        def hook(*args, **kwargs):
+            captured[name] = (args, kwargs)
+            return products[name](*args, **kwargs)
+        return hook
+
+    for label, q, pins, plan_op, kernels, wcoj_tiers, per_run, warm in variants:
+        before = mxu_tiers()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        for name in products:
+            setattr(J, name, capture(name))
+        try:
+            with pinned(**pins):
+                rows, secs, _ = run(label, g1, q, kernels, plan_op=plan_op,
+                                    wcoj_tiers=wcoj_tiers, warm=warm)
+        finally:
+            for name, fn in products.items():
+                setattr(J, name, fn)
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        moved = {k: v - before[k] for k, v in mxu_tiers().items()}
+        key = label.split()[0]
+        check([dict(r) for r in rows] == want[key], f"{label}: {rows} != {want[key]}")
+        check(moved == {k: n * (1 + warm) for k, n in per_run.items()},
+              f"{label}: MXU tiers moved {moved}, expected {per_run} per run")
+        medians[label] = statistics.median(secs[1:])
+        print(f"    {label} = {rows[0]}; MXU tiers per run {per_run}; warm median "
+              f"{medians[label] * 1e3:.3f} ms over {warm} runs (s: "
+              f"{[round(x, 6) for x in secs[1:]]}); own peak device memory {peak:.3f} GiB")
+    # the float32 guard of the close count, by orientation
+    plan = last["Q6 defaults (SF1)"].relational_plan
+    gi, ctx = GraphIndex.of(plan.graph), plan.context
+    guards = {}
+    for rev in (False, True):
+        _, entry, rowsum = gi.dense_adj(("KNOWS",), rev, ctx)
+        guards["in-edges" if rev else "out-edges"] = (rowsum, entry, rowsum * entry * entry)
+    print(f"  the close count's float32 guard (max row sum, max entry, their product with "
+          f"the closing entry; the limit 2**24 = {1 << 24}): {guards}")
+    check(guards["out-edges"][2] > 1 << 24 >= guards["in-edges"][2],
+          "the guard no longer splits the two orientations")
+    # the products alone, at the queries' own arguments
+    args_d, kw_d = captured["mxu_distinct_pairs"]
+    args_c, kw_c = captured["mxu_close_count"]
+    check(int(products["mxu_distinct_pairs"](*args_d, **kw_d)) == q13_truth
+          and int(products["mxu_close_count"](*args_c, **kw_c)) == tri1,
+          "the dense products alone disagree with the truth")
+    a = args_d[0]
+    npad = int(a.shape[0])
+    flops = 2.0 * npad ** 3
+    bound_ms = flops / BF16_FLOPS_PER_S * 1e3
+    times = {
+        "mxu_distinct_pairs (Q13)": time_ms(
+            torch, lambda: products["mxu_distinct_pairs"](*args_d, **kw_d), iters=10),
+        "mxu_close_count (Q6R)": time_ms(
+            torch, lambda: products["mxu_close_count"](*args_c, **kw_c), iters=10),
+        "one torch.mm (bf16 in, float32 out)": time_ms(
+            torch, lambda: torch.mm(a, a, out_dtype=torch.float32), iters=10),
+    }
+    print(f"  dense products at SF1: Npad {npad}, row blocks of {J.MM_ROWS}; 2*Npad^3 = "
+          f"{flops:.4e} operations, bound {bound_ms:.4f} ms at {BF16_FLOPS_PER_S:.4g} bf16 "
+          f"operations/s")
+    for name, ms in times.items():
+        print(f"    {name}: {ms:.4f} ms ({bound_ms / ms:.3f} of the bound)")
+    for q, base in (("Q13", "Q13 dense (SF1)"), ("Q6R", "Q6R dense (SF1)"),
+                    ("Q6", "Q6 defaults (SF1)")):
+        others = {k: v for k, v in medians.items() if k.startswith(q + " ") and k != base}
+        print(f"    {base} {medians[base] * 1e3:.3f} ms warm median against "
+              + ", ".join(f"{k} {v * 1e3:.3f} ms ({v / medians[base]:.2f}x)"
+                          for k, v in others.items()))
+
+
+def run_kernel_api(torch, slice_launches, ids, src, dst, s, d, q4, q17, tri):
+    """Phase 4's standalone kernel API (``backend/cuda/kernels.py``) at
+    SF10: ``CsrGraph.build`` through the native tier, timed against the
+    numpy build and equal to it; ``two_hop_count`` on the
+    ``frontier_deg_sum`` kernel tier (Q4's path count), ``two_hop_expand``
+    on ``expand_rows`` (Q17's distinct pairs), ``triangle_count`` on
+    ``expand_rows`` and ``intersect`` (the triangle truth) and
+    ``walk_counts`` (numpy), each timed by the host clock around a
+    synchronized call; the launches join the slice's."""
+    import numpy as np
+
+    from tpu_cypher_torch.backend.cuda import kernels as K
+    from tpu_cypher_torch.backend.cuda.hopper import dispatch
+
+    t0 = time.perf_counter()
+    g = K.CsrGraph.build(ids, src, dst)
+    torch.cuda.synchronize()
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = K._build_csr_numpy(ids, src, dst)
+    numpy_s = time.perf_counter() - t0
+    check(all(np.array_equal(x.cpu().numpy(), y) for x, y in
+              zip((g.node_ids, g.row_ptr, g.col_idx, g.src_idx), ref)),
+          "the native CSR differs from the numpy build")
+    print(f"  kernel API at SF10: CsrGraph.build {native_s:.3f} s through the native "
+          f"tier (to the card), numpy's build {numpy_s:.3f} s, equal")
+    before = dispatch.use_counts()
+    times = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    total = int(timed("two_hop_count", lambda: K.two_hop_count(g.row_ptr, g.col_idx)))
+    check(total == q4, f"two_hop_count {total} != {q4}")
+    _, _, distinct = timed("two_hop_expand", lambda: K.two_hop_expand(
+        g.row_ptr, g.col_idx, g.src_idx, total))
+    check(int(distinct) == q17, f"two_hop_expand distinct {int(distinct)} != {q17}")
+    got = int(timed("triangle_count", lambda: K.triangle_count(
+        g.row_ptr, g.col_idx, g.src_idx, total)))
+    check(got == tri, f"triangle_count {got} != {tri}")
+    n = len(ids)
+    start = np.zeros(n, np.int64)
+    start[:1000] = 1
+    per_hop = timed("walk_counts", lambda: K.walk_counts(g.src_idx, g.col_idx, start, 3, n))
+    p, want = start.astype(np.float64), []
+    for _ in range(3):
+        p = np.bincount(d, weights=p[s], minlength=n)
+        want.append(p)
+    want = np.stack(want)
+    check(want.max() < 2**53 and np.array_equal(per_hop.cpu().numpy(), want.astype(np.int64)),
+          "walk_counts differs from numpy")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    after = dispatch.use_counts()
+    moved = {k: {t: after[k][t] - before[k][t] for t in after[k]} for k in after}
+    expect = {"frontier_deg_sum": 1, "expand_rows": 2, "intersect": 1}
+    for name, c in moved.items():
+        check(c["fallback"] == 0 and c["plain"] == 0 and c["kernel"] == expect.get(name, 0),
+              f"kernel API launches of {name}: {c}, expected {expect.get(name, 0)}")
+        slice_launches[name] = slice_launches.get(name, 0) + c["kernel"]
+    print(f"    two_hop_count = {total} (Q4), two_hop_expand distinct = {int(distinct)} "
+          f"(Q17) over {total} lanes, triangle_count = {got}, walk_counts from 1,000 "
+          f"sources over 3 hops = {int(per_hop.sum())} walks; seconds "
+          f"{ {k: round(v, 6) for k, v in times.items()} }; launches {expect} on the "
+          f"kernel tier; peak device memory {peak:.3f} GiB")
+    del g, per_hop, distinct
+    torch.cuda.empty_cache()
+
+
+def run_edge_list(torch, run, session, src, dst):
+    """Phase 4's edge-list source: SF10's KNOWS written as a SNAP file in a
+    temporary directory, loaded by ``load_edge_list`` (the native parser),
+    and Q2's count over its ``E`` relationships on ``frontier_deg_sum``."""
+    import tempfile
+
+    import numpy as np
+
+    from tpu_cypher_torch import native
+    from tpu_cypher_torch.io import load_edge_list
+    from tpu_cypher_torch.relational.session import PropertyGraph
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "knows.txt")
+        text = np.char.add(np.char.add(src.astype(str), " "), dst.astype(str))
+        with open(path, "w") as f:
+            f.write("# SF10 KNOWS, seed 42\n")
+            f.write("\n".join(text.tolist()))
+        with open(path, "rb") as f:
+            data = f.read()
+        t0 = time.perf_counter()
+        parsed = native.parse_edge_list_native(data)
+        parse_s = time.perf_counter() - t0
+        check(parsed is not None and np.array_equal(parsed[0], src)
+              and np.array_equal(parsed[1], dst), "the native parser lost edges")
+        t0 = time.perf_counter()
+        pg = PropertyGraph(session, load_edge_list(path, session))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+    rows, _, _ = run("Q2 on the edge list (SF10)", pg,
+                     "MATCH (a)-[:E]->(b) RETURN count(*) AS c", ("frontier_deg_sum",))
+    check([dict(r) for r in rows] == [{"c": len(src)}], f"edge-list Q2 {rows} != {len(src)}")
+    print(f"    edge list: {size} bytes, {len(src)} edges; native parse {parse_s:.3f} s, "
+          f"load_edge_list {load_s:.3f} s (parse and ingest); Q2 = {rows[0]['c']}")
 
 
 def time_q14_fallback(torch, g10, q14_truth, report):
@@ -3738,6 +4012,14 @@ def main() -> int:
         log = _build.build_log(name) or ""
         usage = [l.strip() for l in log.splitlines() if "registers" in l]
         print(f"  {name}: {built[name]:.2f} s; " + (" | ".join(usage) or "(cached)"))
+
+    from tpu_cypher_torch import native
+
+    t0 = time.perf_counter()
+    check(native.get_lib() is not None,
+          f"the native host tier did not build: {native.build_error()}")
+    print(f"native: {os.path.relpath(native.lib_path(), HERE)} built with g++ "
+          f"{' '.join(native.CXX_FLAGS)} in {time.perf_counter() - t0:.2f} s")
 
     session = CypherSession.cuda()
     print(f"backend device: {backend_device()}")
@@ -3989,6 +4271,13 @@ def main() -> int:
 
     # row shaping and grouping
     run_shaping_queries(torch, run, slice_launches, g1, g10, truth)
+    # the dense count tier at SF1, the standalone kernel API and the edge
+    # list at SF10
+    print("  the dense count tier:")
+    run_dense_queries(torch, run, last, g1, truth["Q13"], tri1["triangles"])
+    run_kernel_api(torch, slice_launches, ids10, src10, dst10, s10, d10, truth["Q4"],
+                   walks["Q17"], tri10["triangles"])
+    run_edge_list(torch, run, session, src10, dst10)
     # the chain walk: the 2-hop DISTINCT and the var-length expand
     run_walk_queries(torch, run, cold, slice_launches, g1, g10, gl, walks, report)
     # the closing ExpandInto and the fused OPTIONAL expand
@@ -4024,8 +4313,8 @@ def main() -> int:
         torch, g10, Q11, tiers, lambda rows: rows == [{"n": truth["Q11"]}], rounds=10))
     print_times("Q12 (SF10)", warm_times(torch, g10, Q12, tiers, q12_ok, rounds=4))
     plans = {"WCOJ (force)": (lambda: wcoj_mode("force"), "MultiwayIntersectOp", None),
-             "binary plan (off)": (lambda: wcoj_mode("off"), "CsrExpandIntoOp",
-                                   "MultiwayIntersectOp")}
+             "binary plan (off)": (lambda: pinned(WCOJ_MODE="off", MXU_DENSE="0"),
+                                   "CsrExpandIntoOp", "MultiwayIntersectOp")}
     ids_s, src_s, dst_s = loopy_arrays(100, 300)
     g01 = PropertyGraph(session, generate_snb(0.1, session, seed=SEED))
     ids01, _, src01, dst01 = graph_arrays(g01)

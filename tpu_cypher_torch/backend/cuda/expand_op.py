@@ -38,12 +38,30 @@ function), and a single unrestricted hop's count(*) through
 packed-key sort and the closing probe the sorted-key range count on
 every device (the reference's host bitmap variants are not ported).
 
+The dense count tier, the counterpart of the reference's MXU tier,
+answers two shapes of a 2-hop chain with no uniqueness pair as blocked
+matrix products (``jit_ops.mxu_close_count`` / ``mxu_distinct_pairs``
+over ``GraphIndex.dense_adj``; ``torch.mm`` with a float32 result on the
+card's tensor cores): the DISTINCT-endpoints count over both endpoints
+(``CsrExpandOp.distinct_endpoints_count``) and the directed close count
+(``CsrExpandIntoOp._chain_close_count``). ``TPU_CYPHER_MXU_DENSE``
+routes it as in the reference: ``auto`` (the default) on where the
+session's device is CUDA and off on the CPU, ``1``/``force`` on
+everywhere, ``0`` off. Past ``dense_adj``'s node cap, or with a
+multiplicity past bf16's exact range, the dense form declines; the TILED
+tier (``mxu_*_tiled`` over ``GraphIndex.dense_tiles``, no full matrix)
+then answers only on explicit request (``1``/``force``), and otherwise
+the walk does. A count whose cells could pass float32's exact integers
+(``rowsum1 * entry2 (* entry_c) > 2**24``) keeps the walk.
+``MXU_TIER_COUNTS`` counts which tier answered. The reference's native
+C++ count tiers (``native/``) run only where its device is the CPU; the
+port keeps them out of the operators, so its CPU path stays the card's
+path, and ``NATIVE_TIER_COUNTS`` stays at zero (ROADMAP.md section 3).
+
 Where the reference answers from the classic child after a fused
 operator raises, the port has no such shadow: its planner hooks decline
 what the operators do not answer (an empty graph), and an operator
-returns before a gate call that would be empty. Later slices port the
-cuBLAS counterparts of the MXU dense/tiled close counts and the native
-host tiers (ROADMAP.md queue 1, item 2.3). ``CsrVarExpandOp`` emits a
+returns before a gate call that would be empty. ``CsrVarExpandOp`` emits a
 var-length relationship list a query reads as an ``LST`` column built
 from the walk's own edge rows (the reference answers it from the classic
 cascade).
@@ -56,6 +74,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ...ir import expr as E
+from ...obs.metrics import REGISTRY as _OBS_REGISTRY
+from ...obs.metrics import CounterView
 from ...relational.header import RecordHeader
 from ...relational.ops import RelationalOperator
 from ...runtime.faults import fault_point
@@ -66,6 +86,96 @@ from .column import I64, NODE, OBJ, REL, Column, TpuBackendError, struct_column
 from .column import mask_to_idx_bucketed as _mask_to_idx_bucketed
 from .graph_index import CANON_NODE, CANON_REL, GraphIndex, GraphIndexError, rekey_element_expr
 from .table import ensure_flat
+
+
+def _mxu_dense_mode() -> bool:
+    """Route 2-hop counts through the dense count tier (blocked products,
+    ``jit_ops.mxu_close_count`` / ``mxu_distinct_pairs``)? ``auto`` (the
+    default) is on where the session's device is CUDA, where the tensor
+    cores are, and off on the CPU, the counterpart of the reference's
+    ``jax.default_backend() != "cpu"``. ``TPU_CYPHER_MXU_DENSE=1|force``
+    turns it on anywhere (the CPU differential tests), ``0`` (or ``off``)
+    turns it off."""
+    from ...utils.config import MXU_DENSE
+
+    mode = MXU_DENSE.get().strip().lower()
+    if mode in ("0", "off"):
+        return False
+    if mode in ("1", "force"):
+        return True
+    return _device.get().type == "cuda"
+
+
+def _mxu_tiled_enabled() -> bool:
+    """The TILED tier (no full dense matrix; ``jit_ops.mxu_*_tiled``)
+    runs only on explicit request (``TPU_CYPHER_MXU_DENSE=1|force``), never
+    on ``auto``: a dense product is Theta(N^3) operations, so past
+    ``dense_adj``'s cap the walk wins by orders of magnitude (SF10's
+    100,096 padded nodes are 2.0e15 operations). The tier runs
+    dense-eligible counts at any node count up to
+    ``TPU_CYPHER_MXU_TILED_MAX`` with the dense tier's exact results."""
+    from ...utils.config import MXU_DENSE
+
+    return MXU_DENSE.get().strip().lower() in ("1", "force")
+
+
+# which dense tier answered each dense-eligible count
+MXU_TIER_COUNTS = CounterView(
+    _OBS_REGISTRY.counter(
+        "tpu_cypher_mxu_tier_total",
+        "dense-eligible counts answered per MXU tier",
+        labels=("tier",),
+    ),
+    "tier",
+    ("dense", "tiled"),
+)
+
+# the reference's native C++ count tiers; the port's operators never call
+# them (the module note), so the series stays at zero
+NATIVE_TIER_COUNTS = CounterView(
+    _OBS_REGISTRY.counter(
+        "tpu_cypher_native_tier_total",
+        "counts answered per native C++ stamping/DFS kernel",
+        labels=("tier",),
+    ),
+    "tier",
+    ("two_hop", "close", "varlen"),
+)
+
+
+def _pad_mask(mask, npad: int):
+    """Optional bool[num_nodes] label mask -> bf16 0/1[(npad,)] or None."""
+    if mask is None:
+        return None
+    return torch.nn.functional.pad(mask.to(torch.bfloat16), (0, npad - mask.shape[0]))
+
+
+def _mxu_tiled_common(gi: GraphIndex, ctx, hops):
+    """Shared preamble of the tiled tier: gate, hop tile providers,
+    float32-exactness product term, label masks. None when the tier does
+    not apply."""
+    from ...optimizer.cost import mxu_tiled_node_cap
+
+    if not _mxu_tiled_enabled() or gi.num_nodes > mxu_tiled_node_cap():
+        return None
+    base, final_hop = hops[1], hops[0]
+    t1 = gi.dense_tiles(base.types_key, base.backwards, ctx)
+    t2 = gi.dense_tiles(final_hop.types_key, final_hop.backwards, ctx)
+    if t1 is None or t2 is None:
+        return None
+    npad = t1.npad
+    m_b = _pad_mask(gi.label_mask(base.far_labels, ctx), npad)
+    m_c = _pad_mask(gi.label_mask(final_hop.far_labels, ctx), npad)
+    return t1, t2, t1.max_row_sum * max(t2.max_entry, 1), m_b, m_c
+
+
+def _mxu_frontier(gi: GraphIndex, ctx, id_col: Column):
+    """(compact positions, present) of the chain's base column for the
+    dense tiers; a host-object id column has no compact form."""
+    if id_col.kind == OBJ:
+        raise GraphIndexError("host-object id column")
+    return gi.compact_of(id_col, ctx)
+
 
 def _owner_name(e: E.Expr) -> Optional[str]:
     if isinstance(e, E.Var):
@@ -694,6 +804,12 @@ class CsrExpandOp(_FusedExpandBase):
                 if spec is None:
                     return None  # the materialized path enforces by row masks
                 carry, mask_pairs, _ = spec
+            elif len(hops) == 2 and use_a and use_c and _mxu_dense_mode():
+                # the dense tier: the nonzero count of the boolean product,
+                # one chain of matrix products instead of the walk's lanes
+                got = self._mxu_distinct_pairs(gi, ctx, hops, id_col)
+                if got is not None:
+                    return got
 
             def final(lanes, akey, mask, prevs, midx):
                 kw = dict(use_a=use_a, use_c=use_c, num_nodes=gi.num_nodes)
@@ -708,6 +824,43 @@ class CsrExpandOp(_FusedExpandBase):
             )
         except (GraphIndexError, TpuBackendError):
             return None
+
+    def _mxu_distinct_pairs(self, gi, ctx, hops, id_col):
+        """count(DISTINCT a, c) as the nonzero count of the blocked bf16
+        boolean product (``jit_ops.mxu_distinct_pairs``); the tiled tier
+        past the dense cap; None when neither applies."""
+        base, final_hop = hops[1], hops[0]
+        got1 = gi.dense_adj(base.types_key, base.backwards, ctx)
+        got2 = gi.dense_adj(final_hop.types_key, final_hop.backwards, ctx)
+        if got1 is None or got2 is None:
+            return self._mxu_distinct_pairs_tiled(gi, ctx, hops, id_col)
+        a1, _, rowsum1 = got1
+        a2, entry2, _ = got2
+        if rowsum1 * entry2 > (1 << 24):
+            return None  # the > 0.5 test needs each float32 cell exact
+        pos, present = _mxu_frontier(gi, ctx, id_col)
+        npad = int(a1.shape[0])
+        pres = J.frontier_multiplicity(pos, present, n=npad) > 0
+        m_b = _pad_mask(gi.label_mask(base.far_labels, ctx), npad)
+        m_c = _pad_mask(gi.label_mask(final_hop.far_labels, ctx), npad)
+        fault_point("expand")  # the dense-tier count sync below
+        MXU_TIER_COUNTS.inc("dense")
+        return int(J.mxu_distinct_pairs(a1, a2, pres, m_b, m_c, block=J.MM_ROWS))
+
+    def _mxu_distinct_pairs_tiled(self, gi, ctx, hops, id_col):
+        """count(DISTINCT a, c) on the TILED tier: row blocks densified
+        from the edge lists, no (Npad, Npad) matrix."""
+        got = _mxu_tiled_common(gi, ctx, hops)
+        if got is None:
+            return None
+        t1, t2, cell_bound, m_b, m_c = got
+        if cell_bound > (1 << 24):
+            return None
+        pos, present = _mxu_frontier(gi, ctx, id_col)
+        pres = J.frontier_multiplicity(pos, present, n=t1.npad) > 0
+        fault_point("expand")  # the tiled-tier count syncs below
+        MXU_TIER_COUNTS.inc("tiled")
+        return J.mxu_distinct_pairs_tiled(t1, t2, pres, m_b, m_c)
 
     def _factorized_expand(self, gi: GraphIndex, ctx, in_op, in_t, pos, present):
         """The expand's output as a ``FactorizedTable``: the input rows are
@@ -975,12 +1128,16 @@ class CsrExpandIntoOp(_FusedExpandBase):
             ]
             # eligible from here on: the walk and the probe sync
             fault_point("expand")
+            src_is_base = self.source_fld == base.frontier_fld
+            pairs = _collected_pairs(hops, (self,))
+            if not pairs and len(hops) == 2 and not self.undirected and _mxu_dense_mode():
+                got = self._mxu_close_count(gi, ctx, hops, id_col, src_is_base)
+                if got is not None:
+                    return got
             keys = gi.edge_keys(self.types_key, ctx)
             if int(keys.shape[0]) == 0:
                 return 0  # no closing edge; the gate takes no empty key list
-            src_is_base = self.source_fld == base.frontier_fld
             n = gi.num_nodes
-            pairs = _collected_pairs(hops, (self,))
             if pairs:
                 if self.undirected:
                     return None  # dual-orientation probe: materialize
@@ -1031,6 +1188,51 @@ class CsrExpandIntoOp(_FusedExpandBase):
             return _fused_chain_walk(gi, ctx, hops, id_col, final)
         except (GraphIndexError, TpuBackendError):
             return None
+
+    def _mxu_close_count(self, gi, ctx, hops, id_col, src_is_base):
+        """Triangle/cycle close count as blocked matrix products:
+        tri = sum_a mult[a] * sum_c (A1 @ A2)[a, c] * C[a, c]. The closing
+        adjacency C is oriented FROM the walk's base endpoint (probe (a, c)
+        reads the forward matrix, probe (c, a) the reverse). The tiled tier
+        past the dense cap; None when neither applies (a multiplicity past
+        bf16's exact range, cells past float32's exact integers)."""
+        base, final_hop = hops[1], hops[0]
+        got1 = gi.dense_adj(base.types_key, base.backwards, ctx)
+        got2 = gi.dense_adj(final_hop.types_key, final_hop.backwards, ctx)
+        gotc = gi.dense_adj(self.types_key, not src_is_base, ctx)
+        if got1 is None or got2 is None or gotc is None:
+            return self._mxu_close_count_tiled(gi, ctx, hops, id_col, src_is_base)
+        a1, _, rowsum1 = got1
+        a2, entry2, _ = got2
+        cm, entry_c, _ = gotc
+        if rowsum1 * entry2 * max(entry_c, 1) > (1 << 24):
+            # a 2-path cell, or its product with the closing multiplicity,
+            # could pass float32's exact integers: keep the walk
+            return None
+        pos, present = _mxu_frontier(gi, ctx, id_col)
+        npad = int(a1.shape[0])
+        mult = J.frontier_multiplicity(pos, present, n=npad)
+        m_b = _pad_mask(gi.label_mask(base.far_labels, ctx), npad)
+        m_c = _pad_mask(gi.label_mask(final_hop.far_labels, ctx), npad)
+        fault_point("expand")  # the dense-tier count sync below
+        MXU_TIER_COUNTS.inc("dense")
+        return int(J.mxu_close_count(a1, a2, cm, mult, m_b, m_c, block=J.MM_ROWS))
+
+    def _mxu_close_count_tiled(self, gi, ctx, hops, id_col, src_is_base):
+        """Triangle/cycle close count on the TILED tier (see
+        ``CsrExpandOp._mxu_distinct_pairs_tiled``)."""
+        got = _mxu_tiled_common(gi, ctx, hops)
+        if got is None:
+            return None
+        t1, t2, cell_bound, m_b, m_c = got
+        tc = gi.dense_tiles(self.types_key, not src_is_base, ctx)
+        if tc is None or cell_bound * max(tc.max_entry, 1) > (1 << 24):
+            return None
+        pos, present = _mxu_frontier(gi, ctx, id_col)
+        mult = J.frontier_multiplicity(pos, present, n=t1.npad)
+        fault_point("expand")  # the tiled-tier count syncs below
+        MXU_TIER_COUNTS.inc("tiled")
+        return J.mxu_close_count_tiled(t1, t2, tc, mult, m_b, m_c)
 
     def _fused_table(self):
         from .table import CudaTable

@@ -28,10 +28,18 @@ thread's stream is still writing. ``GraphIndex.of`` creates one index
 per graph under a module lock. The reference hangs its cache off the
 graph with no lock.
 
+* the dense forms of the count tier (``expand_op``'s dense and tiled
+  tiers): ``dense_adj``, one bf16[(Npad, Npad)] adjacency with edge
+  multiplicities per (types, orientation), built on the device (the
+  distinct ``a*Npad + b`` cells and their counts by ``torch.unique``,
+  written into a zeroed bf16 matrix: no host ``np.add.at`` over an
+  int32 Npad^2 array), and ``dense_tiles``, a ``DenseTiles`` provider of
+  (block, Npad) row blocks densified on the device from the row-sorted
+  edges, for graphs past ``dense_adj``'s node cap
+
 The reference's host edge bitmap (``edge_bitmap``) is not ported: the
 closing probe keeps the sorted-key form on every device, so the CPU runs
-the path the card runs. The dense forms (``dense_adj``, ``dense_tiles``)
-belong to ROADMAP.md queue 1, item 2.3.
+the path the card runs.
 """
 
 from __future__ import annotations
@@ -52,6 +60,11 @@ from .column import Column, TpuBackendError, to_device
 # canonical scan variable names (reserved: queries cannot produce '$' vars)
 CANON_NODE = "$gi_n"
 CANON_REL = "$gi_r"
+
+# the largest edge multiplicity a bf16 cell holds exactly
+BF16_EXACT_MAX = 256
+
+_MISSING = object()
 
 
 class GraphIndexError(TpuBackendError):
@@ -154,6 +167,11 @@ class GraphIndex:
         self._label_mask: Dict[Tuple[str, ...], Optional[Any]] = {}
         # labels_key -> host row_map copy
         self._row_map_np: Dict[Tuple[str, ...], np.ndarray] = {}
+        # (types_key, reverse, max_nodes) -> (bf16 matrix, max entry, max
+        # row sum), or None where the dense form does not apply
+        self._dense_adj: Dict[Tuple, Optional[Tuple[Any, int, int]]] = {}
+        # (types_key, reverse, block) -> DenseTiles or None
+        self._dense_tiles: Dict[Tuple, Optional["DenseTiles"]] = {}
 
     def _publish(self, cache: Dict, key, value):
         """Store a filled entry once this thread's device work is done:
@@ -419,6 +437,111 @@ class GraphIndex:
             ))
         return got
 
+    # -- dense forms of the count tier ----------------------------------
+
+    DENSE_BLOCK = 256  # row-block and pad quantum of the dense forms
+
+    # cached-tile budget of the tiled tier: below this many matrix CELLS
+    # the densified row blocks stay on the device across the contraction
+    # loop; above it each tile is densified again on every request
+    TILE_CACHE_CELLS = 1 << 30  # 2 GiB of bf16
+
+    def _peek_or_fill(self, cache: Dict, key, fill):
+        """A cached entry that may be None: read without a lock, filled
+        under the index's lock and published behind ``_publish``'s fence."""
+        got = cache.get(key, _MISSING)
+        if got is not _MISSING:
+            return got
+        with self._lock:
+            got = cache.get(key, _MISSING)
+            if got is not _MISSING:
+                return got
+            return self._publish(cache, key, fill())
+
+    def dense_adj(
+        self, types_key: Tuple[str, ...], reverse: bool, ctx,
+        max_nodes: Optional[int] = None,
+    ) -> Optional[Tuple[Any, int, int]]:
+        """Dense bf16[(Npad, Npad)] adjacency with edge-MULTIPLICITY
+        entries for the dense count tier (``jit_ops.mxu_close_count`` /
+        ``mxu_distinct_pairs``): 2-hop path counts as blocked ``A @ A`` on
+        the tensor cores. Returns ``(matrix, max_entry, max_row_sum)``, the
+        exactness metadata callers bound the float32 cells with, or None
+        when the graph is past ``max_nodes`` or a multiplicity exceeds
+        bf16's exact-integer range (256). Rows and columns past N are
+        zero. ``max_nodes=None`` resolves through the cost model
+        (``optimizer.cost.mxu_dense_node_cap``), which honours a
+        ``TPU_CYPHER_MXU_DENSE_MAX`` pin verbatim."""
+        if max_nodes is None:
+            from ...optimizer.cost import mxu_dense_node_cap
+
+            max_nodes = mxu_dense_node_cap()
+        key = (types_key, reverse, max_nodes)
+        return self._peek_or_fill(
+            self._dense_adj, key,
+            lambda: self._build_dense_adj(types_key, reverse, ctx, max_nodes),
+        )
+
+    def _build_dense_adj(self, types_key, reverse, ctx, max_nodes):
+        self.node_ids(ctx)
+        n = self.num_nodes
+        if not 0 < n <= max_nodes:
+            return None  # the size gate, before any per-edge work
+        with _obs_trace.span("dense_adj", kind="index", reverse=reverse):
+            s, d, _ = self._edge_endpoints(types_key, ctx)
+            a, b = (d, s) if reverse else (s, d)
+            block = self.DENSE_BLOCK
+            npad = -(-n // block) * block
+            dev = _device.get()
+            dense = torch.zeros(npad * npad, dtype=torch.bfloat16, device=dev)
+            if len(a) == 0:
+                return dense.view(npad, npad), 0, 0
+            rows = to_device(a)
+            cells, counts = torch.unique(rows * npad + to_device(b), return_counts=True)
+            max_entry = int(counts.max())
+            if max_entry > BF16_EXACT_MAX:
+                return None
+            dense[cells] = counts.to(torch.bfloat16)
+            max_row_sum = int(torch.bincount(rows, minlength=n).max())
+            return dense.view(npad, npad), max_entry, max_row_sum
+
+    def dense_tiles(
+        self, types_key: Tuple[str, ...], reverse: bool, ctx,
+        block: Optional[int] = None,
+    ) -> Optional["DenseTiles"]:
+        """Row-block provider for the TILED count tier: (block, Npad) bf16
+        slices of the dense multiplicity adjacency densified on demand, so
+        no (Npad, Npad) matrix exists and ``dense_adj``'s node cap does not
+        apply. None when a multiplicity exceeds bf16's exact-integer range
+        or the graph has no node."""
+        b = block or self.DENSE_BLOCK
+        return self._peek_or_fill(
+            self._dense_tiles, (types_key, reverse, b),
+            lambda: self._build_dense_tiles(types_key, reverse, ctx, b),
+        )
+
+    def _build_dense_tiles(self, types_key, reverse, ctx, block):
+        self.node_ids(ctx)
+        n = self.num_nodes
+        if n == 0:
+            return None
+        s, d, _ = self._edge_endpoints(types_key, ctx)
+        a, b = (d, s) if reverse else (s, d)
+        if len(a) == 0:
+            empty = np.zeros(0, np.int64)
+            return DenseTiles(n, block, empty, empty, 0, 0)
+        # exactness metadata without densifying: multiplicity = duplicate
+        # (row, col) count; row sum = out-degree
+        _, counts = np.unique(a * np.int64(n) + b, return_counts=True)
+        max_entry = int(counts.max())
+        if max_entry > BF16_EXACT_MAX:
+            return None
+        order = np.argsort(a, kind="stable")
+        return DenseTiles(
+            n, block, a[order], b[order], max_entry,
+            int(np.bincount(a, minlength=n).max()),
+        )
+
     # -- id -> compact mapping --------------------------------------------
 
     def compact_of(self, id_col: Column, ctx) -> Tuple[Any, Any]:
@@ -432,3 +555,51 @@ class GraphIndex:
             z = torch.zeros(ids.shape[0], dtype=torch.int64, device=dev)
             return z, torch.zeros(ids.shape[0], dtype=torch.bool, device=dev)
         return J.compact_lookup(dev_ids, ids, id_col.valid)
+
+
+class DenseTiles:
+    """On-demand (block, Npad) bf16 row blocks of a dense multiplicity
+    adjacency, densified on the device from the row-sorted edge list: the
+    tiled count tier's matrix view. Tiles stay cached on the device when
+    the full matrix is under ``GraphIndex.TILE_CACHE_CELLS``; past it each
+    request densifies again (the tier is then a forced path for
+    correctness, not speed). A tile is published to the cache behind a
+    fence, as the index's own entries are."""
+
+    def __init__(self, n, block, rows_sorted, cols_sorted, max_entry, max_row_sum,
+                 device=None):
+        self.n = int(n)
+        self.block = int(block)
+        self.npad = -(-self.n // self.block) * self.block
+        self.nblocks = self.npad // self.block
+        rows = np.asarray(rows_sorted, dtype=np.int64)
+        self._bounds = np.searchsorted(
+            rows, np.arange(self.nblocks + 1, dtype=np.int64) * self.block
+        )
+        self._device = _device.get() if device is None else torch.device(device)
+        self._rows = torch.as_tensor(rows, device=self._device)
+        self._cols = torch.as_tensor(np.asarray(cols_sorted, dtype=np.int64),
+                                     device=self._device)
+        self.max_entry = max_entry
+        self.max_row_sum = max_row_sum
+        self._cache = (
+            {} if self.npad * self.npad <= GraphIndex.TILE_CACHE_CELLS else None
+        )
+
+    def tile(self, i: int):
+        if self._cache is not None:
+            got = self._cache.get(i)
+            if got is not None:
+                return got
+        lo, hi = int(self._bounds[i]), int(self._bounds[i + 1])
+        dense = torch.zeros(self.block * self.npad, dtype=torch.bfloat16,
+                            device=self._device)
+        if hi > lo:
+            cells = (self._rows[lo:hi] - i * self.block) * self.npad + self._cols[lo:hi]
+            cells, counts = torch.unique(cells, return_counts=True)
+            dense[cells] = counts.to(torch.bfloat16)
+        out = dense.view(self.block, self.npad)
+        if self._cache is not None:
+            _device.fence()
+            self._cache[i] = out
+        return out

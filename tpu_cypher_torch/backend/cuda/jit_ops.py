@@ -891,6 +891,157 @@ def into_close_count_unique(counts, probe, ok, orig, prevs_r, keys_by_orig,
 
 
 # ---------------------------------------------------------------------------
+# the dense count tier: 2-hop path counts as matrix products
+#
+# The port of the reference's MXU tier (``jit_ops.py`` ``mxu_close_count``,
+# ``mxu_distinct_pairs``, the tiled variants and their finishes). For a
+# graph whose dense adjacency fits the card, the counts of a 2-hop chain
+# are one chain of products A1 @ A2 with exact small-integer entries
+# (multiplicities <= 256, checked at build). These are plain large matrix
+# products outside any kernel, as the reference leaves them to XLA, so
+# they stay ``torch.mm`` (no hand-written kernel replaces them).
+#
+# Exactness. On the card a product is ``torch.mm(a, b,
+# out_dtype=torch.float32)``: bf16 operands, float32 accumulation and a
+# float32 result on the tensor cores, the counterpart of the reference's
+# ``preferred_element_type=jnp.float32`` (a plain bf16 ``torch.mm``
+# returns bf16 and would round a cell above 256). On the CPU that overload
+# does not exist, so the plain version multiplies float32 copies. Both are
+# exact under the callers' guard (``rowsum1 * entry2 (* entry_c) <=
+# 2**24``): every partial sum of a cell is then an integer below 2**24.
+# ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
+# (True by default) allows reduced-precision reductions in bf16-OUTPUT
+# products only; these ask for float32 output, and the flag is never set
+# here (serving threads share it). Each row block's cells are reduced by
+# exact casts to integers (float32 -> int32 -> an int64 sum), where the
+# reference sums in float64 and rounds: the same value. The row block of
+# one product is ``MM_ROWS`` rows, where the reference steps by 256: a few
+# large products keep the tensor cores fuller than many thin ones, and a
+# block's float32 cells (84 MB at SF1's 10,240 columns) stay small beside
+# the matrices. ``chip_smoke.py`` phase 4 times the products against one
+# whole ``torch.mm`` and the flop bound.
+# ---------------------------------------------------------------------------
+
+MM_ROWS = 2048
+
+
+def frontier_multiplicity(pos, present, n: int):
+    """int64[n] count of frontier rows per compact node (absent rows spill
+    into a dropped slot): the dense tier's row-weight vector."""
+    slot = torch.where(present, pos, torch.full_like(pos, n))
+    return torch.bincount(slot, minlength=n + 1)[:n]
+
+
+def _mm_operand(b):
+    """The right operand as the product takes it: the bf16 matrix on the
+    card, a float32 copy (made once per count) on the CPU."""
+    return b if b.device.type == "cuda" else b.to(torch.float32)
+
+
+def _mm_f32(a, b_op):
+    """``a @ b`` with a float32 result (see the section note)."""
+    if a.device.type == "cuda":
+        return torch.mm(a, b_op, out_dtype=torch.float32)
+    return torch.mm(a.to(torch.float32), b_op)
+
+
+def _close_block_count(p2, c_blk, mask_c, mult_blk):
+    """sum over the block's rows a of mult[a] * sum_c P2[a, c] * C[a, c]
+    (* mask_c[c]): every cell is an integer of at most 2**24."""
+    prod = p2 * c_blk.to(torch.float32)
+    if mask_c is not None:
+        prod = prod * mask_c.to(torch.float32)[None, :]
+    rows = torch.sum(prod.to(torch.int32), dim=1, dtype=torch.int64)
+    return torch.sum(rows * mult_blk)
+
+
+def _distinct_block_count(p2, mask_c, pres_blk):
+    """Nonzero cells of the block's product, over present rows and
+    label-masked columns."""
+    hit = p2 > 0.5
+    if mask_c is not None:
+        hit = hit & (mask_c[None, :] > 0.5)
+    return torch.count_nonzero(hit & pres_blk[:, None])
+
+
+def mxu_close_count(a1, a2, c, mult, mask_b, mask_c, block: int):
+    """count(*) of (a)-[r1]->(b)-[r2]->(c'), (a)-[rc]->(c') as
+    sum_a mult[a] * sum_c (A1 @ A2)[a, c] * C[a, c]: per row block one
+    (block, N) @ (N, N) product and one elementwise product with the
+    closing adjacency. ``mult``: frontier multiplicity per source row
+    (int64); masks: optional bf16 0/1 vectors folding far-label filters.
+    Returns a 0-d int64 tensor on the matrices' device."""
+    n = a1.shape[0]
+    b_op = _mm_operand(a2)
+    acc = torch.zeros((), dtype=torch.int64, device=a1.device)
+    for i in range(0, n, block):
+        blk = a1[i:i + block]
+        if mask_b is not None:
+            blk = blk * mask_b[None, :]
+        acc += _close_block_count(_mm_f32(blk, b_op), c[i:i + block], mask_c,
+                                  mult[i:i + block])
+    return acc
+
+
+def mxu_distinct_pairs(a1, a2, present, mask_b, mask_c, block: int):
+    """count(DISTINCT a, c) over a 2-hop chain as the nonzero count of the
+    boolean product: per row block (block, N) @ (N, N), then a > 0 test.
+    ``present``: bool per source row (frontier membership). Returns a 0-d
+    int64 tensor."""
+    n = a1.shape[0]
+    b_op = _mm_operand(a2)
+    acc = torch.zeros((), dtype=torch.int64, device=a1.device)
+    for i in range(0, n, block):
+        blk = a1[i:i + block]
+        if mask_b is not None:
+            blk = blk * mask_b[None, :]
+        acc += _distinct_block_count(_mm_f32(blk, b_op), mask_c, present[i:i + block])
+    return acc
+
+
+def _mxu_tiled_p2(t1, t2, mask_b):
+    """The tiled contraction: yields each row block's (i, P2_i), where
+    P2_i = (A1[Bi, :] masked) @ A2 accumulated in float32 from one
+    (block, block) @ (block, Npad) product per k; no (Npad, Npad) matrix
+    exists."""
+    block, npad, nb = t1.block, t1.npad, t1.nblocks
+    for i in range(nb):
+        a1_i = t1.tile(i)
+        if mask_b is not None:
+            a1_i = a1_i * mask_b[None, :]
+        p2 = torch.zeros((block, npad), dtype=torch.float32, device=a1_i.device)
+        for k in range(nb):
+            p2 += _mm_f32(a1_i[:, k * block:(k + 1) * block], _mm_operand(t2.tile(k)))
+        yield i, p2
+
+
+def mxu_close_count_tiled(t1, t2, tc, mult, mask_b, mask_c) -> int:
+    """Tiled variant of ``mxu_close_count``: the three adjacencies arrive
+    as ``DenseTiles`` row-block providers, so the dense tier's node cap
+    does not apply. A ``mxu_tile`` fault site per row block."""
+    from ...runtime.faults import fault_point
+
+    block = t1.block
+    acc = torch.zeros((), dtype=torch.int64, device=mult.device)
+    for i, p2 in _mxu_tiled_p2(t1, t2, mask_b):
+        fault_point("mxu_tile")
+        acc += _close_block_count(p2, tc.tile(i), mask_c, mult[i * block:(i + 1) * block])
+    return int(acc)
+
+
+def mxu_distinct_pairs_tiled(t1, t2, present, mask_b, mask_c) -> int:
+    """Tiled variant of ``mxu_distinct_pairs`` (see above)."""
+    from ...runtime.faults import fault_point
+
+    block = t1.block
+    acc = torch.zeros((), dtype=torch.int64, device=present.device)
+    for i, p2 in _mxu_tiled_p2(t1, t2, mask_b):
+        fault_point("mxu_tile")
+        acc += _distinct_block_count(p2, mask_c, present[i * block:(i + 1) * block])
+    return int(acc)
+
+
+# ---------------------------------------------------------------------------
 # grouped aggregation: the plain version of the segment_agg kernel
 # ---------------------------------------------------------------------------
 

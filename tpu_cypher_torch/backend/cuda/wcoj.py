@@ -36,8 +36,16 @@ Differences by design from the reference (ROADMAP.md queue 3):
   lanes by their counts (``into_materialize_counted``) and, under
   ``TPU_CYPHER_FACTORIZE=off``, declines a multi-close materialize to its
   classic shadow cascade;
-* a pure count is never handed back to a binary counting tier (the port
-  has no native or MXU tier);
+* a pure count of one close is handed back to the binary plan, as in the
+  reference, only where the dense count tier is live
+  (``expand_op._mxu_dense_mode``: on the card under ``auto``) and the
+  graph is within its 16,384-node cap: the dense products count the
+  blowup without building it (tier ``handback``). The reference also
+  hands back on the CPU, to its native stamping kernels, which the
+  port's operators do not call. The binary plan it hands back to is the
+  fused ``CsrExpandIntoOp`` attached as ``children[1]`` where the hook
+  routes (the reference's ``shadow_plan``); ``relational/prune.py``
+  gives it this operator's columns;
 * ``auto`` routes as the reference does: only where the binary plan's
   blowup estimate (``_est_binary_blowup``: edges times the pivot
   orientation's max degree) passes ``optimizer.cost.prefer_wcoj``, so
@@ -66,10 +74,12 @@ from ...obs.metrics import REGISTRY as _OBS_REGISTRY
 from ...obs.metrics import CounterView
 from ...relational.ops import RelationalOperator
 from ...runtime.faults import fault_point
+from ...utils import config as _config
 from . import bucketing
 from . import jit_ops as J
 from .column import OBJ, Column, TpuBackendError
 from .expand_op import (
+    CsrExpandIntoOp,
     CsrExpandOp,
     _chain_rel_ends,
     _empty_i64,
@@ -93,7 +103,7 @@ WCOJ_TIER_COUNTS = CounterView(
         labels=("tier",),
     ),
     "tier",
-    ("count", "materialize", "factorized"),
+    ("count", "materialize", "factorized", "handback"),
 )
 
 
@@ -588,6 +598,22 @@ class MultiwayIntersectOp(_FusedExpandBase):
             raise GraphIndexError("empty node space")
         if gi.num_nodes >= (1 << 30):
             raise GraphIndexError("intersect keys need pos*N+cand in int64")
+        if (
+            not self.header.expressions
+            and not self.enforced_pairs
+            and len(self.closes) == 1
+            and isinstance(self.children[1], CsrExpandIntoOp)
+            and _config.WCOJ_MODE.get().strip().lower() != "force"
+            and _fused_binary_count_available(gi)
+        ):
+            # WCOJ's edge is avoiding the materialized intermediate; the
+            # dense count tier never builds it either, and its products
+            # beat the lanes' probes. ``force`` keeps the WCOJ count, and
+            # a multi-close count stays here (the binary tiers count one
+            # close)
+            WCOJ_TIER_COUNTS.inc("handback")
+            _obs_trace.note("wcoj_tier", "handback")
+            return self.children[1].table
         positions, valid = self._id_positions(gi, ctx)
         lists = self._lists(gi, ctx, positions)
         if not self.header.expressions and not self.enforced_pairs:
@@ -606,6 +632,16 @@ class MultiwayIntersectOp(_FusedExpandBase):
 # ---------------------------------------------------------------------------
 # Planner hook (installed via CudaTable.plan_multiway_intersect_fastpath)
 # ---------------------------------------------------------------------------
+
+
+def _fused_binary_count_available(gi: GraphIndex) -> bool:
+    """Will the binary plan count a single cycle close on the dense tier,
+    without materializing the intermediate? Where that tier is live and
+    the graph is within the dense form's default cap (16,384 nodes, the
+    reference's constant)."""
+    from .expand_op import _mxu_dense_mode
+
+    return _mxu_dense_mode() and 0 < gi.num_nodes <= 16384
 
 
 def _est_binary_blowup(gi: GraphIndex, ctx, types_key, rev: bool) -> int:
@@ -705,9 +741,14 @@ def plan_multiway_intersect_fastpath(
         node.far_labels,
     )
     close = CloseSpec(anchor, op.rel, types_key, rev=cand == op.source)
+    # the binary plan a pure count is handed back to: the fused close
+    # count, which ``off`` would plan (the reference's ``shadow_plan``)
+    from .expand_op import plan_expand_into_fastpath
+
+    binary = plan_expand_into_fastpath(planner, op, in_plan, classic)
     return MultiwayIntersectOp(
         node.children[0],
-        classic,
+        classic if binary is None else binary,
         graph_obj,
         pivot=pivot,
         closes=(close,),

@@ -1,6 +1,7 @@
-"""IO subsystem of the port: the data-source SPI and the LDBC SNB loader
-and generator. The filesystem, SQL, Neo4j and edge-list sources are not
-ported yet (ROADMAP.md queue 1)."""
+"""IO subsystem of the port: the data-source SPI, the LDBC SNB loader and
+generator, and SNAP edge lists (``edge_list``, parsed by the native C++
+tier). The filesystem, SQL and Neo4j sources are not ported yet (ROADMAP.md
+queue 1)."""
 
 from .datasource import (
     CachedDataSource,
@@ -8,13 +9,16 @@ from .datasource import (
     PropertyGraphDataSource,
     SessionGraphDataSource,
 )
+from .edge_list import EdgeListDataSource, load_edge_list
 from .ldbc import generate_snb, load_snb_csv
 
 __all__ = [
     "CachedDataSource",
     "DataSourceError",
+    "EdgeListDataSource",
     "generate_snb",
     "load_snb_csv",
     "PropertyGraphDataSource",
     "SessionGraphDataSource",
+    "load_edge_list",
 ]

@@ -12,7 +12,8 @@ specs):
   ``filter``, ``compact``, ``shuffle``, ``agg``, plus the Pallas kernel-tier sites
   ``kernel_join``/``kernel_expand``/``kernel_agg``/``kernel_frontier``
   fired by ``backend.tpu.pallas.dispatch.launch`` just before a kernel
-  launch, and the write-path sites ``wal_append`` (before the WAL
+  launch, ``mxu_tile`` before each row block of the tiled dense count
+  tier (``backend/cuda/jit_ops.py``), and the write-path sites ``wal_append`` (before the WAL
   append: the write fails with nothing durable), ``delta_apply``
   (after the append, before the in-memory apply: commit rolls the WAL
   back to the pre-append offset) and ``compact`` again inside
