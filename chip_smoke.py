@@ -210,12 +210,36 @@ Phases (any failure exits non-zero and prints no result line):
             of the class the ``local()`` oracle raises), each blacklisted
             one fails; it prints the counts, the seconds, the launches per
             (kernel, tier) the phase made and the counts the dense tiers
-            answered.
+            answered;
+8. mesh   — the mesh tiers (``tpu_cypher_torch/parallel/``) on SF10, on a
+            virtual mesh of 4 shards on cuda:0 and, where the machine has
+            more than one card, on a mesh over every card (one card
+            prints that it cannot show launches across devices): Q4's
+            2-hop count on the mesh's chain (the sharded SpMV), Q6 under
+            ``TPU_CYPHER_WCOJ=force`` (the sharded range count on
+            ``intersect``), an integer aggregate grouped by ``a.id % 256``
+            (count, sum, min, max, avg as per-shard ``segment_agg``
+            partials), and a DISTINCT count pushed down to the table and
+            Q11's value join, which keep the one device's path under a
+            mesh (the tables are whole on the home device, so the
+            reference's shuffle tiers would only add routing); each query
+            three times warm on one device and cold and five times warm on
+            the mesh, each answer equal to the numpy truth and to the
+            one-device run, the tier counters advancing, every launch of
+            the three kernels on the ``kernel`` tier, and the launches of
+            the two sharded kernels a multiple of the shard count; it
+            prints the warm medians, own peak device memory and launches a
+            shard;
+            then two worker processes on cuda:0 joined over ``gloo``, 2
+            virtual shards each (``python -m
+            tpu_cypher_torch.parallel.multihost --scale 1.0``), whose SF1
+            answers must equal numpy's and each other's.
 
 The kernel launch counts are zeroed just before phase 4 and read just after
 it; the comparisons of phase 3 and the runs of phase 5 do not count. Phase
 6 zeroes them again before its in-process server and reads them after its
-writes, for its own line. The line before the last is
+writes, for its own line; phase 8 zeroes them before each mesh and reads
+them after it (``mesh_launches`` in the kernels' line). The line before the last is
 the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -3970,6 +3994,216 @@ def serve_smoke(torch, session, tri1):
     module.run(sys.modules[__name__], torch, session, tri_small=tri1)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the mesh
+# ---------------------------------------------------------------------------
+
+# the kernels the mesh runs launch: the sharded range count and the grouped
+# aggregates' partials once a shard, and Q11's join probe on the one
+# device's path
+MESH_KERNELS = ("intersect", "segment_agg", "join_probe")
+# an integer grouped aggregate over every KNOWS (count, sum, min, max and
+# avg as per-shard partials) and a DISTINCT count pushed down to the table
+MESH_AGG_Q = (
+    "MATCH (a:Person)-[:KNOWS]->(b:Person) RETURN a.id % 256 AS g, count(b.id) AS c, "
+    "sum(b.birthday) AS s, min(b.birthday) AS lo, max(b.birthday) AS hi, avg(b.birthday) AS m"
+)
+MESH_DISTINCT_Q = (
+    "MATCH (a:Person)-[:KNOWS]->(b:Person) WITH DISTINCT b.birthday AS d RETURN count(*) AS n"
+)
+MESH_SHARDS = 4
+
+
+def mesh_truth(ids, bday, s, d):
+    """numpy truth of MESH_AGG_Q ({g: (c, s, lo, hi, m)}) and
+    MESH_DISTINCT_Q."""
+    import numpy as np
+
+    g = ids[s] % 256
+    v = bday[d]
+    c = np.bincount(g, minlength=256)
+    sm = np.zeros(256, np.int64)
+    np.add.at(sm, g, v)
+    lo = np.full(256, np.iinfo(np.int64).max)
+    np.minimum.at(lo, g, v)
+    hi = np.full(256, np.iinfo(np.int64).min)
+    np.maximum.at(hi, g, v)
+    agg = {int(k): (int(c[k]), int(sm[k]), int(lo[k]), int(hi[k]), float(sm[k] / c[k]))
+           for k in range(256) if c[k]}
+    return agg, int(len(np.unique(v)))
+
+
+def mesh_notes(result, key):
+    return [sp.attrs[key] for sp in result.profile().trace.spans() if key in sp.attrs]
+
+
+def run_mesh_phase(torch, session, g10, arrays10, truth, tri10):
+    """Phase 8: the SF10 queries of the mesh tiers on a virtual 4-shard mesh
+    on cuda:0 and, where there is more than one card, on a mesh over every
+    card; each answer equal to the numpy truth and to the single-device
+    run, every launch of the mesh runs on the ``kernel`` tier (the counts
+    zeroed before each query's mesh runs and read after them) and each
+    sharded query's launches of its kernel a multiple of the shard count.
+    Prints warm medians (single device against the mesh) and own peak
+    device memory, and returns the per-kernel launches of the mesh runs."""
+    import numpy as np
+
+    from tpu_cypher_torch.backend.cuda.hopper import dispatch
+    from tpu_cypher_torch.obs.metrics import REGISTRY
+    from tpu_cypher_torch.parallel import mesh as PM
+
+    ids10, bday10, src10, dst10, s10, d10 = arrays10
+    agg, distinct = mesh_truth(ids10, bday10, s10, d10)
+    print(f"  truth: {len(agg)} groups, {distinct} distinct birthdays")
+
+    def agg_ok(rows):
+        return {r["g"]: (r["c"], r["s"], r["lo"], r["hi"], r["m"]) for r in rows} == agg
+
+    # (label, query, pins, rows check, its kernel, launched once a shard,
+    # plan op, WCOJ tiers, the tier counter that must advance)
+    cases = [
+        ("Q4 2-hop count", Q4, {}, lambda r: r == [{"c": truth["Q4"]}], None, False,
+         "CsrExpandOp", (), None),
+        ("Q6 (WCOJ force)", Q6, {"WCOJ_MODE": "force"},
+         lambda r: r == [{"triangles": tri10["triangles"]}], "intersect", True,
+         "MultiwayIntersectOp", ("count",), "tpu_cypher_mesh_wcoj_total"),
+        ("grouped a.id % 256", MESH_AGG_Q, {}, agg_ok, "segment_agg", True, "AggregateOp",
+         (), "tpu_cypher_mesh_agg_total"),
+        ("DISTINCT count", MESH_DISTINCT_Q, {}, lambda r: r == [{"n": distinct}], None, False,
+         "DistinctOp", (), None),
+        ("Q11 value join", Q11, {}, lambda r: r == [{"n": truth["Q11"]}], "join_probe", False,
+         "JoinOp(inner", (), None),
+    ]
+    meshes = [(f"{MESH_SHARDS} virtual shards on cuda:0",
+               PM.make_row_mesh(["cuda:0"] * MESH_SHARDS))]
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        meshes.append((f"{cards} cards", PM.make_row_mesh()))
+    else:
+        print("  one card: it cannot show launches across devices; the virtual mesh "
+              "runs every tier on cuda:0")
+
+    def single(pg, query, warm=3):
+        """The one-device run beside the mesh's: warm seconds and own peak
+        memory (its tiers are phase 4's to check; avg runs the
+        ``segment_agg`` gate's ``fallback`` there, as it does in phase 4)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        secs = []
+        for _ in range(1 + warm):
+            t0 = time.perf_counter()
+            result = pg.cypher(query)
+            rows = [dict(r) for r in result.records.collect()]
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            release_tables(result)
+        return rows, secs, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    def timed(pg, query, kernels, plan_op, tiers, warm):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        rows, secs, launches, _, results = run_query(
+            torch, pg, query, kernels, plan_op=plan_op, wcoj_tiers=tiers, warm=warm)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        return [dict(r) for r in rows], secs, launches, results, peak
+
+    mesh_launches = {}
+    for label, mesh in meshes:
+        nsh = mesh.size
+        print(f"  mesh: {label}")
+        total = {}
+        for name, query, pins, ok, kernel, per_shard, plan_op, tiers, counter in cases:
+            kernels = (kernel,) if kernel else ()
+            with pinned(**pins):
+                rows1, secs1, peak1 = single(g10, query)
+                check(ok(rows1), f"{name} on one device: {rows1[:3]}")
+                before = REGISTRY.counter(counter).value() if counter else 0
+                # run_query checks every mesh run: one device rung, the
+                # plan, and no kernel launch off the kernel tier
+                dispatch.reset()
+                with PM.use_mesh(mesh):
+                    rows, secs, launches, results, peak = timed(
+                        g10, query, kernels, plan_op, tiers, 5)
+            for k, n in launches.items():
+                total[k] = total.get(k, 0) + n
+            check(ok(rows), f"{name} on the mesh: {rows[:3]}")
+            check(sorted(map(str, rows)) == sorted(map(str, rows1)),
+                  f"{name}: the mesh's rows differ from the single device's")
+            if counter:
+                check(REGISTRY.counter(counter).value() >= before + len(results),
+                      f"{name}: {counter} did not advance on every run")
+            if name.startswith("Q4"):
+                got = [mesh_notes(r, "expand_shards") for r in results]
+                check(all(g == [nsh] for g in got), f"{name}: expand_shards {got}")
+            per = ""
+            if kernel:
+                n = launches.get(kernel, 0)
+                check(n > 0, f"{name}: no {kernel} launch on the mesh")
+                per = f"; {kernel} {n // len(results)} a run"
+            if per_shard:
+                check(n % (nsh * len(results)) == 0,
+                      f"{name}: {n} {kernel} launches over {len(results)} runs of {nsh} shards")
+                per += f", {n // len(results) // nsh} a shard"
+            print(f"    {name}: single device warm median {statistics.median(secs1[1:]) * 1e3:.3f} "
+                  f"ms, own peak {peak1:.3f} GiB; mesh cold {secs[0]:.3f} s, warm median "
+                  f"{statistics.median(secs[1:]) * 1e3:.3f} ms (fastest "
+                  f"{min(secs[1:]) * 1e3:.3f}, slowest {max(secs[1:]) * 1e3:.3f}), own peak "
+                  f"{peak:.3f} GiB; launches {launches}{per}")
+        for k in MESH_KERNELS:
+            check(total.get(k, 0) > 0, f"{k} never launched on the mesh")
+        mesh_launches[label] = {k: total.get(k, 0) for k in MESH_KERNELS}
+        print(f"    kernel-tier launches of the mesh runs on this mesh: {total}")
+    return mesh_launches
+
+
+def run_multihost(torch, two_hop_sf1):
+    """Phase 8's multi-process run: two worker processes on cuda:0 joined
+    over ``gloo`` (NCCL refuses two ranks on one card), 2 virtual shards
+    each, run ``dryrun_multihost`` at SF1; both check their answers against
+    numpy, and both must agree with each other and with SF1's 2-hop
+    truth."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for rank in (0, 1):
+            env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                       WORLD_SIZE="2", RANK=str(rank), LOCAL_RANK=str(rank),
+                       PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "tpu_cypher_torch.parallel.multihost", "--scale", "1.0",
+                 "cuda:0", "cuda:0"],
+                cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        reports = []
+        for p in procs:
+            out, _ = p.communicate(timeout=300)
+            lines = [l for l in out.splitlines() if l.startswith("REPORT ")]
+            check(p.returncode == 0 and lines, f"multihost worker failed: {out[-3000:]}")
+            reports.append(json.loads(lines[-1][len("REPORT "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    check([r["processes"] for r in reports] == [2, 2]
+          and [r["devices"] for r in reports] == [4, 4]
+          and {r["host0"] for r in reports} == {True, False},
+          f"multihost reports {reports}")
+    check(reports[0]["two_hop"] == reports[1]["two_hop"] == two_hop_sf1
+          and reports[0]["rows"] == reports[1]["rows"],
+          f"the two processes disagree: {reports}")
+    print(f"  multihost: 2 processes x 2 virtual shards on cuda:0 over "
+          f"{reports[0]['backend']}, SF1 2-hop {reports[0]['two_hop']} in both (numpy "
+          f"{two_hop_sf1}), rows {reports[0]['rows']}; {time.perf_counter() - t0:.1f} s")
+    return reports[0]["backend"]
+
+
 def main() -> int:
     try:
         import torch
@@ -4356,6 +4590,14 @@ def main() -> int:
     print("the TCK through CypherSession.cuda():")
     run_tck(torch, card)
 
+    # 8. the mesh
+    t8 = time.perf_counter()
+    print(f"the mesh ({card}):")
+    mesh_launches = run_mesh_phase(torch, session, g10,
+                                   (ids10, bday10, src10, dst10, s10, d10), truth, tri10)
+    backend = run_multihost(torch, truth["Q5_rows"])
+    print(f"phase 8 done in {time.perf_counter() - t8:.1f} s")
+
     specs = dispatch.registry()
     kernels = []
     for name in ("expand_rows", "frontier_deg_sum", "segment_agg", "intersect",
@@ -4375,6 +4617,8 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "library_call": r["library_call"],
             "shape": r["shape"],
+            "mesh_launches": {m: n.get(name, 0) for m, n in mesh_launches.items()},
+            "multihost_backend": backend,
             **{k: v for k, v in r.items() if k not in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "library_call", "shape")},

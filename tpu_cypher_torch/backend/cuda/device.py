@@ -7,6 +7,13 @@ sets it through ``use``: ``None`` means ``cuda:0`` and requires CUDA;
 on the host. Without CUDA and without an explicit CPU request ``use``
 raises instead of carrying on quietly on the host.
 
+Under a mesh (``parallel/mesh.py``) this device is the mesh's home
+device: ``CypherSession.cuda(mesh=...)`` sets it to the mesh's first
+device, tables stay whole here, and each sharded tier copies its slices
+to the other devices of the mesh and combines their partials back here.
+A kernel launches with its tensors' device made current
+(``hopper/dispatch.py``), so a shard on another card launches there.
+
 Process-global, like the graph ingest it decides the placement of.
 Serving threads each run their queries on a stream of their own
 (``serve/session_pool.py``); a cache filled on one thread's stream and

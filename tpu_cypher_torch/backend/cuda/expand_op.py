@@ -74,8 +74,10 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ...ir import expr as E
+from ...obs import trace as _obs_trace
 from ...obs.metrics import REGISTRY as _OBS_REGISTRY
 from ...obs.metrics import CounterView
+from ...parallel.mesh import current_mesh
 from ...relational.header import RecordHeader
 from ...relational.ops import RelationalOperator
 from ...runtime.faults import fault_point
@@ -739,20 +741,34 @@ class CsrExpandOp(_FusedExpandBase):
             pos, present = gi.compact_of(id_col, ctx)
             rp, _, _ = gi.csr(self.types_key, self.backwards, ctx)
             return int(csr_frontier_degree_sum(rp, pos, present))
+        mesh = current_mesh()
+        if mesh is not None and mesh.size > 1:
+            # the mesh form: each hop's SpMV runs per shard over contiguous
+            # slices of col_idx and the partial sums combine
+            chain = J.path_count_chain_on_mesh(mesh)
+            _obs_trace.note("expand_shards", mesh.size)
+
+            def orient(types_key, rev):
+                return gi.csr_shards(types_key, rev, ctx, mesh)
+        else:
+            chain = J.path_count_chain
+
+            def orient(types_key, rev):
+                return gi.csr(types_key, rev, ctx)[:2]
         hop_data = []
         for hop in reversed(hops):  # deepest (first executed) hop first
             mask = gi.label_mask(hop.far_labels, ctx)
             if hop.undirected:
-                rp_a, ci_a, _ = gi.csr(hop.types_key, hop.backwards, ctx)
-                rp_b, ci_b, _ = gi.csr(hop.types_key, not hop.backwards, ctx)
+                rp_a, ci_a = orient(hop.types_key, hop.backwards)
+                rp_b, ci_b = orient(hop.types_key, not hop.backwards)
                 loop_cnt = gi.loop_count(hop.types_key, ctx)
                 hop_data.append((rp_a, ci_a, rp_b, ci_b, loop_cnt, mask))
             else:
-                rp, ci, _ = gi.csr(hop.types_key, hop.backwards, ctx)
+                rp, ci = orient(hop.types_key, hop.backwards)
                 hop_data.append((rp, ci, None, None, None, mask))
         dev_ids, _ = gi.node_ids(ctx)
         return int(
-            J.path_count_chain(
+            chain(
                 dev_ids, id_col.data, id_col.valid, tuple(hop_data),
                 num_nodes=gi.num_nodes,
             )
@@ -804,7 +820,10 @@ class CsrExpandOp(_FusedExpandBase):
                 if spec is None:
                     return None  # the materialized path enforces by row masks
                 carry, mask_pairs, _ = spec
-            elif len(hops) == 2 and use_a and use_c and _mxu_dense_mode():
+            elif (
+                len(hops) == 2 and use_a and use_c and current_mesh() is None
+                and _mxu_dense_mode()
+            ):
                 # the dense tier: the nonzero count of the boolean product,
                 # one chain of matrix products instead of the walk's lanes
                 got = self._mxu_distinct_pairs(gi, ctx, hops, id_col)
@@ -1130,7 +1149,10 @@ class CsrExpandIntoOp(_FusedExpandBase):
             fault_point("expand")
             src_is_base = self.source_fld == base.frontier_fld
             pairs = _collected_pairs(hops, (self,))
-            if not pairs and len(hops) == 2 and not self.undirected and _mxu_dense_mode():
+            if (
+                not pairs and len(hops) == 2 and not self.undirected
+                and current_mesh() is None and _mxu_dense_mode()
+            ):
                 got = self._mxu_close_count(gi, ctx, hops, id_col, src_is_base)
                 if got is not None:
                     return got

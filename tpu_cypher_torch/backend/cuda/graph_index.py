@@ -28,6 +28,13 @@ thread's stream is still writing. ``GraphIndex.of`` creates one index
 per graph under a module lock. The reference hangs its cache off the
 graph with no lock.
 
+* per (array, mesh) under a mesh of more than one shard: the contiguous
+  slices the mesh tiers read (``csr_shards``: the CSR ``col_idx`` with
+  ``row_ptr`` on each shard's device, for the chain's SpMV;
+  ``edge_key_shards``: the sorted ``edge_keys``, for the range count), a
+  view on the home device and a copy on another, filled under the lock
+  and published behind the fences as every other entry is
+
 * the dense forms of the count tier (``expand_op``'s dense and tiled
   tiers): ``dense_adj``, one bf16[(Npad, Npad)] adjacency with edge
   multiplicities per (types, orientation), built on the device (the
@@ -54,6 +61,7 @@ import torch
 from ...api import types as T
 from ...ir import expr as E
 from ...obs import trace as _obs_trace
+from ...parallel import mesh as PM
 from . import device as _device
 from .column import Column, TpuBackendError, to_device
 
@@ -172,6 +180,9 @@ class GraphIndex:
         self._dense_adj: Dict[Tuple, Optional[Tuple[Any, int, int]]] = {}
         # (types_key, reverse, block) -> DenseTiles or None
         self._dense_tiles: Dict[Tuple, Optional["DenseTiles"]] = {}
+        # (kind, types_key, reverse, mesh) -> the per-shard slices of the
+        # mesh tiers (``csr_shards``, ``edge_key_shards``)
+        self._shards: Dict[Tuple, Any] = {}
 
     def _publish(self, cache: Dict, key, value):
         """Store a filled entry once this thread's device work is done:
@@ -436,6 +447,42 @@ class GraphIndex:
                 s.astype(np.int64) * n + d.astype(np.int64)
             ))
         return got
+
+    # -- per-shard slices of the mesh tiers -----------------------------
+
+    def _shard_entry(self, key, mesh, fill):
+        """A per-(array, mesh) slice entry: read without a lock, filled
+        under the index's lock, published after the mesh's devices and the
+        backend's stream are fenced (a slice on another card is a copy)."""
+        got = self._shards.get(key)
+        if got is not None:
+            return got
+        with self._lock:
+            got = self._shards.get(key)
+            if got is None:
+                got = fill()
+                PM.fence(mesh)
+                got = self._publish(self._shards, key, got)
+        return got
+
+    def csr_shards(self, types_key: Tuple[str, ...], reverse: bool, ctx, mesh):
+        """One CSR orientation over ``mesh`` for the mesh form of the count
+        chain's SpMV: (``row_ptr`` on each shard's device, ``col_idx`` split
+        into contiguous slices), made once per (orientation, mesh)."""
+        rp, ci, _ = self.csr(types_key, reverse, ctx)
+        return self._shard_entry(
+            ("csr", types_key, reverse, mesh), mesh,
+            lambda: (PM.replicate(mesh, rp), PM.split(mesh, ci)),
+        )
+
+    def edge_key_shards(self, types_key: Tuple[str, ...], ctx, reverse: bool, mesh):
+        """The sorted ``edge_keys`` split into contiguous slices over
+        ``mesh``, for the sharded range count (counts add over contiguous
+        slices), made once per (orientation, mesh)."""
+        keys = self.edge_keys(types_key, ctx, reverse=reverse)
+        return self._shard_entry(
+            ("keys", types_key, reverse, mesh), mesh, lambda: PM.split(mesh, keys)
+        )
 
     # -- dense forms of the count tier ----------------------------------
 

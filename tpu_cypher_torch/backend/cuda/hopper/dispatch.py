@@ -8,7 +8,8 @@ broken-once memo); this gate never does. The tier follows the device of the
 tensors the caller hands it:
 
 * ``plain``    — CPU tensors: the kernel's plain PyTorch version runs;
-* ``kernel``   — CUDA tensors and an eligible call: the kernel runs. A
+* ``kernel``   — CUDA tensors and an eligible call: the kernel runs,
+                 with the tensors' device made the current one. A
                  build or launch error raises (typed when it is a device
                  fault) and is never memoized;
 * ``fallback`` — CUDA tensors and an ineligible call (the semantic
@@ -23,6 +24,7 @@ counters, which the obs registry serves as
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
@@ -82,6 +84,17 @@ def use_counts() -> Dict[str, Dict[str, int]]:
     return out
 
 
+def _current(device: torch.device):
+    """``torch.cuda.device(device)``: the wrappers launch on
+    ``_build.stream(device)`` through the CUDA runtime, which launches on
+    its current device, so it must be the call's, or a tensor on cuda:1
+    would meet a cuda:0 context. Without CUDA (a CPU build) no kernel can
+    launch, and the gate's tests drive the tier with stand-in wrappers."""
+    if torch.cuda.is_available():
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
 def launch(
     name: str,
     kernel_fn: Callable[[], Any],
@@ -109,7 +122,8 @@ def launch(
 
         fault_point(spec.site)
         try:
-            out = kernel_fn()
+            with _current(device):
+                out = kernel_fn()
         except Exception as exc:
             from ....errors import reraise_if_device
 

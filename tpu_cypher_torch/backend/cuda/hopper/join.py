@@ -174,7 +174,7 @@ def hash_build_cuda(keys, size: int):
     claim = torch.empty(size, dtype=torch.int32, device=dev)
     off = torch.empty(max(n, 1), dtype=torch.int32, device=dev)
     meta = torch.empty(3, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _build.stream(dev)
     _build.check(
         _build_fn()(
             keys.data_ptr(), n, (size - 1).bit_length(), table.data_ptr(),
@@ -214,7 +214,7 @@ def hash_probe_cuda(table, max_off, q, qvalid=None):
     counts = torch.empty(nq, dtype=torch.int64, device=dev)
     if nq == 0:
         return lo, counts
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _build.stream(dev)
     _build.check(
         _probe_fn()(
             table.data_ptr(), (size - 1).bit_length(), max_off.data_ptr(),

@@ -637,6 +637,43 @@ def path_count_chain(dev_ids, ids, valid, hops, num_nodes: int):
     return _chain_body(dev_ids, ids, valid, hops, num_nodes, _csr_spmv)
 
 
+def _sharded_spmv(mesh):
+    """The SpMV over a CSR whose ``col_idx`` is split into contiguous edge
+    slices (``GraphIndex.csr_shards``): per shard a local cumsum over its
+    edge range, the ``row_ptr`` bounds clipped into the shard by its start
+    offset, the per-node partial sums combined (the reference's
+    ``_sharded_spmv``, a ``shard_map`` with one ``psum``). ``rp`` is the
+    tuple of per-shard ``row_ptr`` copies, ``ci`` the ``ShardedRows``."""
+    from ...parallel.mesh import combine
+
+    def spmv(rp, ci, w):
+        parts = []
+        for i in mesh.local_shards():
+            c, lo, hi = ci.parts[i], ci.bounds[i], ci.bounds[i + 1]
+            wi = w.to(c.device)
+            t = wi[c.to(torch.int64)]
+            ps = torch.cat([torch.zeros(1, dtype=t.dtype, device=t.device), torch.cumsum(t, 0)])
+            r64 = rp[i].to(torch.int64)
+            a = torch.clamp(r64[:-1] - lo, 0, hi - lo)
+            b = torch.clamp(r64[1:] - lo, 0, hi - lo)
+            parts.append(ps[b] - ps[a])
+        return combine(mesh, parts, "sum", w.device)
+
+    return spmv
+
+
+def path_count_chain_on_mesh(mesh):
+    """``path_count_chain`` with the sharded SpMV: each hop's tuple carries
+    ``GraphIndex.csr_shards``' (per-shard ``row_ptr``, split ``col_idx``)
+    in place of ``(rp, ci)``."""
+    spmv = _sharded_spmv(mesh)
+
+    def run(dev_ids, ids, valid, hops, num_nodes: int):
+        return _chain_body(dev_ids, ids, valid, hops, num_nodes, spmv)
+
+    return run
+
+
 # ---------------------------------------------------------------------------
 # the chain walk: per-hop (base key, position, liveness) frontiers for the
 # fused var-length expand, the DISTINCT-endpoints count and the

@@ -620,8 +620,9 @@ class CudaTable(Table):
         (the count-over-distinct pushdown). All-integer key sets take a
         packed values-only sort; other keys the first-occurrence
         factorization. None for object-valued keys (the caller runs
-        ``distinct``). The reference's sharded tier waits for ROADMAP.md
-        queue 1, item 9."""
+        ``distinct``). Under a mesh the single sort stays: the table is
+        whole on the home device, so the reference's sharded tier would
+        only add routing to it (ROADMAP.md §3)."""
         t = self._depad()
         if t is not self:
             return t.distinct_count(cols)
@@ -799,6 +800,22 @@ class CudaTable(Table):
             col, kind = Column(BOOL, mask, mask), BOOL
         if name in ("sum", "avg", "stdev", "stdevp") and kind not in (I64, F64):
             raise TpuUnsupportedExpr(f"{name} over {kind}")
+        # mesh tier: integer aggregates as per-shard partials combined by
+        # sum, min or max, exact over the integers, so bit-identical to the
+        # single program (floats keep it; see parallel/agg.py)
+        if (
+            kind in (I64, BOOL)
+            and col.int_flag is None
+            and (kind == I64 or name in ("count", "min", "max"))
+        ):
+            from ...parallel.agg import sharded_segment_agg
+
+            mesh_out = sharded_segment_agg(col.data, col.valid, seg_j, name, kind == BOOL, k)
+            if mesh_out is not None:
+                out_data, out_valid = mesh_out
+                if name == "count":
+                    return Column(I64, out_data, None)
+                return Column(F64 if name == "avg" else kind, out_data, out_valid, col.vocab)
         out_data, out_valid, out_iflag, iflag_any = segment_aggregate(
             col.data, col.valid, col.int_flag, seg_j, name=name, kind=kind, k=k
         )

@@ -28,8 +28,10 @@ enforced on the materializing path by comparing global element ids.
 
 Differences by design from the reference (ROADMAP.md queue 3):
 
-* no sharded range-count tier (``_mesh_range_counter`` waits for
-  ``parallel/``);
+* the sharded range-count tier (``_mesh_range_counter``) reads the
+  sorted ``edge_keys`` in contiguous, possibly uneven slices with no
+  sentinel pad keys (``GraphIndex.edge_key_shards``), where the
+  reference needs a shard-divisible key list;
 * one materialize for one close or several: a flat output decodes the
   runs at the output extent on the ``expand_rows`` gate
   (``factorized.decode_lanes``). The reference repeats a single close's
@@ -139,6 +141,36 @@ class _ListSpec(NamedTuple):
     pos: Any
     ok: Any
     rel_fld: str
+    types_key: Tuple[str, ...]
+    rev: bool
+
+
+_MESH_WCOJ_TOTAL = _OBS_REGISTRY.counter(
+    "tpu_cypher_mesh_wcoj_total",
+    "WCOJ count executions whose range probes ran on the sharded "
+    "(per-shard intersect + combine) tier",
+)
+
+
+def _mesh_range_counter(gi: GraphIndex, ctx, lists):
+    """The sharded range count for the WCOJ count tier, or None: with a
+    mesh of more than one shard active, ``TPU_CYPHER_MESH_WCOJ`` at
+    ``auto`` and every list's sorted ``edge_keys`` non-empty. Each shard
+    counts its contiguous slice of the keys on the ``intersect`` gate
+    (``GraphIndex.edge_key_shards``) and the per-query counts sum (see
+    ``parallel.mesh.sharded_range_count``). Returns (count, each list's
+    key slices, shard count)."""
+    from ...parallel import mesh as PM
+
+    mesh = PM.current_mesh()
+    if mesh is None or mesh.size <= 1:
+        return None
+    if _config.MESH_WCOJ.get().strip().lower() != "auto":
+        return None
+    if any(int(lst.keys.shape[0]) == 0 for lst in lists):
+        return None
+    shards = [gi.edge_key_shards(lst.types_key, ctx, lst.rev, mesh) for lst in lists]
+    return PM.sharded_range_count(mesh), shards, mesh.size
 
 
 def _argmin_arm(degs: List[torch.Tensor], valid: torch.Tensor) -> torch.Tensor:
@@ -305,7 +337,7 @@ class MultiwayIntersectOp(_FusedExpandBase):
         for (types_key, rev, rel_fld), (pos, ok) in zip(specs, positions):
             rp, ci, eo = gi.csr(types_key, rev, ctx)
             keys = gi.edge_keys(types_key, ctx, reverse=rev)
-            out.append(_ListSpec(rp, ci, eo, keys, pos, ok, rel_fld))
+            out.append(_ListSpec(rp, ci, eo, keys, pos, ok, rel_fld, types_key, rev))
         return out
 
     def _count(self, gi: GraphIndex, ctx, lists, valid) -> int:
@@ -321,6 +353,11 @@ class MultiwayIntersectOp(_FusedExpandBase):
         degs = [J.expand_degrees_total(lst.rp, lst.pos, valid)[0] for lst in lists]
         arm = _argmin_arm(degs, valid)
         n = gi.num_nodes
+        mesh_tier = _mesh_range_counter(gi, ctx, lists)
+        if mesh_tier is not None:
+            mesh_count, key_shards, nsh = mesh_tier
+            _MESH_WCOJ_TOTAL.inc()
+            _obs_trace.note("wcoj_shards", nsh)
         total = 0
         for a, lst in enumerate(lists):
             deg_a, t_dev = _arm_degrees(degs[a], arm, a, valid)
@@ -339,7 +376,10 @@ class MultiwayIntersectOp(_FusedExpandBase):
                 if b == a:
                     continue
                 q, qok = _probe_queries(other.pos, other.ok, row, cand, live, n)
-                _, cnt, _ = intersect_range_count(other.keys, q, qok)
+                if mesh_tier is not None:
+                    cnt = mesh_count(key_shards[b], q, qok)
+                else:
+                    _, cnt, _ = intersect_range_count(other.keys, q, qok)
                 m = cnt if m is None else m * cnt
             if mask is not None:
                 m = _apply_label_mask(m, mask, cand)

@@ -440,6 +440,7 @@ class CypherSession:
         device=None,
         memory_budget_bytes: Optional[int] = None,
         query_deadline_seconds: Optional[float] = None,
+        mesh=None,
     ) -> "CypherSession":
         """CUDA-backend session. Runs on ``cuda:0`` unless ``device`` names
         another one; ``device="cpu"`` runs every kernel's plain PyTorch
@@ -447,10 +448,30 @@ class CypherSession:
         explicit CPU request this raises: the backend never carries on
         quietly on the host. The device is process-global
         (``backend/cuda/device.py``) — it decides where graph ingest
-        lives, which outlives any one session."""
+        lives, which outlives any one session.
+
+        ``mesh`` activates the sharded tiers process-wide: a
+        ``parallel.mesh.Mesh``, a device list (``["cpu"] * 8`` is a virtual
+        CPU mesh), a card count, or ``"auto"``/``"all"`` (see
+        ``parallel.mesh.resolve_mesh``; ``TPU_CYPHER_MESH`` sets the same
+        default). The mesh's first device is the home device and becomes
+        the backend's: a ``device`` that names another one raises. Use
+        ``parallel.mesh.use_mesh`` for scoped activation."""
         from ..backend.cuda import device as _device
         from ..backend.cuda.table import CudaTable
+        from ..parallel import mesh as _mesh
 
+        if mesh is not None:
+            active = _mesh.activate_mesh(_mesh.resolve_mesh(mesh))
+        else:
+            active = _mesh.current_mesh()
+        if active is not None:
+            home = active.home
+            if device is not None and _device.resolve(device) != home:
+                raise ValueError(
+                    f"device {device} is not the mesh's home device {home}"
+                )
+            device = home
         _device.use(device)
         return CypherSession(
             CudaTable,
