@@ -233,13 +233,33 @@ Phases (any failure exits non-zero and prints no result line):
             then two worker processes on cuda:0 joined over ``gloo``, 2
             virtual shards each (``python -m
             tpu_cypher_torch.parallel.multihost --scale 1.0``), whose SF1
-            answers must equal numpy's and each other's.
+            answers must equal numpy's and each other's;
+9. sources — the graph sources (``tpu_cypher_torch/io``), in a temporary
+            directory: (a) a newly generated SF10 stored as parquet through
+            ``session.register_source("fs", FSGraphSource(...))`` and
+            ``store_graph``, loaded back with ``session.graph``, its arrays
+            equal to the generator's, and Q2, Q3, Q6 (WCOJ on ``intersect``
+            under ``auto``), Q11 and Q15 on it; (b) SF1 with its temporal
+            columns stored as CSV and loaded back, Q2 and Q47's temporal
+            min and max; (c) SF1's arrays as two ``InMemoryTables`` views
+            mapped by Graph DDL (``SqlPropertyGraphDataSource``) under
+            ``HASHED_ID``, whose 63-bit ids must reach 2**54, and
+            ``SERIALIZED_ID``, with Q2, Q6, Q11 and a join on ``id(b) =
+            id(c)``; (d) SF1's Neo4j bulk CSV export, its row counts and
+            headers. Each query cold and five times warm, every answer
+            equal to numpy's truth, every launch on the ``kernel`` tier and
+            each of the five kernels launched; it prints the store, load
+            and query seconds, the warm medians and each step's own peak
+            device memory. Without pandas or pyarrow it says that (a), (b)
+            and (d) did not run, and runs (c).
 
 The kernel launch counts are zeroed just before phase 4 and read just after
 it; the comparisons of phase 3 and the runs of phase 5 do not count. Phase
 6 zeroes them again before its in-process server and reads them after its
 writes, for its own line; phase 8 zeroes them before each mesh and reads
-them after it (``mesh_launches`` in the kernels' line). The line before the last is
+them after it (``mesh_launches`` in the kernels' line); phase 9 zeroes them
+at its start and reads them at its end (``sources_launches``). The line
+before the last is
 the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -4204,6 +4224,277 @@ def run_multihost(torch, two_hop_sf1):
     return reports[0]["backend"]
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the graph sources
+# ---------------------------------------------------------------------------
+
+SOURCE_KERNELS = ("expand_rows", "frontier_deg_sum", "segment_agg", "intersect",
+                  "join_probe")
+# the generator's arrays as two SQL views, mapped by Graph DDL
+SOURCE_DDL = """
+SET SCHEMA mem.snb
+CREATE GRAPH TYPE snbType (
+  Person ( id INTEGER, birthday INTEGER, firstname STRING ),
+  KNOWS,
+  (Person), (Person)-[KNOWS]->(Person)
+)
+CREATE GRAPH snb OF snbType (
+  (Person) FROM persons,
+  (Person)-[KNOWS]->(Person)
+    FROM knows e
+      START NODES (Person) FROM persons p JOIN ON p.id = e.src
+      END   NODES (Person) FROM persons p JOIN ON p.id = e.dst
+)
+"""
+# a join keyed on the element ids (under HASHED_ID, 63-bit keys)
+Q_ID_JOIN = ("MATCH (a:Person)-[:KNOWS]->(b), (c:Person) WHERE id(b) = id(c) "
+             "RETURN count(*) AS n")
+Q_MAX_ID = "MATCH (p:Person) RETURN max(id(p)) AS m, min(id(p)) AS lo"
+
+
+def source_truth(ids1, bday1, s1, d1):
+    """The SF1 answers of phase 9 from the generator's arrays: Q11, and
+    Q47's min and max ``KNOWS.creationDate`` (``ldbc.temporal_seconds`` of
+    the edge index)."""
+    import datetime as dt
+
+    import numpy as np
+
+    from tpu_cypher_torch.io import ldbc
+
+    created = ldbc.TEMPORAL_EPOCH + ldbc.temporal_seconds(np.arange(len(s1)),
+                                                          ldbc.KNOWS_SPREAD)
+
+    def ldt(x):
+        return np.datetime64(x, "us").astype(dt.datetime)
+
+    return {
+        "Q11": int(np.bincount(bday1, minlength=18_000)[bday1[d1]].sum()),
+        "Q47": [{"lo": ldt(created.min()), "hi": ldt(created.max())}],
+    }
+
+
+class Steps:
+    """Phase 9's steps: each one's seconds (host clock, ending in a
+    synchronize) and own peak device memory, printed as it ends."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.seconds = {}
+
+    @contextlib.contextmanager
+    def step(self, label):
+        torch = self.torch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        self.seconds[label] = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        print(f"    {label}: {self.seconds[label]:.3f} s, own peak device memory "
+              f"{peak:.3f} GiB")
+
+
+def run_source_queries(torch, pg, name, cases):
+    """Each of ``cases`` (label, query, kernels, plan operator, WCOJ tiers,
+    expected rows) cold and five times warm through ``run_query``'s
+    device-only checks, each answer equal to the truth; prints the cold
+    seconds, the warm median and the query's own peak device memory.
+    Returns {label: (cold, warm median)}."""
+    out = {}
+    for label, q, kernels, plan_op, wcoj_tiers, want in cases:
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        rows, secs, launches, _, _ = run_query(torch, pg, q, kernels, plan_op=plan_op,
+                                               wcoj_tiers=wcoj_tiers, warm=5)
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        check([dict(r) for r in rows] == want, f"{name} {label}: {rows} != {want}")
+        out[label] = (secs[0], statistics.median(secs[1:]))
+        print(f"    {name} {label} = {dict(rows[0]) if len(rows) == 1 else len(rows)}: "
+              f"cold {secs[0]:.3f} s, warm median {out[label][1] * 1e3:.3f} ms "
+              f"(s: {[round(x, 6) for x in secs[1:]]}); own peak device memory "
+              f"{peak:.3f} GiB; launches {launches}")
+    return out
+
+
+def run_sources_phase(torch, session, card, g1, arrays1, truth, tri1, tri10,
+                      sf10=10.0, sf1=1.0):
+    """Phase 9: the graph sources on the card, in a temporary directory.
+    (a) a newly generated SF10 stored as parquet through the session's
+    catalog (``FSGraphSource``, ``store_graph``), loaded back
+    (``session.graph``), its arrays equal to the generator's, and Q2, Q3,
+    Q6 (WCOJ under ``auto``), Q11 and Q15 on it; (b) SF1 with its temporal
+    columns stored as CSV and loaded back, Q2 and Q47; (c) SF1's arrays as
+    two ``InMemoryTables`` views mapped by ``SOURCE_DDL``
+    (``SqlPropertyGraphDataSource``) under ``HASHED_ID`` (ids up to 2**63:
+    one of 2**54 or more required) and ``SERIALIZED_ID``, with Q2, Q6,
+    Q11 and the join on ``id(b) = id(c)``; (d) SF1's Neo4j bulk CSV export
+    (``Neo4jBulkCSVDataSink``), its row counts and headers. Every answer is
+    held to numpy's truth, every launch to the ``kernel`` tier. pandas or
+    pyarrow missing: (a), (b) and (d) are reported as not run and (c) runs.
+    Returns the phase's launches per kernel (the counts are zeroed at its
+    start)."""
+    import csv
+    import importlib
+    import tempfile
+
+    import numpy as np
+
+    from tpu_cypher_torch.backend.cuda.expand_op import _mxu_dense_mode
+    from tpu_cypher_torch.backend.cuda.hopper import dispatch
+    from tpu_cypher_torch.io import FSGraphSource, Neo4jBulkCSVDataSink
+    from tpu_cypher_torch.io.ldbc import generate_snb
+    from tpu_cypher_torch.io.sql import (
+        IdGenerationStrategy,
+        InMemoryTables,
+        SqlPropertyGraphDataSource,
+    )
+    from tpu_cypher_torch.relational.session import PropertyGraph
+
+    t9 = time.perf_counter()
+    ids1, bday1, src1, dst1, s1, d1 = arrays1
+    sub = source_truth(ids1, bday1, s1, d1)
+    missing = []
+    for module in ("pandas", "pyarrow"):
+        try:
+            importlib.import_module(module)
+        except ImportError as exc:
+            missing.append(f"{module} ({exc})")
+    steps = Steps(torch)
+    # WCOJ hands SF1's triangle count back where the dense tier is live (on
+    # the card), and the float32 guard then has it walk, as in phase 4
+    q6_sf1_tiers = ("handback",) if _mxu_dense_mode() else ("count",)
+    wcoj = ("expand_rows", "intersect")
+    mwi = "MultiwayIntersectOp"
+    dispatch.reset()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sources_") as tmp:
+        if missing:
+            print(f"  NOT RUN: (a) parquet, (b) CSV and (d) the Neo4j bulk export need "
+                  f"pandas and pyarrow; missing here: {', '.join(missing)}")
+        else:
+            # (a) parquet at SF10
+            print(f"  (a) SF10 through FSGraphSource(parquet) ({card}):")
+            with steps.step("(a) generate and ingest SF10"):
+                g10 = PropertyGraph(session, generate_snb(sf10, session, seed=SEED))
+            arrays10 = graph_arrays(g10)
+            session.register_source("fs", FSGraphSource(os.path.join(tmp, "pq"), "parquet"))
+            with steps.step("(a) store fs.snb10"):
+                session.store_graph("fs.snb10", g10)
+            del g10
+            torch.cuda.empty_cache()
+            with steps.step("(a) load fs.snb10"):
+                loaded = session.graph("fs.snb10")
+            check(all(np.array_equal(x, y) for x, y in zip(arrays10, graph_arrays(loaded))),
+                  "the loaded SF10 differs from the generated arrays")
+            size = sum(os.path.getsize(os.path.join(d, f))
+                       for d, _, fs in os.walk(os.path.join(tmp, "pq")) for f in fs)
+            print(f"    stored {size} bytes; the loaded graph's ids, birthdays and KNOWS "
+                  f"equal the generator's")
+            with steps.step("(a) queries"):
+                run_source_queries(torch, loaded, "(a)", [
+                    ("Q2", Q2, ("frontier_deg_sum",), "CsrExpandOp", (),
+                     [{"c": truth["Q2"]}]),
+                    ("Q3", Q3, ("expand_rows", "segment_agg"), "CsrExpandOp", (),
+                     [{"lo": truth["Q3"][0], "hi": truth["Q3"][1]}]),
+                    ("Q6", Q6, wcoj, mwi, ("count",), [{"triangles": tri10}]),
+                    ("Q11", Q11, ("expand_rows", "join_probe"), "JoinOp(inner", (),
+                     [{"n": truth["Q11"]}]),
+                    ("Q15", Q15, ("expand_rows", "segment_agg"), "CsrExpandOp", (),
+                     truth["Q15"]),
+                ])
+            del loaded
+            session.deregister_source("fs")
+            torch.cuda.empty_cache()
+
+            # (b) CSV at SF1 with its temporal columns
+            print("  (b) SF1 with temporal columns through FSGraphSource(csv):")
+            with steps.step("(b) generate and ingest temporal SF1"):
+                gt = PropertyGraph(session, generate_snb(sf1, session, seed=SEED,
+                                                         temporal=True))
+            session.register_source("csv", FSGraphSource(os.path.join(tmp, "csv"), "csv"))
+            with steps.step("(b) store csv.snb1t"):
+                session.store_graph("csv.snb1t", gt)
+            del gt
+            with steps.step("(b) load csv.snb1t"):
+                loaded = session.graph("csv.snb1t")
+            with steps.step("(b) queries"):
+                run_source_queries(torch, loaded, "(b)", [
+                    ("Q2", Q2, ("frontier_deg_sum",), "CsrExpandOp", (),
+                     [{"c": len(src1)}]),
+                    ("Q47", Q47, ("expand_rows", "segment_agg"), "CsrExpandOp", (),
+                     sub["Q47"]),
+                ])
+            del loaded
+            session.deregister_source("csv")
+
+        # (c) Graph DDL over SQL views at SF1
+        print("  (c) SF1's arrays as SQL views through Graph DDL:")
+        tables = {
+            "snb.persons": {"id": ids1.tolist(), "birthday": bday1.tolist(),
+                            "firstname": [f"p{i}" for i in range(len(ids1))]},
+            "snb.knows": {"src": src1.tolist(), "dst": dst1.tolist()},
+        }
+        for strategy in IdGenerationStrategy:
+            ns = f"sql_{strategy.value}"
+            session.register_source(ns, SqlPropertyGraphDataSource(
+                SOURCE_DDL, {"mem": InMemoryTables(tables)}, id_strategy=strategy))
+            with steps.step(f"(c) load {ns}.snb"):
+                sg = session.graph(f"{ns}.snb")
+            m = sg.cypher(Q_MAX_ID).records.collect()[0]
+            print(f"    {strategy.name}: node ids from {m['lo']} to {m['m']} "
+                  f"(2**54 = {1 << 54})")
+            if strategy is IdGenerationStrategy.HASHED_ID:
+                check(m["m"] >= 1 << 54, f"HASHED_ID gave no id of 2**54 or more: {m}")
+            with steps.step(f"(c) {strategy.name} queries"):
+                run_source_queries(torch, sg, f"(c) {strategy.name}", [
+                    ("Q2", Q2, ("frontier_deg_sum",), "CsrExpandOp", (),
+                     [{"c": len(src1)}]),
+                    ("Q6", Q6, wcoj, mwi, q6_sf1_tiers, [{"triangles": tri1}]),
+                    ("Q11", Q11, ("expand_rows", "join_probe"), "JoinOp(inner", (),
+                     [{"n": sub["Q11"]}]),
+                    ("id join", Q_ID_JOIN, ("expand_rows", "join_probe"), "JoinOp(inner",
+                     (), [{"n": len(src1)}]),
+                ])
+            del sg
+            session.deregister_source(ns)
+
+        # (d) the Neo4j bulk CSV export of SF1
+        if not missing:
+            print("  (d) SF1's Neo4j bulk CSV export:")
+            root = os.path.join(tmp, "neo4j")
+            with steps.step("(d) export"):
+                Neo4jBulkCSVDataSink(root).store("snb1", g1._graph)
+            counts = {}
+            for part, want, heads in (("nodes/Person", len(ids1), ("id:ID",)),
+                                      ("relationships/KNOWS", len(src1),
+                                       (":START_ID", ":END_ID"))):
+                d = os.path.join(root, "snb1", part)
+                with open(os.path.join(d, "schema.csv"), newline="") as f:
+                    head = next(csv.reader(f))
+                with open(os.path.join(d, "part_0.csv"), newline="") as f:
+                    n = sum(1 for _ in csv.reader(f))
+                check(n == want and all(h in head for h in heads),
+                      f"(d) {part}: {n} rows (want {want}), header {head}")
+                counts[part] = (n, head)
+            check(os.access(os.path.join(root, "snb1", "import.sh"), os.X_OK),
+                  "(d) import.sh is missing or not executable")
+            print(f"    rows and headers: {counts}")
+
+    launches = dispatch.use_counts()
+    for name in SOURCE_KERNELS:
+        c = launches[name]
+        check(c["kernel"] > 0 and c["plain"] == 0 and c["fallback"] == 0,
+              f"phase 9: {name} launches {c}")
+    total = time.perf_counter() - t9
+    print(f"  phase 9 launches (kernel tier): "
+          f"{ {n: launches[n]['kernel'] for n in SOURCE_KERNELS} }; "
+          f"{'(a), (b) and (d) not run; ' if missing else ''}steps (s): "
+          f"{ {k: round(v, 3) for k, v in steps.seconds.items()} }; total {total:.1f} s")
+    return {n: launches[n]["kernel"] for n in SOURCE_KERNELS}
+
+
 def main() -> int:
     try:
         import torch
@@ -4598,6 +4889,12 @@ def main() -> int:
     backend = run_multihost(torch, truth["Q5_rows"])
     print(f"phase 8 done in {time.perf_counter() - t8:.1f} s")
 
+    # 9. the graph sources
+    print(f"the graph sources ({card}):")
+    sources_launches = run_sources_phase(
+        torch, session, card, g1, (ids1, bday1, src1, dst1, s1, d1), truth,
+        tri1["triangles"], tri10["triangles"])
+
     specs = dispatch.registry()
     kernels = []
     for name in ("expand_rows", "frontier_deg_sum", "segment_agg", "intersect",
@@ -4619,6 +4916,7 @@ def main() -> int:
             "shape": r["shape"],
             "mesh_launches": {m: n.get(name, 0) for m, n in mesh_launches.items()},
             "multihost_backend": backend,
+            "sources_launches": sources_launches[name],
             **{k: v for k, v in r.items() if k not in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "library_call", "shape")},

@@ -423,6 +423,19 @@ class Column:
             vals = [v for v, keep in zip(vals, row_mask) if keep]
         return vals
 
+    def frame_values(self, n: int) -> Any:
+        """The first ``n`` rows as a DataFrame column source (the filesystem
+        and Neo4j exports, ``CudaTable.frame_columns``): one host numpy
+        array for a non-empty, null-free I64, BOOL or F64 column without
+        integer rows, whose dtype (int64, bool, float64) is the one pandas
+        infers from the decoded values; the decoded values otherwise."""
+        if n and self.kind in (I64, F64, BOOL) and self.int_flag is None:
+            data, valid, _ = self._host_arrays()
+            if valid is None or bool(valid[:n].all()):
+                dtype = {I64: np.int64, F64: np.float64, BOOL: np.bool_}[self.kind]
+                return np.asarray(data[:n], dtype=dtype)
+        return self.to_values()[:n]
+
     def to_values_range(self, lo: int, hi: int) -> List[Any]:
         """Decode rows ``[lo, hi)`` only: the chunked decode step of cursor
         streaming (``CudaTable.rows_chunked``). A scalar column decodes its

@@ -167,6 +167,14 @@ class CudaTable(Table):
         for i in range(self._nrows):
             yield {c: v[i] for c, v in decoded.items()}
 
+    def frame_columns(self) -> Dict[str, Any]:
+        """Each column as a DataFrame column source (``Column.frame_values``):
+        the filesystem source builds its part files from these, so a
+        null-free number column reaches pandas as one array, not as a
+        Python value per row."""
+        t = self._depad()
+        return {c: col.frame_values(t._nrows) for c, col in t._cols.items()}
+
     def rows_chunked(self, chunk_rows: int) -> Iterator[List[Dict[str, Any]]]:
         """Yield row dicts in batches of ``chunk_rows`` without decoding the
         whole result: per chunk each column decodes only its ``[lo, hi)``
