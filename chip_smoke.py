@@ -251,7 +251,24 @@ Phases (any failure exits non-zero and prints no result line):
             each of the five kernels launched; it prints the store, load
             and query seconds, the warm medians and each step's own peak
             device memory. Without pandas or pyarrow it says that (a), (b)
-            and (d) did not run, and runs (c).
+            and (d) did not run, and runs (c);
+10. analyzer — the port's static analyzer (``tpu_cypher_torch/analysis``)
+            against the card: (a) ``python -m tpu_cypher_torch.analysis
+            --format json`` over the checkout exits 0, clean, with seven
+            rules and an empty baseline (files checked, findings,
+            suppressions by rule and seconds printed); (b) the kernel names
+            and impls ``obs-emission`` collects from the sources equal
+            ``dispatch.registry()`` (five kernels), each of which launched
+            on the ``kernel`` tier in phases 4 and 9; (c) SF10 Q2, Q6, Q11
+            and Q15 and SF1 Q5, warm on the phase-4 graphs, under
+            ``torch.cuda.set_sync_debug_mode("warn")``: every sync's stack
+            is attributed to its innermost frame in ``tpu_cypher_torch/``
+            and each site printed as ``file:line:function`` with what the
+            ``host-sync`` rule says of it (flagged, suppressed, accepted
+            under a ``fault_point``, outside its scope, or implicit: a
+            data-dependent size or a copy the taint model does not model);
+            a site whose line holds a sync kind of the taint model that the
+            model did not see fails the run.
 
 The kernel launch counts are zeroed just before phase 4 and read just after
 it; the comparisons of phase 3 and the runs of phase 5 do not count. Phase
@@ -355,6 +372,16 @@ Q15 = (
 Q16 = (
     "MATCH (a:Person)-[:KNOWS]->(b:Person) RETURN DISTINCT b.birthday AS d "
     "ORDER BY d SKIP 100 LIMIT 50"
+)
+
+# phase 10: the queries traced for device->host syncs, which between them
+# launch all five kernels ("small" is SF1, "big" SF10)
+SYNC_QUERIES = (
+    ("Q2 (SF10)", "big", Q2),
+    ("Q5 (SF1)", "small", Q5),
+    ("Q6 (SF10)", "big", Q6),
+    ("Q11 (SF10)", "big", Q11),
+    ("Q15 (SF10)", "big", Q15),
 )
 
 # the chain walk: the 2-hop DISTINCT count at SF10 (bench.py
@@ -1562,11 +1589,16 @@ def check_join_probe(torch, g10, q11_truth, report):
     steps = probe_steps(torch, table, bound_off, q64, lvalid)
     ops = 10 * nq + 10 * steps
     b_ms, b_by = bound(nbytes, ops)
+    # the build kernel's bytes: the valid build keys read (8 B each), the
+    # 16 B slots and the 4 B probe bound written; no single PyTorch call
+    # builds an open-addressing table, so it has no library time
+    build_bound_ms, _ = bound(8 * nvalid + 16 * size + 4, 0)
     report["join_probe"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms,
         library_call="torch.searchsorted (left and right) over the sorted build keys",
-        build_ms=build_ms, tier_ms=tier_ms, plain_build_ms=plain_build_ms,
+        build_ms=build_ms, build_bound_ms=build_bound_ms, build_bound_by="bytes",
+        build_library_ms=None, tier_ms=tier_ms, plain_build_ms=plain_build_ms,
         shape=(f"Q11 at SF10: {nq} probe lanes, {nvalid}-row build, "
                f"{int((table[:, 3] > 0).sum())} unique keys in {size} slots, "
                f"probe bound {bound_off}, {steps} slot reads"),
@@ -1575,7 +1607,8 @@ def check_join_probe(torch, g10, q11_truth, report):
           f"{build_ms:.4f} ms, kernel tier as the gate runs it {tier_ms:.4f} ms; "
           f"build's plain version (torch ops) {plain_build_ms:.4f} ms, plain "
           f"version {plain_ms:.4f} ms, two torch.searchsorted {lib_ms:.4f} ms; "
-          f"bound {b_ms:.4f} ms ({b_by}); {steps} slot reads over {nq} lanes")
+          f"bound {b_ms:.4f} ms ({b_by}); {steps} slot reads over {nq} lanes; "
+          f"the build's bound {build_bound_ms:.5f} ms (bytes)")
 
 
 def check_expand_rows_walks(torch, g10, q17_truth, q18_params, q18_truth, report):
@@ -4495,6 +4528,79 @@ def run_sources_phase(torch, session, card, g1, arrays1, truth, tri1, tri10,
     return {n: launches[n]["kernel"] for n in SOURCE_KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the static analyzer against the card
+# ---------------------------------------------------------------------------
+
+ANALYZER_RULES = 7
+ANALYZER_BASELINE = "tpu_cypher_torch/analysis/baseline.json"
+
+
+def run_analyzer_phase(torch, card, graphs, phase_launches):
+    """Phase 10: (a) ``python -m tpu_cypher_torch.analysis --format json``
+    over the checkout's ``tpu_cypher_torch/`` must exit 0 and report clean
+    with seven rules and an empty baseline; (b) the kernel names and impls
+    that ``obs-emission`` collects from the sources must equal
+    ``dispatch.registry()``, and each of the five kernels must have
+    launched on the ``kernel`` tier in phases 4 and 9 (``phase_launches``);
+    (c) ``SYNC_QUERIES`` warm on the phase-4 graphs under torch's sync
+    debug mode: per query the syncs and their sites by analyzer status,
+    failing when a site whose line holds a sync kind of the taint model
+    escaped it (``missed``). Returns {query: {status: count}}."""
+    from tpu_cypher_torch.analysis import runner
+    from tpu_cypher_torch.analysis import synctrace as ST
+    from tpu_cypher_torch.backend.cuda.hopper import dispatch
+
+    t10 = time.perf_counter()
+    # (a) the CLI, as a user runs it
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_cypher_torch.analysis", "--format", "json",
+         "tpu_cypher_torch"],
+        cwd=HERE, capture_output=True, text=True, timeout=300,
+    )
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"the analyzer exited {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    got = json.loads(proc.stdout)
+    with open(os.path.join(HERE, ANALYZER_BASELINE)) as f:
+        committed = json.load(f)["findings"]
+    check(got["clean"] and not got["findings"] and not got["baselined"]
+          and not committed and got["rules_run"] == ANALYZER_RULES,
+          f"the analyzer is not clean with {ANALYZER_RULES} rules and an empty "
+          f"baseline: {got['rules_run']} rules, {len(got['findings'])} findings, "
+          f"{len(got['baselined'])} baselined, {len(committed)} committed")
+    by_rule = {}
+    for f in got["suppressed"]:
+        by_rule[f["rule"]] = by_rule.get(f["rule"], 0) + 1
+    print(f"  analyzer CLI: {got['files_checked']} files checked, {got['rules_run']} "
+          f"rules, {len(got['findings'])} findings, {len(got['baselined'])} baselined, "
+          f"suppressions by rule {dict(sorted(by_rule.items()))}, {cli_s:.2f} s")
+
+    # (b) the static registry against the runtime one
+    t0 = time.perf_counter()
+    report = runner.check_engine()
+    smap = ST.SyncMap(report, runner.ENGINE_ROOT)
+    static = dict(report.project.dispatch_kernels)
+    runtime = {n: spec.impls for n, spec in dispatch.registry().items()}
+    check(static == runtime and len(runtime) == 5,
+          f"obs-emission's kernels {static} differ from dispatch.registry() {runtime}")
+    for name in runtime:
+        check(phase_launches.get(name, 0) > 0,
+              f"{name} launched on no kernel tier in phases 4 and 9")
+    print(f"  registry: the {len(static)} kernels obs-emission collects equal "
+          f"dispatch.registry(), impls {static}; kernel-tier launches in phases 4 and 9 "
+          f"{phase_launches}; in-process analysis {time.perf_counter() - t0:.2f} s, "
+          f"{len(smap.static)} sync sites in its inventory")
+
+    # (c) the card's own sync trace
+    torch.cuda.synchronize()
+    out, escaped = ST.trace_queries(torch, smap, graphs, SYNC_QUERIES, ST.cuda_sync_trace)
+    check(not escaped, f"syncs the taint model missed: {escaped}")
+    print(f"phase 10 done in {time.perf_counter() - t10:.1f} s ({card})")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4894,6 +5000,12 @@ def main() -> int:
     sources_launches = run_sources_phase(
         torch, session, card, g1, (ids1, bday1, src1, dst1, s1, d1), truth,
         tri1["triangles"], tri10["triangles"])
+
+    # 10. the static analyzer against the card
+    print(f"the static analyzer ({card}):")
+    phase_launches = {n: counts[n]["kernel"] + sources_launches[n]
+                      for n in dispatch.registry()}
+    run_analyzer_phase(torch, card, {"small": g1, "big": g10}, phase_launches)
 
     specs = dispatch.registry()
     kernels = []

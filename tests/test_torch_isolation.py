@@ -115,7 +115,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(base, f)
     yield os.path.join(ROOT, "chip_smoke.py")
-    for name in ("kernel_ab.py", "query_ab.py", "serve_smoke.py"):
+    for name in ("kernel_ab.py", "query_ab.py", "serve_smoke.py", "sync_map.py"):
         yield os.path.join(ROOT, "scripts", name)
 
 

@@ -85,6 +85,7 @@ import torch
 
 from ...api.values import Duration, to_cypher_string
 from ...ir import expr as E
+from ...runtime.faults import fault_point
 from . import device as _device
 from . import lists as LS
 from . import temporal as TP
@@ -1160,6 +1161,7 @@ class CudaEvaluator:
         valid = a.valid_mask() & b.valid_mask()
         span = (b.data - a.data) if step > 0 else (a.data - b.data)
         lens = torch.where(valid & (span >= 0), span // abs(step) + 1, torch.zeros_like(span))
+        fault_point("expr")  # the element total read below
         total = int(lens.sum())
         dev = lens.device
         parent = torch.repeat_interleave(
@@ -1321,6 +1323,7 @@ class CudaEvaluator:
         vm = valid if valid is not None else torch.ones(self.n, dtype=torch.bool, device=out.device)
         lo, hi = TP.MIN_DAYS * TP.US_PER_DAY, (TP.MAX_DAYS + 1) * TP.US_PER_DAY
         bad = vm & ((mid < TP.MIN_DAYS) | (mid > TP.MAX_DAYS) | (out < lo) | (out >= hi))
+        fault_point("expr")  # the range-check counts read below
         if t.kind == DATE:
             timed = vm & (torch.remainder(dmic, TP.US_PER_DAY) != 0)
             nbad, ntimed, nvalid = (int(x) for x in torch.stack(
@@ -1367,6 +1370,7 @@ class CudaEvaluator:
         out, first = got
         if first is not None:
             bad = inner.valid_mask() & (first < 1)
+            fault_point("expr")  # the range check read below
             if bool(torch.any(bad)):
                 self._oracle_raise(lambda v: E.FunctionCall(name, (E.Lit(unit), v)), [inner], bad)
         if name == "date.truncate":
@@ -1501,6 +1505,7 @@ class CudaEvaluator:
             return x
         d = x.data
         bad = x.valid_mask() & ~((d >= -(2.0**63)) & (d < 2.0**63))
+        fault_point("expr")  # the range check read below
         if bool(torch.any(bad)):
             lookup("tointeger").fn(float(d[bad][0]))
             raise TpuUnsupportedExpr("toInteger() beyond int64")
@@ -1633,6 +1638,7 @@ def _fmod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     kernel returns NaN where the quotient overflows in some versions."""
     if a.device.type == "cpu":
         with np.errstate(invalid="ignore"):
+            # tpulint: allow[host-sync] reason=the CPU branch: a and b live in host memory, no device read
             return torch.from_numpy(np.fmod(a.numpy(), b.numpy()))
     return torch.fmod(a, b)
 

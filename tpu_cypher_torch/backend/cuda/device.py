@@ -86,4 +86,5 @@ def fence() -> None:
     to wait for on the CPU."""
     d = _DEVICE
     if d is not None and d.type == "cuda":
+        # tpulint: allow[host-sync] reason=the fence is the contract: a lazily built structure is published to other streams only after its work is done
         torch.cuda.current_stream(d).synchronize()

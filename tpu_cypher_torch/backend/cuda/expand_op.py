@@ -262,6 +262,7 @@ def _fused_chain_walk(
     carried: Dict[str, Any] = {}
     last = hops[0]
     bucketed = bucketing.enabled()
+    fault_point("expand")  # the hop totals read below
     for hop in reversed(hops):
         rp, ci, eo = gi.csr(hop.types_key, hop.backwards, ctx)
         mask = gi.label_mask(hop.far_labels, ctx)
@@ -649,6 +650,7 @@ class CsrExpandOp(_FusedExpandBase):
         are tail-padded past it (pad lanes sanitized to row 0)."""
         ctx = self.context
         rp, ci, eo = gi.csr(self.types_key, reverse, ctx)
+        fault_point("expand")  # the emission total read below
         deg, t_dev = J.expand_degrees_total(rp, pos, present)
         total = int(t_dev)
         # pre-flight: (row, nbr, orig) int64 lanes + every gathered output
@@ -1347,6 +1349,7 @@ class CsrOptionalExpandOp(_FusedExpandBase):
         # unmatched real row emits one null row; a pad row none)
         nrows = in_t.size if int(pos.shape[0]) != in_t.size else None
         deg, counts, t_dev = J.optional_expand_degrees(rp, pos, present, nrows=nrows)
+        fault_point("expand")  # the lane totals read below
         total, matched_total = torch.stack((t_dev, torch.sum(deg))).tolist()
         bucketing.exact_size(total)  # the lanes on the trace span and counters
         row, nbr, orig, matched = _optional_lanes(

@@ -96,6 +96,7 @@ def decode_lanes(W, w, lo: int, hi: int):
 
     n = hi - lo
     dev = W.device
+    fault_point("expand")  # the end-lane read below
     ends = torch.searchsorted(
         W, torch.tensor([lo, hi - 1], dtype=torch.int64, device=dev), right=True
     )
@@ -224,7 +225,6 @@ class FactorizedTable(Table):
         lanes and remainders from ``decode_lanes``, the run positions per
         level, then every column gathered — prefix columns at the lane,
         level columns through their gather-map chain."""
-        fault_point("expand")  # the decode's end-lane read
         i, inner = decode_lanes(self._W, self._w, lo, hi)
         pos = J.run_positions(
             i, inner, tuple(lv.lo for lv in self._levels),
@@ -346,6 +346,7 @@ class FactorizedTable(Table):
     def cache(self) -> "FactorizedTable":
         self._prefix.cache()
         if self._w.is_cuda:
+            # tpulint: allow[host-sync] reason=the wait is what cache() promises its caller; it cannot be avoided
             torch.cuda.synchronize(self._w.device)
         return self
 

@@ -56,6 +56,7 @@ dispatch.register(
     "kernel_agg",
     replaces="tpu_cypher/backend/tpu/pallas/aggregate.py:83",
     source="tpu_cypher_torch/csrc/segment_reduce.cu",
+    impls=("_lib", "_launch"),
 )
 
 MAX_GROUPS = 256

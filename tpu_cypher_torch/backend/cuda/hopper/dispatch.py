@@ -1,10 +1,10 @@
 """Kernel dispatch: ONE gate between the engine and every Hopper kernel.
 
 The port of ``tpu_cypher/backend/tpu/pallas/dispatch.py`` (``register`` /
-``launch``), with the same registry, ``kernel_*`` fault sites, trace spans
-and per-(kernel, tier) launch counters. It differs in one place: the
-reference quietly gives way to jnp after a compiled-path failure (its
-broken-once memo); this gate never does. The tier follows the device of the
+``launch``), with the same registry (impls included), ``kernel_*`` fault
+sites, trace spans and per-(kernel, tier) launch counters. It differs in
+one place: the reference quietly gives way to jnp after a compiled-path
+failure (its broken-once memo); this gate never does. The tier follows the device of the
 tensors the caller hands it:
 
 * ``plain``    — CPU tensors: the kernel's plain PyTorch version runs;
@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -38,13 +38,17 @@ TIERS = ("kernel", "plain", "fallback")
 
 @dataclass(frozen=True)
 class KernelSpec:
-    """One registered kernel: its fault site, the TPU kernel it replaces
-    and its CUDA source under ``tpu_cypher_torch/csrc``."""
+    """One registered kernel: its fault site, the TPU kernel it replaces,
+    its CUDA source under ``tpu_cypher_torch/csrc`` and its impls: the
+    functions of the registering module that load the kernel's library
+    or call its ctypes ``*_launch`` symbols, the only places the
+    ``obs-emission`` rule (``tpu_cypher_torch/analysis``) lets them."""
 
     name: str
     site: str
     replaces: str
     source: str
+    impls: Tuple[str, ...]
 
 
 _KERNELS: Dict[str, KernelSpec] = {}
@@ -56,8 +60,10 @@ KERNEL_LAUNCH = _REGISTRY.counter(
 )
 
 
-def register(name: str, site: str, replaces: str, source: str) -> None:
-    _KERNELS[name] = KernelSpec(name, site, replaces, source)
+def register(
+    name: str, site: str, replaces: str, source: str, impls: Tuple[str, ...]
+) -> None:
+    _KERNELS[name] = KernelSpec(name, site, replaces, source, tuple(impls))
     for tier in TIERS:
         KERNEL_LAUNCH.inc(0, kernel=name, tier=tier)
 

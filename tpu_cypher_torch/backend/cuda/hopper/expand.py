@@ -43,6 +43,7 @@ dispatch.register(
     "kernel_expand",
     replaces="tpu_cypher/backend/tpu/pallas/expand.py:82",
     source="tpu_cypher_torch/csrc/expand_rows.cu",
+    impls=("_lib", "_launch"),
 )
 
 

@@ -40,6 +40,7 @@ dispatch.register(
     "kernel_frontier",
     replaces="tpu_cypher/backend/tpu/pallas/frontier.py:60",
     source="tpu_cypher_torch/csrc/frontier_deg_sum.cu",
+    impls=("_lib", "_launch"),
 )
 
 

@@ -42,6 +42,7 @@ dispatch.register(
     "kernel_intersect",
     replaces="tpu_cypher/backend/tpu/pallas/intersect.py:106",
     source="tpu_cypher_torch/csrc/range_count.cu",
+    impls=("_lib", "_launch"),
 )
 
 

@@ -775,18 +775,19 @@ def _endpoint_key(akey, row, nbr, use_a: bool, use_c: bool, num_nodes: int):
 
 def _run_count(key, present):
     """Distinct keys among the present lanes: absent lanes take the
-    sentinel, which sorts after every endpoint key, then the run boundaries
-    among the first ``valid_n`` sorted keys (the reference's count of
-    boundaries under ``valid_n``). ``key`` is overwritten in place."""
+    sentinel, which sorts after every endpoint key, so the sorted keys'
+    runs less the sentinel's own run are the reference's count of
+    boundaries under ``valid_n``, with no read of ``valid_n`` on the host.
+    ``key`` is overwritten in place."""
     if present is not None:
         key.masked_fill_(~present, _KEY_SENTINEL)
-        valid_n = int(torch.sum(present, dtype=torch.int64))
-    else:
-        valid_n = int(key.shape[0])
-    if valid_n == 0:
+    if int(key.shape[0]) == 0:
         return torch.zeros((), dtype=torch.int64, device=key.device)
-    s = torch.sort(key).values[:valid_n]
-    return torch.sum(s[1:] != s[:-1], dtype=torch.int64) + 1
+    s = torch.sort(key).values
+    runs = torch.sum(s[1:] != s[:-1], dtype=torch.int64) + 1
+    if present is None:
+        return runs
+    return runs - (s[-1] == _KEY_SENTINEL).to(torch.int64)
 
 
 def distinct_pairs_count_final(lanes, akey, mask, use_a: bool, use_c: bool,
@@ -1090,6 +1091,7 @@ def _segment_reduce(vals, seg, k: int, op: str, identity):
     JAX reference resolves it (min -> -0.0, max -> 0.0) in any order."""
     if vals.dtype == torch.float64 and op in ("min", "max"):
         keys = f64_order_keys(vals)
+        # tpulint: allow[host-sync] reason=a CPU scalar: the identity's order key from a host tensor, no device read
         ident = int(f64_order_keys(torch.tensor([float(identity)], dtype=torch.float64))[0])
         out = torch.full((k,), ident, dtype=torch.int64, device=vals.device)
         out = out.scatter_reduce(
@@ -1112,6 +1114,7 @@ def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     (one ulp off on about 1% of inputs with its AVX-512 path), so a CPU
     tensor takes numpy's."""
     if x.device.type == "cpu":
+        # tpulint: allow[host-sync] reason=the CPU branch: x lives in host memory, no device read
         return torch.from_numpy(np.sqrt(x.numpy()))
     return torch.sqrt(x)
 

@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...runtime.faults import fault_point
 from .column import (
     LST,
     MIX,
@@ -54,6 +55,7 @@ def segment_lanes(rp, pos, deg, nchild: int) -> Tuple[torch.Tensor, torch.Tensor
     child positions as the column index; none for an empty result."""
     from .hopper import expand_materialize_counted
 
+    fault_point("expr")  # the lane total read below
     total = int(deg.sum()) if int(deg.shape[0]) else 0
     dev = deg.device
     if total == 0:  # before the gate: it takes no empty frontier
@@ -143,6 +145,7 @@ def concat_rows(a: Column, b: Column, valid: Optional[torch.Tensor]) -> Column:
     rows = torch.arange(n, dtype=torch.int64, device=dev)
     out_lens = la + lb
     out_start = torch.cumsum(out_lens, 0) - out_lens
+    fault_point("expr")  # the element total read below
     pos = torch.empty(int(out_lens.sum()) if n else 0, dtype=torch.int64, device=dev)
     for lens, side, shift, lead in ((la, a, 0, None), (lb, b, len(a.child), la)):
         r, p = segment_lanes(side.starts(), rows, lens, len(side.child))

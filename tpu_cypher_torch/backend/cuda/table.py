@@ -232,6 +232,7 @@ class CudaTable(Table):
         """Wait for every device column of this table to be computed."""
         for col in self._cols.values():
             if col.kind != OBJ and col.data.is_cuda:
+                # tpulint: allow[host-sync] reason=the wait is what cache() promises its caller; it cannot be avoided
                 torch.cuda.synchronize(col.data.device)
                 break
         return self
@@ -666,6 +667,7 @@ class CudaTable(Table):
         if self._nrows == 0:
             return self
         order, flags, cnt = self._first_occurrence_index(on)
+        fault_point("compact")  # the distinct row count read below
         return self._take(J.first_occurrence_rows(order, flags, k=int(cnt)))
 
     # -- grouped aggregation ------------------------------------------------
@@ -791,6 +793,7 @@ class CudaTable(Table):
         keeps first-appearance order as the oracle does."""
         tmp = CudaTable({"__v": col}, int(seg_j.shape[0]))
         order, flags, cnt = tmp._first_occurrence_index(["__v"], extra_keys=[seg_j])
+        fault_point("agg")  # the distinct pair count read below
         rows = J.first_occurrence_rows(order, flags, k=int(cnt))
         return seg_j[rows], col.take(rows)
 
@@ -919,6 +922,7 @@ def _duration_agg(name: str, seg_j, col: Column, k: int) -> Column:
     and come back as host values (an OBJ column, which later operators
     refuse, ROADMAP.md §3)."""
     out, cnt = J.segment_duration_agg(col.data, col.valid, seg_j, k, name)
+    fault_point("agg")  # the empty-group count read below
     nempty = int(torch.sum(cnt == 0))
     if nempty == 0:
         return Column(DUR, out, None)

@@ -31,6 +31,7 @@ from typing import List, Tuple
 
 import torch
 
+from ...runtime.faults import fault_point
 from .column import (
     BOOL,
     DUR,
@@ -190,6 +191,7 @@ def _seq_rank(lens: torch.Tensor, parent: torch.Tensor, er: torch.Tensor) -> tor
     ceil(log2 of the longest sequence) rounds of one sort each."""
     m = int(lens.shape[0])
     dev = lens.device
+    fault_point("expr")  # the longest sequence read below
     width = int(lens.max()) if m else 0
     if width == 0:
         return torch.zeros(m, dtype=torch.int64, device=dev)
@@ -391,6 +393,7 @@ def _map_equal(l: Column, r: Column, valid) -> Column:
     dev = valid.device
     unequal = torch.zeros(n, dtype=torch.bool, device=dev)
     unknown = torch.zeros(n, dtype=torch.bool, device=dev)
+    fault_point("expr")  # the per-key presence reads below
     for k in names:
         pl, pr = _present(l, k), _present(r, k)
         unequal |= pl != pr

@@ -91,10 +91,9 @@ class Span:
         """Accumulate a padded-vs-true row count from the bucket lattice.
 
         Besides the running sums, the individual ``(true, padded)`` pairs
-        are retained (bounded) so static shape predictions
-        (``analysis.shapes.predict_padded``) can be checked against what
-        the lattice actually produced, per rounding, not just in
-        aggregate. Under a mesh the lattice rounds per shard: the span
+        are retained (bounded) so the lattice's predictions
+        (``bucketing.predict_padded``) can be checked against what it
+        actually produced, per rounding, not just in aggregate. Under a mesh the lattice rounds per shard: the span
         additionally records the shard count and the per-shard
         ``(local true extent, local padded)`` pairs, the sharded analog
         of the same static-vs-runtime agreement gate."""

@@ -1,11 +1,11 @@
 """Padded-lattice cost model: one estimator behind every routing choice.
 
 Costs are computed in **padded** rows, not true rows: every operator's
-device work is a function of its bucketed shapes (the shape-facts artifact
-exports the per-operator formulas, and ``analysis.shapes.predict_padded``
-is pinned equal to the runtime lattice), so composing ``round_size`` over
-candidate plans prices exactly the work XLA will be asked to do — and
-makes two plans with the same bucket sequence provably the same cost.
+device work is a function of its bucketed shapes (``bucketing.predict_padded``
+is the lattice's rounding, the one ``round_size`` applies at run time),
+so composing ``round_size`` over candidate plans prices exactly the rows
+the device will be asked to hold — and makes two plans with the same
+bucket sequence provably the same cost.
 
 Mesh-awareness: with an active device mesh the unit of work is the
 per-shard padded shape times the shard count, plus a cross-shard term for

@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..runtime.faults import fault_point
 from .mesh import mesh_size
 
 
@@ -74,6 +75,7 @@ def _join_pairs(l_key, l_valid, r_key, r_valid) -> Tuple[torch.Tensor, torch.Ten
     lvalids = () if l_valid is None else (l_valid,)
     rvalids = () if r_valid is None else (r_valid,)
     rd_s, r_order, nvalid = J.join_build(r_key, rvalids, is_f64=False, is_bool=False)
+    fault_point("shuffle")  # the build and pair counts read below
     r_idx, lo, counts, total = join_probe(
         rd_s, r_order, l_key, lvalids, int(nvalid), is_f64=False, is_bool=False
     )
@@ -114,4 +116,5 @@ def sharded_distinct_count(keys, valid=None) -> Optional[int]:
     if int(k.shape[0]) == 0:
         return 0
     s = torch.sort(k).values
+    fault_point("shuffle")  # the count read below
     return int(torch.sum(s[1:] != s[:-1], dtype=torch.int64)) + 1

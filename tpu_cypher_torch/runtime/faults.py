@@ -9,10 +9,15 @@ specs):
 
 * ``kind``  — ``oom`` | ``compile`` | ``lost`` | ``timeout`` | ``crash``
 * ``site``  — a named fault site (``join``, ``expand``, ``var_expand``,
-  ``filter``, ``compact``, ``shuffle``, ``agg``, plus the Pallas kernel-tier sites
-  ``kernel_join``/``kernel_expand``/``kernel_agg``/``kernel_frontier``
-  fired by ``backend.tpu.pallas.dispatch.launch`` just before a kernel
-  launch, ``mxu_tile`` before each row block of the tiled dense count
+  ``filter``, ``compact``, ``agg``, ``expr`` (the expression compiler's
+  and the list and value helpers' size and range-check reads,
+  ``backend/cuda/compiler.py``, ``lists.py``, ``values.py``), ``shuffle``
+  (the mesh's join pairs and distinct count, ``parallel/shuffle.py``,
+  and the cross-process collect, ``parallel/multihost.py``),
+  plus the kernel-tier sites
+  ``kernel_join``/``kernel_expand``/``kernel_agg``/``kernel_frontier``/
+  ``kernel_intersect`` fired by ``backend.cuda.hopper.dispatch.launch``
+  just before a kernel launch, ``mxu_tile`` before each row block of the tiled dense count
   tier (``backend/cuda/jit_ops.py``), and the write-path sites ``wal_append`` (before the WAL
   append: the write fails with nothing durable), ``delta_apply``
   (after the append, before the in-memory apply: commit rolls the WAL

@@ -11,7 +11,7 @@ plus raw ``os.environ`` reads in four more, with one var
 module is now the SINGLE declaration point: ``declare``/``declare_flag``
 register each option in ``REGISTRY`` so the engine's whole configuration
 surface is enumerable (``options()``), and the ``env-var-registry`` lint
-rule (``tpu_cypher.analysis``) fails any raw ``TPU_CYPHER_*`` read or any
+rule (``tpu_cypher_torch.analysis``) fails any raw ``TPU_CYPHER_*`` read or any
 ``ConfigOption`` constructed outside this file. Engine modules import
 their options from here (often under a local alias, e.g.
 ``bucketing.MODE is config.BUCKET_MODE``) so existing ``MODE.set(..)``
