@@ -54,7 +54,13 @@ Phases (any failure exits non-zero and prints no result line):
             ``into_materialize_counted`` (torch ops) at Q24's first probe
             half; holds ``expand_rows`` to its plain version at Q31's
             explode (the UNWIND of 100,000 collected lists, captured from
-            a run of Q31) and times it;
+            a run of Q31) and times it; holds ``join_probe``'s build
+            kernel (a memset and one launch, whose slot order its CASes
+            decide) to ``hash_build`` by ``join.table_invariants``, and its
+            probe's ``lo``, counts and total bit for bit, at Q11 and eight
+            edge cases, and times the build, the probe, the kernel tier
+            (CUDA events, and its device operations a call and their time
+            from ``torch.profiler``) and the probe at the STR-codes case;
 4. slice  — runs the slices' queries through ``CypherSession.cuda()``
             on the LDBC-SNB-shaped graphs (SF1: 10,000 persons, SF10:
             100,000 persons, seed 42): Q1-Q5 on the CSR expand path, Q6-Q8
@@ -818,9 +824,18 @@ def check_expand_rows(torch, session, g1, g10, tri10, report):
 
 
 def device_ms(torch, fn, iters=100, warmup=3):
-    """Mean device time per call: the summed durations of the CUDA kernels
-    in a ``torch.profiler`` trace of ``iters`` back-to-back calls, over
-    ``iters``. None when the trace shows no device activity."""
+    """Mean device time per call: the summed durations of the device
+    activities in a ``torch.profiler`` trace of ``iters`` back-to-back
+    calls (``device_events``), over ``iters``. None when the trace shows no
+    device activity."""
+    events = device_events(torch, fn, iters=iters, warmup=warmup)
+    return sum(us for _, us in events.values()) / 1e3 / iters if events else None
+
+
+def device_events(torch, fn, iters=50, warmup=3):
+    """{name: (count, summed microseconds)} of the device activities (kernels,
+    memsets, copies) in a ``torch.profiler`` trace of ``iters`` back-to-back
+    calls; empty when the trace shows no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -831,9 +846,12 @@ def device_ms(torch, fn, iters=100, warmup=3):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA]
-    return sum(us) / 1e3 / iters if us else None
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = out.get(e.name, (0, 0.0))
+            out[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    return out
 
 
 def check_frontier(torch, session, g10, report):
@@ -1450,6 +1468,11 @@ def probe_steps(torch, table, max_off, q, qvalid):
     return steps
 
 
+def join_key_bytes(x, is_f64):
+    """Bytes a key of ``x`` takes as the join kernels read it."""
+    return 8 if is_f64 else x.element_size()
+
+
 def check_join_probe(torch, g10, q11_truth, report):
     import numpy as np
 
@@ -1466,28 +1489,47 @@ def check_join_probe(torch, g10, q11_truth, report):
 
     def compare(label, rd_s, order, ld, lvalids, nvalid, is_bool=False,
                 is_f64=False):
-        """The kernel tier (build and probe kernels) against the plain
-        version, and the build kernel's table against its plain version
-        ``hash_build``, slot for slot."""
+        """The kernel tier (the memset, the build and the probe) against
+        the plain version bit for bit, and the build kernel's table against
+        its plain version ``hash_build`` by ``table_invariants``. Returns
+        the case's table, its probe's byte and operation counts and bound
+        (bytes at the probe key's own width)."""
         nonlocal err
         got = KJ._join_probe_kernel_tier(rd_s, order, ld, lvalids, nvalid, is_f64)
         want = J.join_probe(rd_s, order, ld, lvalids, nvalid, is_f64=is_f64,
                             is_bool=is_bool)
         torch.cuda.synchronize()
         e = tuple_err(torch, got, want)
-        keys = KJ._probe_keys(rd_s, order, nvalid, ld, lvalids, is_f64)[0]
-        table, max_off = KJ.hash_build_cuda(keys, KJ.table_size(nvalid))
-        p_table, p_max_off = KJ.hash_build(keys)
-        same = torch.equal(table, p_table) and int(max_off[0]) == p_max_off
-        err = max(err, e, 0.0 if same else 1.0)
-        uniq = int((table[:, 3] > 0).sum())
+        size = KJ.table_size(nvalid)
+        table = KJ.hash_build_cuda(rd_s, order, nvalid, size, is_f64)
+        keys, q64, qvalid = KJ.plain_keys(rd_s, order, nvalid, ld, lvalids, is_f64)
+        bound_off = int(table[size, 0])
+        problems = KJ.table_invariants(table[:size], bound_off, keys)
+        err = max(err, e, 1.0 if problems else 0.0)
+        uniq = int((table[:size, 3] > 0).sum())
+        nq = int(ld.shape[0])
+        # per lane the key at its width, a byte a mask, 8 B lo and 8 B
+        # count; the slots once. int32 operations, counted from
+        # hash_probe.cu: per lane 10 (the chunk loop's share, the masks'
+        # ANDs, the hash's two multiplies, xor and shift, the stores'
+        # addresses, the count's add), per slot read 10 (the index add and
+        # mask, the address, the empty test, the key assembly's shift and
+        # or, the 64-bit compare at 2, the step and its test). This run's
+        # data decides the slot reads
+        nbytes = nq * (join_key_bytes(ld, is_f64) + len(lvalids) + 16) + 16 * size
+        steps = probe_steps(torch, table[:size], bound_off, q64, qvalid)
+        ops = 10 * nq + 10 * steps
+        b_ms, b_by = bound(nbytes, ops)
         print(f"  join_probe {label}: build {nvalid} valid rows, {uniq} unique "
-              f"keys in {int(table.shape[0])} slots, probe bound {p_max_off}, "
-              f"build kernel {'equal to' if same else 'DIFFERS from'} hash_build "
-              f"slot for slot; probe {int(ld.shape[0])} lanes, matches "
-              f"{int(want[3])}; max_abs_err={e}")
+              f"keys in {size} slots, probe bound {bound_off}, build kernel's table "
+              f"{'holds' if not problems else 'BREAKS'} table_invariants; probe {nq} "
+              f"lanes of {join_key_bytes(ld, is_f64)} B keys, {len(lvalids)} masks, "
+              f"{steps} slot reads, matches {int(want[3])}; probe bound {b_ms:.4f} ms "
+              f"({b_by}); max_abs_err={e}")
         check(e == 0.0, f"join_probe {label} disagrees with its plain version")
-        check(same, f"join_probe {label}: the build kernel's table differs")
+        check(not problems, f"join_probe {label}: the build kernel's table: {problems}")
+        return dict(table=table, size=size, bound_off=bound_off, uniq=uniq, steps=steps,
+                    nbytes=nbytes, ops=ops, bound_ms=b_ms, bound_by=b_by)
 
     def build(rd, rvalid=None, is_bool=False, is_f64=False):
         rvalids = (rvalid,) if rvalid is not None else ()
@@ -1497,7 +1539,7 @@ def check_join_probe(torch, g10, q11_truth, report):
     q11 = q11_join_probe_calls(g10, q11_truth)
     rd_s, order, ld, lvalids, nvalid, is_f64, is_bool = q11
     check(not is_f64 and not is_bool, "Q11 joins on an I64 key")
-    compare("Q11 SF10", rd_s, order, ld, lvalids, nvalid)
+    at_q11 = compare("Q11 SF10", rd_s, order, ld, lvalids, nvalid)
     compare("all-invalid probe", rd_s, order, ld,
             (torch.zeros(ld.shape[0], dtype=torch.bool, device=dev),), nvalid)
     # one key repeated nvalid times: one slot, one run
@@ -1515,14 +1557,16 @@ def check_join_probe(torch, g10, q11_truth, report):
             (t(rng.random(qk.shape[0]) < 0.9),), nv2)
     # STR dictionary codes (int32, nulls as -1 with a validity mask)
     codes = rng.integers(-1, 50_000, 200_000).astype(np.int32)
-    qc = rng.integers(-1, 60_000, 2_000_000).astype(np.int32)
+    qc = t(rng.integers(-1, 60_000, 2_000_000).astype(np.int32))
+    qc_valid = (qc >= 0,)
     rd_s3, order3, nv3 = build(t(codes), t(codes >= 0))
-    compare("STR codes", rd_s3, order3, t(qc), (t(qc >= 0),), nv3)
+    at_str = compare("STR codes", rd_s3, order3, qc, qc_valid, nv3)
     # bool keys: the build side sorts as int8
     rd_s4, order4, nv4 = build(t(rng.random(50_000) < 0.3), None, is_bool=True)
     compare("bool keys", rd_s4, order4, t(rng.random(1_000_000) < 0.5), (), nv4,
             is_bool=True)
-    # more than 2^20 unique build keys: no build cap remains
+    # more than 2^20 unique build keys: no build cap remains, and the most
+    # CAS claims at once
     big = rng.permutation(1 << 22)[: (1 << 20) + 300_000].astype(np.int64) * 977
     qb = np.concatenate([big[rng.integers(0, big.shape[0], 2_000_000)],
                          rng.integers(0, 1 << 32, 2_000_000)])
@@ -1556,18 +1600,26 @@ def check_join_probe(torch, g10, q11_truth, report):
           f"empty probe did not take the fallback tier: {before} -> {after}")
     print("  join_probe empty probe: fallback tier, no launch")
 
-    # timing at Q11's probe: the build and probe kernels apart, the kernel
-    # tier as the gate runs it (key preparation, both kernels, the total),
-    # the build's plain version, the plain version, and two
-    # torch.searchsorted over the sorted build keys
-    keys, q64, lvalid = KJ._probe_keys(rd_s, order, nvalid, ld, lvalids, False)
-    size = KJ.table_size(nvalid)
-    table, max_off = KJ.hash_build_cuda(keys, size)
-    bound_off = int(max_off[0])
-    build_ms = time_ms(torch, lambda: KJ.hash_build_cuda(keys, size))
-    ms = time_ms(torch, lambda: KJ.hash_probe_cuda(table, max_off, q64, lvalid))
-    tier_ms = time_ms(torch, lambda: KJ._join_probe_kernel_tier(
-        rd_s, order, ld, lvalids, nvalid, False))
+    # timing at Q11's probe: the build (memset and kernel) and the probe
+    # kernel apart, the kernel tier as the gate runs it, by CUDA events and
+    # by its device activities (torch.profiler: how many a call, and their
+    # time), the build's plain version, the plain version, and two
+    # torch.searchsorted over the sorted build keys; then the probe at the
+    # STR-codes case
+    size, table = at_q11["size"], at_q11["table"]
+    build_ms = time_ms(torch, lambda: KJ.hash_build_cuda(rd_s, order, nvalid, size))
+    ms = time_ms(torch, lambda: KJ.hash_probe_cuda(table, ld, lvalids))
+    tier = lambda: KJ._join_probe_kernel_tier(rd_s, order, ld, lvalids, nvalid, False)  # noqa: E731
+    tier_ms = time_ms(torch, tier)
+    iters = 50
+    events = device_events(torch, tier, iters=iters)
+    tier_ops = sum(n for n, _ in events.values()) / iters
+    tier_device_ms = (sum(us for _, us in events.values()) / 1e3 / iters) if events else None
+    # three kinds of device operation, each about once a call (the profiler
+    # may drop an event of the trace)
+    check(not events or (len(events) == 3 and abs(tier_ops - 3) < 0.1),
+          f"the kernel tier ran {tier_ops} device operations a call, not 3: {sorted(events)}")
+    keys = KJ.plain_keys(rd_s, order, nvalid, ld, lvalids, False)[0]
     plain_build_ms = time_ms(torch, lambda: KJ.hash_build(keys), iters=10)
     plain_ms = time_ms(torch, lambda: J.join_probe(
         rd_s, order, ld, lvalids, nvalid, is_f64=False, is_bool=False))
@@ -1576,39 +1628,40 @@ def check_join_probe(torch, g10, q11_truth, report):
         torch.searchsorted(r_sorted, ld, side="left"),
         torch.searchsorted(r_sorted, ld, side="right"),
     ))
+    str_ms = time_ms(torch, lambda: KJ.hash_probe_cuda(at_str["table"], qc, qc_valid))
     nq = int(ld.shape[0])
-    # bytes: per lane the 8 B key, the 1 B validity where there is a mask,
-    # the 8 B lo and the 8 B count; the 16 B slots once
-    nbytes = nq * (24 + (1 if lvalid is not None else 0)) + 16 * size
-    # int32 operations, counted from hash_probe.cu: per lane 10 (the
-    # grid-stride compare and step, the validity test, the hash's shift,
-    # two multiplies, xor and shift, the two stores' addresses); per slot
-    # read 10 (the index add and mask, the address, the empty test, the key
-    # assembly's shift and or, the 64-bit compare at 2, the loop step and
-    # test). This run's data decides the slot reads (probe_steps)
-    steps = probe_steps(torch, table, bound_off, q64, lvalid)
-    ops = 10 * nq + 10 * steps
-    b_ms, b_by = bound(nbytes, ops)
-    # the build kernel's bytes: the valid build keys read (8 B each), the
-    # 16 B slots and the 4 B probe bound written; no single PyTorch call
-    # builds an open-addressing table, so it has no library time
-    build_bound_ms, _ = bound(8 * nvalid + 16 * size + 4, 0)
+    # the build's bytes: per valid row its 8 B sorted position and its key
+    # read, and the table (slots and the bound row) written once; no single
+    # PyTorch call builds an open-addressing table, so it has no library
+    # time
+    build_bound_ms, _ = bound(nvalid * (8 + join_key_bytes(rd_s, False)) + 16 * (size + 1), 0)
     report["join_probe"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=at_q11["bound_ms"],
+        bound_by=at_q11["bound_by"], library_ms=lib_ms,
         library_call="torch.searchsorted (left and right) over the sorted build keys",
         build_ms=build_ms, build_bound_ms=build_bound_ms, build_bound_by="bytes",
-        build_library_ms=None, tier_ms=tier_ms, plain_build_ms=plain_build_ms,
+        build_library_ms=None, tier_ms=tier_ms, tier_device_ms=tier_device_ms,
+        tier_device_ops=tier_ops,
+        tier_device_by_name={k: [n / iters, us / 1e3 / iters] for k, (n, us) in events.items()},
+        plain_build_ms=plain_build_ms, str_codes_ms=str_ms,
+        str_codes_bound_ms=at_str["bound_ms"], str_codes_bound_by=at_str["bound_by"],
         shape=(f"Q11 at SF10: {nq} probe lanes, {nvalid}-row build, "
-               f"{int((table[:, 3] > 0).sum())} unique keys in {size} slots, "
-               f"probe bound {bound_off}, {steps} slot reads"),
+               f"{at_q11['uniq']} unique keys in {size} slots, "
+               f"probe bound {at_q11['bound_off']}, {at_q11['steps']} slot reads; "
+               f"STR codes: {int(qc.shape[0])} int32 probe lanes, one mask, "
+               f"{nv3}-row build"),
     )
-    print(f"  join_probe timing at Q11: probe kernel {ms:.4f} ms, build kernel "
-          f"{build_ms:.4f} ms, kernel tier as the gate runs it {tier_ms:.4f} ms; "
-          f"build's plain version (torch ops) {plain_build_ms:.4f} ms, plain "
-          f"version {plain_ms:.4f} ms, two torch.searchsorted {lib_ms:.4f} ms; "
-          f"bound {b_ms:.4f} ms ({b_by}); {steps} slot reads over {nq} lanes; "
-          f"the build's bound {build_bound_ms:.5f} ms (bytes)")
+    by_name = ", ".join(f"{k[:48]} {n / iters:g}x {us / 1e3 / iters:.4f} ms"
+                        for k, (n, us) in sorted(events.items()))
+    print(f"  join_probe timing at Q11: probe kernel {ms:.4f} ms, build (memset and "
+          f"kernel) {build_ms:.4f} ms, kernel tier as the gate runs it {tier_ms:.4f} ms, "
+          f"its device time {tier_device_ms} ms in {tier_ops:g} device operations a "
+          f"call ({by_name}); build's plain version (torch ops) {plain_build_ms:.4f} ms, "
+          f"plain version {plain_ms:.4f} ms, two torch.searchsorted {lib_ms:.4f} ms; "
+          f"bound {at_q11['bound_ms']:.4f} ms ({at_q11['bound_by']}); {at_q11['steps']} "
+          f"slot reads over {nq} lanes; the build's bound {build_bound_ms:.5f} ms "
+          f"(bytes); STR codes probe {str_ms:.4f} ms against its bound "
+          f"{at_str['bound_ms']:.4f} ms ({at_str['bound_by']})")
 
 
 def check_expand_rows_walks(torch, g10, q17_truth, q18_params, q18_truth, report):

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Time the ``segment_agg``, ``frontier_deg_sum``, ``expand_rows`` and
-``intersect`` calls and Q3, Q5, Q6, Q22 and Q23 of one checkout of the port
-on one CUDA card, so that two checkouts compare in one run.
+"""Time the ``segment_agg``, ``frontier_deg_sum``, ``expand_rows``,
+``intersect`` and ``join_probe`` calls and Q3, Q5, Q6, Q11, Q22 and Q23 of
+one checkout of the port on one CUDA card, so that two checkouts compare
+in one run.
 
-    python3 scripts/kernel_ab.py [--root PATH] [--label NAME] [--intersect-only]
+    python3 scripts/kernel_ab.py [--root PATH] [--label NAME]
+                                 [--intersect-only | --join-only]
 
 ``PATH`` is the root of a checkout of this repository (default: the one
 this script lies in); its ``tpu_cypher_torch`` is imported and its kernels
@@ -49,8 +51,19 @@ otherwise):
   when one more warm run starts, and that run's running peak at each
   ``expand_rows`` and ``intersect`` gate call's entry and exit.
 
+- ``join_build_ms``, ``join_probe_ms``: ``join_probe``'s build (its
+  kernel and any memset) and probe kernels at Q11's captured inputs
+  (SF10, 4,499,960 probe lanes, a 100,000-row build), their device time
+  per call in a ``torch.profiler`` trace of the kernel tier
+  (``_join_probe_kernel_tier``, which both checkouts have);
+  ``join_tier_ms`` that tier as the gate runs it (CUDA events),
+  ``join_tier_device_ms`` and ``join_tier_device_ops`` its device time and
+  device operations a call, ``join_tier_device_by_name`` both by name, and
+  ``q11_warm_ms`` Q11's warm median.
+
 ``--intersect-only`` keeps the ``intersect`` calls and Q22 and Q23 warm
-and skips the rest, for turns between variants of that kernel.
+and skips the rest, for turns between variants of that kernel;
+``--join-only`` keeps the ``join_probe`` calls and Q11 warm.
 
 Every answer is checked against numpy truth from the generator's arrays,
 and every kernel result against the checkout's plain version.
@@ -122,6 +135,8 @@ def main() -> int:
     ap.add_argument("--runs", type=int, default=10)
     ap.add_argument("--intersect-only", action="store_true",
                     help="time only the intersect calls and Q22 and Q23 warm")
+    ap.add_argument("--join-only", action="store_true",
+                    help="time only the join_probe calls and Q11 warm")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     # this checkout's chip_smoke.py (its helpers), the other's package
@@ -146,6 +161,7 @@ def main() -> int:
     from tpu_cypher_torch.backend.cuda.hopper import expand as KX
     from tpu_cypher_torch.backend.cuda.hopper import frontier as KF
     from tpu_cypher_torch.backend.cuda.hopper import intersect as KI
+    from tpu_cypher_torch.backend.cuda.hopper import join as KJ
     from tpu_cypher_torch.io.ldbc import generate_snb
     from tpu_cypher_torch.relational.session import PropertyGraph
 
@@ -174,10 +190,13 @@ def main() -> int:
     def same(got, want, what):
         S.check(S.tuple_err(torch, got, want) == 0.0, f"{what} disagrees with plain")
 
-    tri10 = S.triangle_truth(ids10, src10, dst10, False)
-    q6_truth = {"triangles": tri10["triangles"]}
+    if not args.join_only:
+        tri10 = S.triangle_truth(ids10, src10, dst10, False)
+        q6_truth = {"triangles": tri10["triangles"]}
+        q22_truth = {"t": int(tri10["close_rows"].sum())}
 
-    if not args.intersect_only:
+    only = args.intersect_only or args.join_only
+    if not only:
         # segment_agg at the row's shape
         rng = np.random.default_rng(S.SEED)
         vals = torch.from_numpy(rng.integers(0, 18_000, size=q5_rows, dtype=np.int64)).to(dev)
@@ -261,21 +280,45 @@ def main() -> int:
     # gate calls' own inputs
     from tpu_cypher_torch.backend.cuda import hopper
 
-    q22_truth = {"t": int(tri10["close_rows"].sum())}
-    probes = {"q6": S.q6_range_count_calls(torch, g10, q6_truth["triangles"])[0]}
-    calls, rows = S.q_hooked_calls(g10, S.Q22, hopper, "intersect_range_count")
-    S.check(rows == [q22_truth] and len(calls) == 2, f"Q22 (hooked) gave {rows}")
-    probes["q22"] = calls[0][0]
-    with S.wcoj_mode("off"):
-        calls, rows = S.q_hooked_calls(g10, S.Q23, hopper, "intersect_range_count")
-    S.check(rows == [q6_truth] and len(calls) == 1, f"Q23 (hooked) gave {rows}")
-    probes["q23"] = calls[0][0]
-    del calls
-    for key, (keys, q, qvalid) in probes.items():
-        call = lambda: KI.range_count_cuda(keys, q, qvalid)  # noqa: E731
-        same(call(), KI.range_count_plain(keys, q, qvalid)[:2], f"intersect at {key}")
-        res[f"intersect_{key}_ms"] = S.time_ms(torch, call, iters=10)
-    del probes, keys, q, qvalid
+    if not args.join_only:
+        probes = {"q6": S.q6_range_count_calls(torch, g10, q6_truth["triangles"])[0]}
+        calls, rows = S.q_hooked_calls(g10, S.Q22, hopper, "intersect_range_count")
+        S.check(rows == [q22_truth] and len(calls) == 2, f"Q22 (hooked) gave {rows}")
+        probes["q22"] = calls[0][0]
+        with S.wcoj_mode("off"):
+            calls, rows = S.q_hooked_calls(g10, S.Q23, hopper, "intersect_range_count")
+        S.check(rows == [q6_truth] and len(calls) == 1, f"Q23 (hooked) gave {rows}")
+        probes["q23"] = calls[0][0]
+        del calls
+        for key, (keys, q, qvalid) in probes.items():
+            call = lambda: KI.range_count_cuda(keys, q, qvalid)  # noqa: E731
+            same(call(), KI.range_count_plain(keys, q, qvalid)[:2], f"intersect at {key}")
+            res[f"intersect_{key}_ms"] = S.time_ms(torch, call, iters=10)
+        del probes, keys, q, qvalid
+
+    # join_probe at Q11's own inputs, through the kernel tier only
+    q11_truth = {"n": int(np.bincount(bday10, minlength=18_000)[bday10[d10]].sum())}
+    if not args.intersect_only:
+        rd_s, order, ld, lvalids, nvalid, is_f64, is_bool = S.q11_join_probe_calls(
+            g10, q11_truth["n"])
+        join_tier = lambda: KJ._join_probe_kernel_tier(  # noqa: E731
+            rd_s, order, ld, lvalids, nvalid, is_f64)
+        same(join_tier(), J.join_probe(rd_s, order, ld, lvalids, nvalid, is_f64=is_f64,
+                                       is_bool=is_bool), "join_probe tier at Q11")
+        res["join_tier_ms"] = S.time_ms(torch, join_tier)
+        iters = 50
+        events = S.device_events(torch, join_tier, iters=iters)
+        S.check(bool(events), "the profiler saw no device activity of the join tier")
+
+        def per_call(keep):
+            return sum(us for k, (_, us) in events.items() if keep(k)) / 1e3 / iters
+
+        res["join_build_ms"] = per_call(lambda k: "hash_build" in k or "Memset" in k)
+        res["join_probe_ms"] = per_call(lambda k: "hash_probe" in k)
+        res["join_tier_device_ms"] = per_call(lambda k: True)
+        res["join_tier_device_ops"] = sum(n for n, _ in events.values()) / iters
+        res["join_tier_device_by_name"] = {
+            k: [n / iters, us / 1e3 / iters] for k, (n, us) in events.items()}
 
     # Q3, Q5 and Q6 warm, then Q22 and Q23
     def warm(key, pg, q, want):
@@ -294,16 +337,19 @@ def main() -> int:
         res[f"{key}_warm_ms"] = statistics.median(times)
         res[f"{key}_warm_min_max_ms"] = [min(times), max(times)]
 
-    if not args.intersect_only:
+    if not only:
         for key, pg, q, want in (("q3", g10, S.Q3, q3_truth), ("q5", g1, S.Q5, q5_truth),
                                  ("q6", g10, S.Q6, q6_truth)):
             warm(key, pg, q, want)
         res["q6_warm_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         res["q6_base_gib"], res["q6_peak_trace"] = peak_trace(
             S, torch, g10, S.Q6, lambda rows: rows == [q6_truth])
-    warm("q22", g10, S.Q22, q22_truth)
-    with S.wcoj_mode("off"):
-        warm("q23", g10, S.Q23, q6_truth)
+    if not args.join_only:
+        warm("q22", g10, S.Q22, q22_truth)
+        with S.wcoj_mode("off"):
+            warm("q23", g10, S.Q23, q6_truth)
+    if not args.intersect_only:
+        warm("q11", g10, S.Q11, q11_truth)
     print(json.dumps(res))
     return 0
 

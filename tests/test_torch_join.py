@@ -239,15 +239,19 @@ def _as_cuda(launch):
     return wrapped
 
 
-def _emulated_build(keys, size):
+def _emulated_build(rd, r_order, nvalid, size, is_f64):
+    keys = PK.plain_keys(rd, r_order, nvalid, rd[:0], (), is_f64)[0]
     table, max_off = PK.hash_build(keys, size)
-    return table, torch.tensor([max_off], dtype=torch.int32)
+    return torch.cat([table, torch.tensor([[max_off, 0, 0, 0]], dtype=torch.int32)])
 
 
-def _emulated_probe(table, max_off, q, qvalid):
+def _emulated_probe(table, ld, lvalids, is_f64):
+    _, q, qvalid = PK.plain_keys(ld[:0], torch.zeros(0, dtype=torch.int64), 0, ld,
+                                 lvalids, is_f64)
     if qvalid is None:
         qvalid = torch.ones_like(q, dtype=torch.bool)
-    return _probe_table(table, int(max_off[0]), q, qvalid)
+    lo, counts = _probe_table(table[:-1], int(table[-1, 0]), q, qvalid)
+    return lo, counts, counts.sum()
 
 
 @pytest.mark.parametrize("kind", ["i64", "bool", "f64"])
@@ -255,11 +259,11 @@ def _emulated_probe(table, max_off, q, qvalid):
 def test_join_probe_kernel_tier_matches_reference(monkeypatch, shape_name, n, density, kind):
     """On a CUDA tensor every call with a probe lane takes the kernel tier:
     float keys (their int64 bits once -0.0 is made 0.0, NaN keys invalid)
-    and a build with no valid key (``all_masked``) included. The key
-    preparation and the table size are the kernel tier's own; the CUDA
-    build is its plain version ``hash_build`` and the CUDA probe is
-    emulated by torch ops. The reference is ``jit_ops.join_probe`` under
-    the contract above."""
+    and a build with no valid key (``all_masked``) included. The table
+    size is the kernel tier's own; the CUDA build is its plain version
+    ``hash_build`` over ``plain_keys`` and the CUDA probe is emulated by
+    torch ops. The reference is ``jit_ops.join_probe`` under the contract
+    above."""
     monkeypatch.setattr(PK, "hash_build_cuda", _emulated_build)
     monkeypatch.setattr(PK, "hash_probe_cuda", _emulated_probe)
     monkeypatch.setattr(PK.dispatch, "launch", _as_cuda(PD.launch))

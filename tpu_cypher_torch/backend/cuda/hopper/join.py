@@ -3,23 +3,32 @@
 Replaces ``tpu_cypher/backend/tpu/pallas/join.py`` (``_probe_kernel`` /
 ``_hash_probe_pallas``, driven by ``join_probe_bucketed``, and the jnp
 ``_hash_build`` that feeds it). The CUDA source is ``csrc/hash_probe.cu``:
-a build kernel and a probe kernel. Its note states the bound on the H100
-(25 bytes per probe lane plus the table once) and what the design does
-about it.
+a build kernel behind one memset, and a probe kernel that also writes the
+total. Its note states the bound on the H100 (per probe lane the key at
+its own width, a byte per mask and 16 B out; the table once) and what the
+design does about it.
 
-The build keeps the reference's hash and claim rule: claim rounds over
-the unique keys of the valid-first sorted build side, in which every
-unplaced key tries slot ``(h + round) & (size - 1)`` and the smallest lane
-wins a free slot. So at the same ``size`` its table equals the
-reference's slot for slot. Unlike the reference it claims until every key
-is placed (the reference stops after 16 rounds and answers from
-searchsorted) and records the largest offset any key needed; the probe
-runs to that bound and stops early at an empty slot, so it is exact by
-construction and never declines for the data's sake. The build kernel
-runs all rounds in one launch and leaves the bound on the device, so the
-kernel tier syncs nothing with the host. ``hash_build`` is the build's
-plain version in torch ops, held slot for slot against the reference
-(``tests/test_torch_join.py``) and against the kernel (``chip_smoke.py``).
+The kernel tier is three device operations on the call's stream (the
+memset, the build, the probe) and allocates four tensors (the table with
+its bound row, ``lo``, counts and the total); it syncs nothing with the
+host. Both kernels read the keys where they lie, at their own width: the
+build gathers ``rd[r_order[i]]`` for the ``nvalid`` valid sorted rows, the
+probe reads ``ld`` and ANDs up to two validity masks (the wrapper folds
+more with torch ops first; only multi-key joins have more). Integer keys
+widen to int64 as ``.to(torch.int64)`` does, float keys are the bits of
+``x + 0.0`` (so -0.0 and 0.0 are one key), and a NaN probe key is
+invalid, as ``jit_ops.join_probe`` has it.
+
+The build gives each unique key the first free slot on its linear path
+from the reference's hash, claimed with one ``atomicCAS`` in one launch
+(no claim rounds), and records the largest offset any key needed; the
+probe runs to that bound and stops early at an empty slot, so it is exact
+by construction and never declines for the data's sake. Which of two
+colliding keys gets the nearer slot depends on which CAS lands first, so
+the kernel's table is held to its plain version ``hash_build`` (the
+reference's claim rounds, slot for slot with the reference in
+``tests/test_torch_join.py``) by ``table_invariants``: what the probe
+reads is the same.
 
 The probe's plain version is ``jit_ops.join_probe``: two
 ``torch.searchsorted`` over the sorted build keys, a ``where`` and a sum.
@@ -60,7 +69,7 @@ dispatch.register(
     "kernel_join",
     replaces="tpu_cypher/backend/tpu/pallas/join.py:167",
     source="tpu_cypher_torch/csrc/hash_probe.cu",
-    impls=("_lib", "hash_build_cuda", "hash_probe_cuda"),
+    impls=("_lib", "_build_launch", "_probe_launch"),
 )
 
 
@@ -92,7 +101,7 @@ def hash_build(keys, size: int = 0):
     """The build kernel's plain version: the open-addressing table over the
     unique keys of ``keys``, the int64 keys of the valid build side in
     ``join_build``'s order (equal keys contiguous; float keys come as
-    their bits, see ``_probe_keys``). Returns (table, max_off): ``table`` is
+    their bits, see ``plain_keys``). Returns (table, max_off): ``table`` is
     int32 of shape (size, 4), one slot per row as (key lo32, key hi32,
     first sorted position, run length), run length 0 marking an empty slot;
     every key sits at offset <= ``max_off`` from its hash slot. ``size``
@@ -137,92 +146,12 @@ def hash_build(keys, size: int = 0):
     return table[:size], max(off - 1, 0)
 
 
-@functools.lru_cache(maxsize=None)
-def _lib():
-    lib = _build.lib("hash_probe")
-    p = ctypes.c_void_p
-    lib.hash_build_launch.argtypes = [p, ctypes.c_int, ctypes.c_int, p, p, p, p, p]
-    lib.hash_build_launch.restype = ctypes.c_int
-    lib.hash_probe_launch.argtypes = [
-        p, ctypes.c_int, p, p, p, p, p, ctypes.c_int64, p,
-    ]
-    lib.hash_probe_launch.restype = ctypes.c_int
-    return lib
-
-
-def hash_build_cuda(keys, size: int):
-    """Launch the build kernel over ``keys`` (int64, as for ``hash_build``)
-    into ``size`` slots. Returns (table, max_off): the (size, 4) int32
-    table and a one-element int32 tensor holding the probe bound, both
-    left on the device."""
-    dev = keys.device
-    if dev.type != "cuda" or keys.dtype != torch.int64 or keys.dim() != 1:
-        raise TypeError("hash_build: keys must be one int64 CUDA vector")
-    n = int(keys.shape[0])
-    if size < 2 or size & (size - 1) or size < n or n > _MAX_BUILD:
-        raise ValueError(f"hash_build: {size} slots for {n} keys")
-    keys = keys.contiguous()
-    table = torch.empty(size, 4, dtype=torch.int32, device=dev)
-    claim = torch.empty(size, dtype=torch.int32, device=dev)
-    off = torch.empty(max(n, 1), dtype=torch.int32, device=dev)
-    meta = torch.empty(3, dtype=torch.int32, device=dev)
-    stream = _build.stream(dev)
-    _build.check(
-        _lib().hash_build_launch(
-            keys.data_ptr(), n, (size - 1).bit_length(), table.data_ptr(),
-            claim.data_ptr(), off.data_ptr(), meta.data_ptr(), stream,
-        ),
-        "join_probe (hash build)",
-    )
-    return table, meta[:1]
-
-
-def hash_probe_cuda(table, max_off, q, qvalid=None):
-    """Launch the probe kernel: (lo, counts) int64 for every probe lane of
-    the int64 keys ``q`` (``qvalid``: bool, or None for all valid) against
-    ``hash_build_cuda``'s table and its bound ``max_off`` (a one-element
-    int32 tensor on the table's device). Raises on what the kernel does
-    not take."""
-    dev = table.device
-    if dev.type != "cuda" or any(
-        t is not None and t.device != dev for t in (max_off, q, qvalid)
-    ):
-        raise ValueError("join_probe: tensors must be on one CUDA device")
-    if table.dtype != torch.int32 or max_off.dtype != torch.int32 or (
-        q.dtype != torch.int64
-    ) or (qvalid is not None and qvalid.dtype != torch.bool):
-        raise TypeError("join_probe: table and bound int32, q int64, qvalid bool")
-    size = int(table.shape[0])
-    if table.dim() != 2 or table.shape[1] != 4 or size < 2 or size & (size - 1):
-        raise ValueError("join_probe: the table must be (2**k, 4) slots, k >= 1")
-    if not (table.is_contiguous() and q.is_contiguous()) or (
-        qvalid is not None and not qvalid.is_contiguous()
-    ):
-        raise ValueError("join_probe: inputs must be contiguous")
-    nq = int(q.shape[0])
-    if qvalid is not None and int(qvalid.shape[0]) != nq:
-        raise ValueError("join_probe: qvalid must have one entry per probe lane")
-    lo = torch.empty(nq, dtype=torch.int64, device=dev)
-    counts = torch.empty(nq, dtype=torch.int64, device=dev)
-    if nq == 0:
-        return lo, counts
-    stream = _build.stream(dev)
-    _build.check(
-        _lib().hash_probe_launch(
-            table.data_ptr(), (size - 1).bit_length(), max_off.data_ptr(),
-            q.data_ptr(), qvalid.data_ptr() if qvalid is not None else None,
-            lo.data_ptr(), counts.data_ptr(), nq, stream,
-        ),
-        "join_probe",
-    )
-    return lo, counts
-
-
-def _probe_keys(rd, r_order, nvalid: int, ld, lvalids, is_f64: bool):
-    """The kernel tier's keys: (the valid build keys in sorted order, the
-    probe keys, the probe validity or None), all int64 but the validity.
-    Float keys become their bits after -0.0 is made 0.0, and a NaN probe
-    key is invalid (as ``jit_ops.join_probe`` has it)."""
+def plain_keys(rd, r_order, nvalid: int, ld, lvalids, is_f64: bool):
+    """The keys as the kernels read them, in torch ops: (the valid build
+    keys in sorted order, the probe keys, the probe validity or None), all
+    int64 but the validity. Integer keys widen as ``.to(torch.int64)``
+    does; float keys become their bits after -0.0 is made 0.0, and a NaN
+    probe key is invalid (as ``jit_ops.join_probe`` has it)."""
     keys = rd[r_order[:nvalid]]
     lvalid = None
     for m in lvalids:
@@ -232,15 +161,183 @@ def _probe_keys(rd, r_order, nvalid: int, ld, lvalids, is_f64: bool):
         lvalid = ~nan if lvalid is None else lvalid & ~nan
         keys = (keys.to(torch.float64) + 0.0).view(torch.int64)
         ld = (ld.to(torch.float64) + 0.0).view(torch.int64)
-    q = ld.to(torch.int64).contiguous()
-    return keys.to(torch.int64), q, lvalid.contiguous() if lvalid is not None else None
+    return keys.to(torch.int64), ld.to(torch.int64), lvalid
+
+
+def table_invariants(table, bound: int, keys) -> list:
+    """The problems of a table built from ``keys`` (the valid build side's
+    int64 keys in sorted order, as ``hash_build`` takes them), found by
+    what the probe reads; an empty list when there are none. ``table`` is
+    (size, 4) int32 slots (the bound row left off) and ``bound`` its probe
+    bound. It holds when:
+
+    * the multiset of (key, first, run) over occupied slots equals
+      ``hash_build``'s;
+    * as many slots are occupied as there are unique keys;
+    * every key sits at an offset <= ``bound`` from its hash slot, with no
+      empty slot before it on its path;
+    * ``bound`` is the largest such offset (0 with no key).
+
+    Slot order is left free: the build kernel's CAS decides it."""
+    size = int(table.shape[0])
+    want, _ = hash_build(keys.to(table.device), size)
+
+    def occupied(t):
+        """(slots, keys, first positions, runs) of the occupied slots, in
+        key order."""
+        slots = torch.nonzero(t[:, 3] != 0, as_tuple=True)[0]
+        k = t.contiguous().view(torch.int64)[:, 0][slots]
+        order = torch.argsort(k, stable=True)
+        return slots[order], k[order], t[slots[order], 2], t[slots[order], 3]
+
+    g_slots, g_keys, g_first, g_run = occupied(table)
+    _, w_keys, w_first, w_run = occupied(want)
+    problems = []
+    nunique = int(w_keys.shape[0])
+    if int(g_keys.shape[0]) != nunique:
+        problems.append(f"{int(g_keys.shape[0])} occupied slots for {nunique} unique keys")
+        return problems
+    if not (torch.equal(g_keys, w_keys) and torch.equal(g_first, w_first)
+            and torch.equal(g_run, w_run)):
+        problems.append("the occupied slots' (key, first, run) differ from hash_build's")
+    # each key's offset from its hash slot, and the empty slots on its path
+    # (a prefix count over the table twice over: the path may wrap)
+    h = slot_hash(g_keys, size)
+    off = (g_slots - h) & (size - 1)
+    empty = (table[:, 3] == 0).to(torch.int64)
+    before = torch.cat([empty.new_zeros(1), torch.cumsum(torch.cat([empty, empty]), 0)])
+    gaps = before[h + off] - before[h]
+    worst = int(off.max()) if nunique else 0
+    if worst > bound:
+        problems.append(f"a key sits at offset {worst}, past the bound {bound}")
+    elif worst != bound:
+        problems.append(f"the bound {bound} is not the largest offset {worst}")
+    # tpulint: allow[host-sync] reason=a check of the build kernel's table (tests, chip_smoke.py), never on the kernel tier
+    if bool((gaps > 0).any()):
+        problems.append("an empty slot lies on a key's path before the key")
+    return problems
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _build.lib("hash_probe")
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.hash_build_launch.argtypes = [p, i32, p, i32, i32, p, p]
+    lib.hash_build_launch.restype = i32
+    lib.hash_probe_launch.argtypes = [p, i32, p, i32, p, p, ctypes.c_int64, p, p, p, p, p]
+    lib.hash_probe_launch.restype = i32
+    lib.hash_probe_scratch_bytes.argtypes = [i32]
+    lib.hash_probe_scratch_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+# the kernels' key-type codes (``csrc/hash_probe.cu``)
+_KEY_TYPES = {
+    torch.bool: 1, torch.uint8: 1, torch.int8: 2, torch.int32: 3,
+    torch.int64: 4, torch.float64: 5,
+}
+
+
+def _key_operand(x, is_f64: bool):
+    """``x`` as a kernel reads it: (a contiguous tensor, its key-type
+    code). Float keys are float64; integer and bool keys keep their width,
+    save a type the kernels do not read (int16, say), which widens to
+    int64 first."""
+    if is_f64:
+        x = x.to(torch.float64)
+    elif x.dtype not in _KEY_TYPES or x.dtype == torch.float64:
+        x = x.to(torch.int64)
+    return x.contiguous(), _KEY_TYPES[x.dtype]
+
+
+def hash_build_cuda(rd, r_order, nvalid: int, size: int, is_f64: bool = False):
+    """Build the table of the ``nvalid`` valid build rows ``rd[r_order[:nvalid]]``
+    (``join_build``'s key data and order) into ``size`` slots: one memset
+    and the build kernel. Returns the (size + 1, 4) int32 table, left on
+    the device: ``size`` slots as for ``hash_build``, then a row whose
+    first entry is the probe bound."""
+    dev = rd.device
+    if dev.type != "cuda" or r_order.device != dev:
+        raise ValueError("hash_build: rd and r_order must be on one CUDA device")
+    return _build_launch(rd, r_order, nvalid, size, is_f64)
+
+
+def _build_launch(rd, r_order, nvalid: int, size: int, is_f64: bool):
+    """Check, allocate the table and make the one ctypes call (the device
+    check is the caller's)."""
+    if rd.dim() != 1 or r_order.dim() != 1 or r_order.dtype != torch.int64:
+        raise TypeError("hash_build: rd must be a vector, r_order an int64 vector")
+    if not 0 <= nvalid <= min(int(r_order.shape[0]), _MAX_BUILD):
+        raise ValueError(f"hash_build: {nvalid} valid rows of {int(r_order.shape[0])}")
+    if size < 2 or size & (size - 1) or size < nvalid:
+        raise ValueError(f"hash_build: {size} slots for {nvalid} keys")
+    keys, code = _key_operand(rd, is_f64)
+    order = r_order.contiguous()
+    table = torch.empty(size + 1, 4, dtype=torch.int32, device=rd.device)
+    _build.check(
+        _lib().hash_build_launch(
+            keys.data_ptr(), code, order.data_ptr(), nvalid, (size - 1).bit_length(),
+            table.data_ptr(), _build.stream(rd.device),
+        ),
+        "join_probe (hash build)",
+    )
+    return table
+
+
+def hash_probe_cuda(table, ld, lvalids=(), is_f64: bool = False):
+    """Probe ``hash_build_cuda``'s table with the keys ``ld`` under the
+    validity masks ``lvalids`` (bool, any number): one launch. Returns
+    (lo, counts, total), int64, the total 0-d. Raises on what the kernel
+    does not take."""
+    dev = table.device
+    if dev.type != "cuda" or ld.device != dev or any(m.device != dev for m in lvalids):
+        raise ValueError("join_probe: tensors must be on one CUDA device")
+    return _probe_launch(table, ld, lvalids, is_f64)
+
+
+def _probe_launch(table, ld, lvalids, is_f64: bool):
+    """Check, fold the masks past two, allocate the outputs and make the
+    one ctypes call (the device check is the caller's)."""
+    if table.dtype != torch.int32 or any(m.dtype != torch.bool for m in lvalids):
+        raise TypeError("join_probe: the table int32, the masks bool")
+    size = int(table.shape[0]) - 1
+    if table.dim() != 2 or table.shape[1] != 4 or size < 2 or size & (size - 1):
+        raise ValueError("join_probe: the table must be (2**k + 1, 4) rows, k >= 1")
+    if not table.is_contiguous():
+        raise ValueError("join_probe: the table must be contiguous")
+    nq = int(ld.shape[0])
+    if ld.dim() != 1 or any(m.shape != (nq,) for m in lvalids):
+        raise ValueError("join_probe: keys and masks must be vectors of one length")
+    masks = list(lvalids)
+    while len(masks) > 2:
+        masks[-2:] = [masks[-2] & masks[-1]]
+    masks = [m.contiguous() for m in masks] + [None] * (2 - len(masks))
+    q, code = _key_operand(ld, is_f64)
+    dev = table.device
+    lo = torch.empty(nq, dtype=torch.int64, device=dev)
+    counts = torch.empty(nq, dtype=torch.int64, device=dev)
+    total = torch.empty((), dtype=torch.int64, device=dev)
+    if nq == 0:
+        return lo, counts, total.zero_()
+    lib = _lib()
+    stream = _build.stream(dev)
+    _build.check(
+        lib.hash_probe_launch(
+            table.data_ptr(), (size - 1).bit_length(), q.data_ptr(), code,
+            *(m.data_ptr() if m is not None else None for m in masks),
+            nq, lo.data_ptr(), counts.data_ptr(), total.data_ptr(),
+            _build.scratch_ptr("join_probe", dev, lib.hash_probe_scratch_bytes, stream),
+            stream,
+        ),
+        "join_probe",
+    )
+    return lo, counts, total
 
 
 def _join_probe_kernel_tier(rd, r_order, ld, lvalids, nvalid: int, is_f64: bool):
-    keys, q, qvalid = _probe_keys(rd, r_order, nvalid, ld, lvalids, is_f64)
-    table, max_off = hash_build_cuda(keys, table_size(nvalid))
-    lo, counts = hash_probe_cuda(table, max_off, q, qvalid)
-    return r_order[:nvalid], lo, counts, torch.sum(counts)
+    table = hash_build_cuda(rd, r_order, nvalid, table_size(nvalid), is_f64)
+    lo, counts, total = hash_probe_cuda(table, ld, lvalids, is_f64)
+    return r_order[:nvalid], lo, counts, total
 
 
 def join_probe(rd, r_order, ld, lvalids, nvalid: int, *, is_f64: bool, is_bool: bool):
