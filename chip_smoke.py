@@ -260,9 +260,9 @@ Phases (any failure exits non-zero and prints no result line):
             and (d) did not run, and runs (c);
 10. analyzer — the port's static analyzer (``tpu_cypher_torch/analysis``)
             against the card: (a) ``python -m tpu_cypher_torch.analysis
-            --format json`` over the checkout exits 0, clean, with seven
-            rules and an empty baseline (files checked, findings,
-            suppressions by rule and seconds printed); (b) the kernel names
+            --format json --facts-out F`` over the checkout exits 0, clean,
+            with twelve rules and an empty baseline (files checked,
+            findings, suppressions by rule and seconds printed); (b) the kernel names
             and impls ``obs-emission`` collects from the sources equal
             ``dispatch.registry()`` (five kernels), each of which launched
             on the ``kernel`` tier in phases 4 and 9; (c) SF10 Q2, Q6, Q11
@@ -274,14 +274,34 @@ Phases (any failure exits non-zero and prints no result line):
             under a ``fault_point``, outside its scope, or implicit: a
             data-dependent size or a copy the taint model does not model);
             a site whose line holds a sync kind of the taint model that the
-            model did not see fails the run.
+            model did not see fails the run;
+11. lattice — the bucket lattice (``TPU_CYPHER_BUCKET``), set in the
+            process and restored in a ``finally``: (a) the shape facts that
+            phase 10's CLI wrote (``--facts-out``): their summary, the
+            lattice's rounding sites classified BUCKETED, and the sites a
+            lattice-free port would change; (b) Q1, Q5, Q11, Q24 (the
+            closing ExpandInto's materialize, both probe halves on
+            ``intersect``) and Q20 (over a window of about 100,000 rows) at
+            SF1, the loopy graph's 2-hop count,
+            2-hop DISTINCT and fixed-rel-versus-``*1..2`` count, and Q17 at
+            SF10, each under ``off``, ``pow2`` and ``1.25``, cold and five
+            times warm: every answer equal to the ``off`` run's and to the
+            numpy truth, every (true, padded) pair on the trace spans equal
+            to ``analysis.shapes.predict_padded`` (at least 20 in each
+            mode), every launch on the ``kernel`` tier, with the launches
+            per (kernel, tier), the distinct padded extents per operator
+            span, the warm median and the own peak device memory against
+            ``off``; ``expand_rows``, ``segment_agg``, ``intersect`` and
+            ``join_probe`` must launch in both modes (``lattice_launches``
+            in the kernels' line).
 
 The kernel launch counts are zeroed just before phase 4 and read just after
 it; the comparisons of phase 3 and the runs of phase 5 do not count. Phase
 6 zeroes them again before its in-process server and reads them after its
 writes, for its own line; phase 8 zeroes them before each mesh and reads
 them after it (``mesh_launches`` in the kernels' line); phase 9 zeroes them
-at its start and reads them at its end (``sources_launches``). The line
+at its start and reads them at its end (``sources_launches``); phase 11
+reads their change over each lattice run (``lattice_launches``). The line
 before the last is
 the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -4585,21 +4605,24 @@ def run_sources_phase(torch, session, card, g1, arrays1, truth, tri1, tri10,
 # phase 10: the static analyzer against the card
 # ---------------------------------------------------------------------------
 
-ANALYZER_RULES = 7
+ANALYZER_RULES = 12
 ANALYZER_BASELINE = "tpu_cypher_torch/analysis/baseline.json"
 
 
 def run_analyzer_phase(torch, card, graphs, phase_launches):
-    """Phase 10: (a) ``python -m tpu_cypher_torch.analysis --format json``
-    over the checkout's ``tpu_cypher_torch/`` must exit 0 and report clean
-    with seven rules and an empty baseline; (b) the kernel names and impls
+    """Phase 10: (a) ``python -m tpu_cypher_torch.analysis --format json
+    --facts-out F`` over the checkout's ``tpu_cypher_torch/`` must exit 0
+    and report clean with twelve rules and an empty baseline, and write the
+    shape facts phase 11 reads; (b) the kernel names and impls
     that ``obs-emission`` collects from the sources must equal
     ``dispatch.registry()``, and each of the five kernels must have
     launched on the ``kernel`` tier in phases 4 and 9 (``phase_launches``);
     (c) ``SYNC_QUERIES`` warm on the phase-4 graphs under torch's sync
     debug mode: per query the syncs and their sites by analyzer status,
     failing when a site whose line holds a sync kind of the taint model
-    escaped it (``missed``). Returns {query: {status: count}}."""
+    escaped it (``missed``). Returns (the facts, the CLI's seconds)."""
+    import tempfile
+
     from tpu_cypher_torch.analysis import runner
     from tpu_cypher_torch.analysis import synctrace as ST
     from tpu_cypher_torch.backend.cuda.hopper import dispatch
@@ -4607,12 +4630,18 @@ def run_analyzer_phase(torch, card, graphs, phase_launches):
     t10 = time.perf_counter()
     # (a) the CLI, as a user runs it
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "tpu_cypher_torch.analysis", "--format", "json",
-         "tpu_cypher_torch"],
-        cwd=HERE, capture_output=True, text=True, timeout=300,
-    )
-    cli_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        facts_out = os.path.join(tmp, "facts.json")
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpu_cypher_torch.analysis", "--format", "json",
+             "--facts-out", facts_out, "tpu_cypher_torch"],
+            cwd=HERE, capture_output=True, text=True, timeout=300,
+        )
+        cli_s = time.perf_counter() - t0
+        facts = None
+        if os.path.exists(facts_out):
+            with open(facts_out) as f:
+                facts = json.load(f)
     check(proc.returncode == 0,
           f"the analyzer exited {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
     got = json.loads(proc.stdout)
@@ -4629,6 +4658,8 @@ def run_analyzer_phase(torch, card, graphs, phase_launches):
     print(f"  analyzer CLI: {got['files_checked']} files checked, {got['rules_run']} "
           f"rules, {len(got['findings'])} findings, {len(got['baselined'])} baselined, "
           f"suppressions by rule {dict(sorted(by_rule.items()))}, {cli_s:.2f} s")
+    check(facts is not None and facts["schema_version"] == 1,
+          "the analyzer wrote no shape facts")
 
     # (b) the static registry against the runtime one
     t0 = time.perf_counter()
@@ -4651,7 +4682,205 @@ def run_analyzer_phase(torch, card, graphs, phase_launches):
     out, escaped = ST.trace_queries(torch, smap, graphs, SYNC_QUERIES, ST.cuda_sync_trace)
     check(not escaped, f"syncs the taint model missed: {escaped}")
     print(f"phase 10 done in {time.perf_counter() - t10:.1f} s ({card})")
+    return facts, cli_s
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the bucket lattice on the card
+# ---------------------------------------------------------------------------
+
+LATTICE_MODES = ("pow2", "1.25")
+# the kernels a lattice run must launch in both modes; frontier_deg_sum
+# answers a count with no materialize, so the lattice never reaches it
+LATTICE_KERNELS = ("expand_rows", "segment_agg", "intersect", "join_probe")
+LATTICE_MIN_PAIRS = 20
+Q20_LATTICE_ROWS = 100_000  # phase 11's Q20 window returns about this many rows
+# (file, function, op) of each site where the lattice rounds; the facts
+# must classify every one BUCKETED
+LATTICE_ROUNDING = (
+    ("expand_op.py", "_fused_chain_walk", "round_size"),
+    ("expand_op.py", "_apply_enforced_pairs", "_mask_to_idx_bucketed"),
+    ("expand_op.py", "_expand_half", "round_size"),
+    ("expand_op.py", "_expand_half", "_mask_to_idx_bucketed"),
+    ("expand_op.py", "_fused_table", "round_size"),
+    ("column.py", "mask_to_idx_bucketed", "mask_nonzero"),
+)
+
+
+@contextlib.contextmanager
+def bucket_env(mode):
+    """``TPU_CYPHER_BUCKET`` set in the process for a block
+    (``bucketing.mode()`` reads it at each call); the old value comes back
+    in a ``finally``."""
+    old = os.environ.get("TPU_CYPHER_BUCKET")
+    os.environ["TPU_CYPHER_BUCKET"] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("TPU_CYPHER_BUCKET", None)
+        else:
+            os.environ["TPU_CYPHER_BUCKET"] = old
+
+
+def lattice_sites(facts, root):
+    """{(file, function, op leaf): [site shapes]} of the facts' sites in
+    the lattice's two files, each site's function read from the source."""
+    import ast
+
+    out = {}
+    trees = {}
+    for site in facts["sites"]:
+        base = os.path.basename(site["path"])
+        if base not in ("expand_op.py", "column.py"):
+            continue
+        if site["path"] not in trees:
+            with open(os.path.join(root, site["path"])) as f:
+                tree = ast.parse(f.read())
+            fns = [n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)]
+            trees[site["path"]] = fns
+        inner = [fn for fn in trees[site["path"]]
+                 if fn.lineno <= site["line"] <= fn.end_lineno]
+        name = min(inner, key=lambda fn: fn.end_lineno - fn.lineno).name if inner else ""
+        out.setdefault((base, name, site["op"].split(".")[-1]), []).extend(
+            a["shape"] for a in site["args"])
     return out
+
+
+def run_lattice_phase(torch, card, graphs, truth, facts, cli_s):
+    """Phase 11: (a) the shape facts phase 10's CLI wrote: their summary,
+    the lattice's rounding sites BUCKETED, and the sites a lattice-free
+    port would change; (b) phase 11's queries under ``off``, ``pow2`` and
+    ``1.25``, each cold and five times warm: every answer equal to the
+    ``off`` run's and to the numpy truth, every (true, padded) pair on the
+    trace spans equal to ``analysis.shapes.predict_padded`` (at least
+    ``LATTICE_MIN_PAIRS`` in each mode), every launch on the ``kernel``
+    tier, with launches per (kernel, tier), the distinct padded extents
+    per operator span, the warm median and the own peak device memory
+    against ``off``. Returns {kernel: {mode: kernel-tier launches}}."""
+    from collections import Counter
+
+    import numpy as np
+
+    from tpu_cypher_torch.analysis.shapes import predict_padded
+    from tpu_cypher_torch.backend.cuda import bucketing
+    from tpu_cypher_torch.backend.cuda.hopper import dispatch
+
+    t11 = time.perf_counter()
+    # (a) the facts of the CLI run, as a user runs it
+    summary = facts["summary"]
+    print(f"  shape facts (the CLI's --facts-out, {cli_s:.2f} s with the lint): "
+          f"bucketed_sites {summary['bucketed_sites']}, data_dependent_sites "
+          f"{summary['data_dependent_sites']}, facts_emitted {summary['facts_emitted']}; "
+          f"lattice bounds {facts['lattice']['bounds']}")
+    sites = lattice_sites(facts, HERE)
+    for where in LATTICE_ROUNDING:
+        got = sites.get(where)
+        check(got and all(x.startswith("bucketed") for x in got),
+              f"the facts do not classify {where} BUCKETED: {got}")
+    acts = [f"{s['path'].replace('tpu_cypher_torch/', '')}:{s['line']} {s['op']}"
+            for s in facts["sites"]
+            if any(a["shape"].startswith("bucketed") for a in s["args"])]
+    print(f"  the {len(acts)} sites the lattice acts at (what a lattice-free port "
+          f"changes): {acts}")
+
+    # (b) the queries; Q20 over a window of about Q20_LATTICE_ROWS rows
+    # (phase 4's returns 1M rows, whose decode would be most of the phase)
+    g1, g10, gl = graphs["small"], graphs["big"], graphs["loopy"]
+    walks, closes = truth["walks"], truth["closes"]
+    ids1, s1, d1 = truth["sf1_arrays"]
+    n1, start1 = len(ids1), len(ids1) // 2
+    w = walk_window(sum(walk_estimates(s1, d1, n1, 2)), Q20_LATTICE_ROWS, start1)
+    _, keys = brute_walks(directed_steps(s1, d1), n1, np.arange(start1, start1 + w), 2,
+                          pairs=True)
+    keys = np.concatenate(keys)
+    q20 = (window_params(ids1, start1, w),
+           np.sort(ids1[keys // n1] * (1 << 32) + ids1[keys % n1]))
+
+    def pair_bag(rows, ka, kb):
+        return np.sort(np.array([r[ka] * (1 << 32) + r[kb] for r in rows], np.int64))
+
+    queries = (
+        ("Q1 (SF1)", g1, Q1, None, ("expand_rows",), "CsrExpandOp",
+         lambda rows: np.array_equal(pair_bag(rows, "a", "b"), truth["Q1_pairs"])),
+        ("Q5 (SF1)", g1, Q5, None, ("expand_rows", "segment_agg"), "CsrExpandOp",
+         lambda rows: (rows[0]["lo"], rows[0]["hi"]) == truth["Q5"]),
+        ("Q11 (SF1)", g1, Q11, None, ("expand_rows", "join_probe"), "JoinOp(inner",
+         lambda rows: rows == [{"n": truth["Q11_sf1"]}]),
+        ("Q24 (SF1)", g1, Q24, None, ("expand_rows", "intersect"), "CsrExpandIntoOp",
+         lambda rows: {r["a"]: r["n"] for r in rows} == closes["Q24"]
+         and len(rows) == len(closes["Q24"])),
+        (f"Q20 (SF1, {w} sources)", g1, Q20, q20[0], ("expand_rows",), "CsrVarExpandOp",
+         lambda rows: np.array_equal(pair_bag(rows, "a", "b"), q20[1])),
+        ("loopy 2-hop count", gl, Q4, None, ("expand_rows",), "CsrExpandOp",
+         lambda rows: rows == [{"c": walks["loopy_chain"]}]),
+        ("loopy 2-hop DISTINCT", gl, Q13, None, ("expand_rows",), "DistinctOp",
+         lambda rows: rows == [{"pairs": walks["loopy_distinct"]}]),
+        ("loopy fixed rel vs *1..2", gl, LOOPY_FORBID, walks["loopy_forbid"][0],
+         ("expand_rows",), "CsrVarExpandOp",
+         lambda rows: rows == [{"n": walks["loopy_forbid"][1]}]),
+        ("Q17 (SF10)", g10, Q17, None, ("expand_rows",), "DistinctOp",
+         lambda rows: rows == [{"pairs": walks["Q17"]}]),
+    )
+    lattice_launches = {k: {m: 0 for m in LATTICE_MODES} for k in dispatch.registry()}
+    npairs = dict.fromkeys(LATTICE_MODES, 0)
+    for label, pg, q, params, kernels, plan_op, ok in queries:
+        off = None
+        for mode in ("off",) + LATTICE_MODES:
+            with bucket_env(mode):
+                check(bucketing.mode() == mode, f"TPU_CYPHER_BUCKET={mode} not read")
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                before = dispatch.use_counts()
+                rows, secs, launches, _, results = run_query(
+                    torch, pg, q, kernels, plan_op=plan_op, params=params, warm=5)
+                peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+                after = dispatch.use_counts()
+            rows = [dict(r) for r in rows]
+            check(ok(rows), f"{label} under {mode}: the answer differs from numpy")
+            bag = Counter(repr(sorted(r.items())) for r in rows)
+            tiers = {k: {t: after[k][t] - before[k][t] for t in after[k]
+                         if after[k][t] > before[k][t]}
+                     for k in after if after[k] != before[k]}
+            extents, pairs, last = {}, 0, []
+            for res in results:
+                for span in res.profile().trace.spans():
+                    for true_rows, padded in span.attrs.get("rows_pairs", []):
+                        check(predict_padded(true_rows, mode) == padded,
+                              f"{label} under {mode}: span {span.name} padded {true_rows} "
+                              f"to {padded}, predicted {predict_padded(true_rows, mode)}")
+                        extents.setdefault(span.name, set()).add(padded)
+                        pairs += 1
+                        if res is results[-1]:
+                            last.append((true_rows, padded))
+            warm = statistics.median(secs[1:])
+            if mode == "off":
+                off = (bag, warm, peak)
+                versus = ""
+            else:
+                check(bag == off[0], f"{label} under {mode}: the answer differs from off's")
+                npairs[mode] += pairs
+                for k, n in launches.items():
+                    lattice_launches[k][mode] += n
+                versus = (f" ({warm / off[1]:.3f}x off's warm median, {peak - off[2]:+.3f} "
+                          f"GiB against off's own peak)")
+            print(f"  {label} [{mode}]: warm median {warm * 1e3:.3f} ms, cold "
+                  f"{secs[0] * 1e3:.3f} ms, own peak device memory {peak:.3f} GiB{versus}; "
+                  f"launches per (kernel, tier) over the 6 runs {tiers}; {pairs} (true, "
+                  f"padded) pairs, the last run's {last}; distinct padded extents per span "
+                  f"{ {k: sorted(v) for k, v in sorted(extents.items())} }")
+    for mode in LATTICE_MODES:
+        check(npairs[mode] >= LATTICE_MIN_PAIRS,
+              f"only {npairs[mode]} (true, padded) pairs under {mode}")
+    for name in LATTICE_KERNELS:
+        check(all(lattice_launches[name][m] > 0 for m in LATTICE_MODES),
+              f"{name} launched on no kernel tier under the lattice: "
+              f"{lattice_launches[name]}")
+    print(f"  pairs checked against predict_padded {npairs}; kernel-tier launches under "
+          f"the lattice {lattice_launches}")
+    print(f"phase 11 done in {time.perf_counter() - t11:.1f} s ({card})")
+    return lattice_launches
 
 
 def main() -> int:
@@ -5058,7 +5287,16 @@ def main() -> int:
     print(f"the static analyzer ({card}):")
     phase_launches = {n: counts[n]["kernel"] + sources_launches[n]
                       for n in dispatch.registry()}
-    run_analyzer_phase(torch, card, {"small": g1, "big": g10}, phase_launches)
+    facts, cli_s = run_analyzer_phase(torch, card, {"small": g1, "big": g10},
+                                      phase_launches)
+
+    # 11. the bucket lattice on the card
+    print(f"the bucket lattice ({card}):")
+    truth["walks"], truth["closes"] = walks, closes
+    truth["sf1_arrays"] = (ids1, s1, d1)
+    truth["Q11_sf1"] = int(np.bincount(bday1, minlength=18_000)[bday1[d1]].sum())
+    lattice_launches = run_lattice_phase(
+        torch, card, {"small": g1, "big": g10, "loopy": gl}, truth, facts, cli_s)
 
     specs = dispatch.registry()
     kernels = []
@@ -5082,6 +5320,7 @@ def main() -> int:
             "mesh_launches": {m: n.get(name, 0) for m, n in mesh_launches.items()},
             "multihost_backend": backend,
             "sources_launches": sources_launches[name],
+            "lattice_launches": lattice_launches[name],
             **{k: v for k, v in r.items() if k not in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "library_call", "shape")},

@@ -7,10 +7,12 @@ line, column, message) on the reference's own fixture corpus
 the baseline alike on shared synthetic sources. (ii) The two retargeted
 rules (``host-sync`` over the torch taint model, ``obs-emission`` over the
 port's raw launches) fire on ``tests/torch_lint_fixtures/*/bad`` and stay
-silent on ``*/clean``, which mirror the reference's cases one for one.
-(iii) The port lints clean with an empty committed baseline, and the
-kernels ``obs-emission`` collects equal ``dispatch.registry()``. (iv) The
-CLI's exit codes, in five subprocess calls. (v) The fault sites the port's
+silent on ``*/clean``, which mirror the reference's cases one for one
+(the shape pack's five rules are ``tests/test_torch_shapes.py``'s).
+(iii) The port lints clean with all twelve rules and an empty committed
+baseline, and the kernels ``obs-emission`` collects equal
+``dispatch.registry()``. (iv) The CLI's exit codes, in five subprocess
+calls, ``--facts-out`` among them. (v) The fault sites the port's
 first clean run added (``expr``, ``shuffle``) fire under the fault
 matrix. The whole-port analysis runs once per module (a shared fixture);
 nothing here is timed.
@@ -43,7 +45,12 @@ SHARED = {
     "contextvar-discipline": "contextvar_discipline",
     "shared-state-race": "shared_state_race",
 }
-PORT_RULES = set(SHARED) | {"host-sync", "obs-emission"}
+# the shape pack: its own fixtures and pins are tests/test_torch_shapes.py's
+SHAPE_PACK = {
+    "recompile-hazard", "pad-invariant", "shape-stability", "pad-mask-discipline",
+    "bucket-cardinality",
+}
+PORT_RULES = set(SHARED) | {"host-sync", "obs-emission"} | SHAPE_PACK
 
 
 @pytest.fixture(scope="module")
@@ -77,9 +84,12 @@ def _same(ref, port):
 
 
 def test_registry_shape():
+    from tpu_cypher.analysis.rules import ALL_RULES as REF_RULES
+
     ids = [r.id for r in ALL_RULES]
-    assert len(ids) == len(set(ids)) == 7
+    assert len(ids) == len(set(ids)) == 12
     assert set(ids) == PORT_RULES == set(RULES_BY_ID)
+    assert ids == [r.id for r in REF_RULES]  # the reference's order
     for r in ALL_RULES:
         assert r.id and r.title and r.rationale, r
 
@@ -326,7 +336,7 @@ def test_committed_baseline_is_empty():
 
 def test_port_lints_clean(engine):
     assert engine.files_checked > 120, "port sweep looks truncated"
-    assert engine.rules_run == 7
+    assert engine.rules_run == 12
     assert engine.clean, engine.render_text()
     assert not engine.baselined
     for f in engine.suppressed:
@@ -414,11 +424,12 @@ def _cli(*args):
     )
 
 
-def test_cli_port_wide_exits_0_json():
-    proc = _cli("--format", "json")
+def test_cli_port_wide_exits_0_json(tmp_path):
+    facts_out = tmp_path / "facts.json"
+    proc = _cli("--format", "json", "--facts-out", str(facts_out))
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     payload = json.loads(proc.stdout)
-    assert payload["clean"] is True and payload["rules_run"] == 7
+    assert payload["clean"] is True and payload["rules_run"] == 12
     assert payload["findings"] == [] and payload["baselined"] == []
     sup = payload["suppressions"]
     assert sup["schema_version"] == 1 and sup["entries"]
@@ -426,6 +437,10 @@ def test_cli_port_wide_exits_0_json():
         assert set(entry) == {"path", "line", "rules", "reason", "active"}
         assert entry["active"] is True
     assert payload["caches"]["parse_misses"] > 120 and payload["caches"]["parse_hits"] == 0
+    assert payload["caches"]["summary_misses"] == 1 and payload["caches"]["summary_hits"] == 0
+    facts = json.loads(facts_out.read_text())
+    assert facts["schema_version"] == 1 and facts["sites"]
+    assert facts["summary"]["facts_emitted"] == len(facts["sites"]) + len(facts["operators"])
 
 
 def test_cli_bad_fixture_exits_1():
@@ -439,7 +454,7 @@ def test_cli_list_rules():
     proc = _cli("--list-rules")
     assert proc.returncode == 0
     lines = proc.stdout.strip().splitlines()
-    assert len(lines) == 7 and {ln.split()[0] for ln in lines} == PORT_RULES
+    assert len(lines) == 12 and {ln.split()[0] for ln in lines} == PORT_RULES
 
 
 def test_cli_unknown_rule_exits_2():

@@ -144,4 +144,10 @@ def test_no_module_of_the_port_imports_jax_or_the_reference():
                     if _blocked(arg.value):
                         bad.append((path, arg.value))
     assert count > 50  # the walk saw the package
+    seen = {os.path.relpath(p, ROOT).replace(os.sep, "/") for p in _port_sources()}
+    assert {
+        f"tpu_cypher_torch/analysis/{m}.py"
+        for m in ("shapes", "rules/pad_invariant", "rules/recompile",
+                  "rules/shape_stability", "rules/pad_mask", "rules/bucket_cardinality")
+    } <= seen  # the shape pack is scanned
     assert not bad, bad

@@ -15,11 +15,16 @@ its concurrency disciplines.
 
 * one parsed-AST + scope-resolution pass per file (``core.FileContext``),
   shared by every rule, so the whole port lints in seconds;
-* a rule registry (``rules.ALL_RULES``) with seven rules: ``host-sync``
-  (over a torch device-taint model, ``dataflow.py``),
-  ``env-var-registry``, ``exception-hygiene``, ``obs-emission`` (raw
-  ``_build.lib`` / ctypes ``*_launch`` sites only in registered impls),
-  ``async-blocking``, ``contextvar-discipline``, ``shared-state-race``;
+* a rule registry (``rules.ALL_RULES``) with the reference's twelve
+  rules: ``host-sync`` (over a torch device-taint model,
+  ``dataflow.py``), ``recompile-hazard`` (kernel builds, ``torch.compile``
+  and config reads per call), ``pad-invariant``, ``env-var-registry``,
+  ``exception-hygiene``, ``obs-emission`` (raw ``_build.lib`` / ctypes
+  ``*_launch`` sites only in registered impls), ``async-blocking``,
+  ``contextvar-discipline``, ``shared-state-race``, and the shape pack
+  (``shape-stability``, ``pad-mask-discipline``, ``bucket-cardinality``)
+  over the abstract shape interpreter (``shapes.py``), whose facts
+  ``--facts-out`` writes;
 * inline suppressions ``# tpulint: allow[rule-id] reason=...`` with the
   reason MANDATORY (an allow without a reason is itself a finding);
 * a committed baseline (``analysis/baseline.json``) for grandfathered
@@ -41,6 +46,7 @@ from .runner import (
     run_paths,
 )
 from .rules import ALL_RULES
+from .shapes import collect_facts, engine_shape_summary, predict_padded
 
 __all__ = [
     "ALL_RULES",
@@ -49,7 +55,10 @@ __all__ = [
     "Finding",
     "Rule",
     "check_engine",
+    "collect_facts",
     "engine_is_clean",
     "engine_lint_summary",
+    "engine_shape_summary",
+    "predict_padded",
     "run_paths",
 ]

@@ -6,6 +6,7 @@ Exit codes: 0 clean, 1 findings, 2 usage/internal error.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import subprocess
 import sys
@@ -26,7 +27,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m tpu_cypher_torch.analysis",
         description=(
             "Engine-aware static analysis of the port: host syncs, kernel "
-            "launches, config, exception and concurrency invariants."
+            "launches, config, exception and concurrency invariants, and "
+            "the shape pack over the bucket lattice."
         ),
     )
     p.add_argument(
@@ -57,6 +59,14 @@ def build_parser() -> argparse.ArgumentParser:
         "--rules",
         default="",
         help="comma-separated rule ids to run (default: all)",
+    )
+    p.add_argument(
+        "--facts-out",
+        default="",
+        metavar="PATH",
+        help="write the shape interpreter's facts (schema-versioned "
+        "per-operator padded-shape formulas plus every classified size "
+        "site) as JSON to PATH",
     )
     p.add_argument(
         "--list-rules",
@@ -152,6 +162,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 0
 
     print(format_report(report, args.format))
+
+    if args.facts_out:
+        from .shapes import collect_facts
+
+        facts = collect_facts(report.project)
+        with open(args.facts_out, "w") as f:
+            json.dump(facts, f, indent=2, sort_keys=True)
+            f.write("\n")
     return 0 if report.clean else 1
 
 

@@ -53,6 +53,8 @@ class ProjectContext:
         self._callgraph = None
         self._device_taint = None
         self._blocking = None
+        self._shapes = None
+        self.shape_summary_cache_hit = False
         for ctx in self.contexts:
             self.by_relpath[ctx.relpath] = ctx
             if ctx.relpath.endswith(CONFIG_MODULE_SUFFIX):
@@ -93,6 +95,14 @@ class ProjectContext:
 
             self._blocking = BlockingSummaries(self.callgraph, self.device_taint)
         return self._blocking
+
+    @property
+    def shapes(self):
+        if self._shapes is None:
+            from .shapes import analysis_for
+
+            self._shapes, self.shape_summary_cache_hit = analysis_for(self)
+        return self._shapes
 
     @staticmethod
     def _collect_declared(ctx: FileContext) -> Set[str]:

@@ -4,6 +4,8 @@ apply suppressions and the baseline, format the report.
 The port's copy of ``tpu_cypher/analysis/runner.py``, over
 ``tpu_cypher_torch/``; it adds ``sync_sites``, the host-sync rule's
 inventory that ``chip_smoke.py`` holds against the card's sync trace.
+The shape rules share the run's one parse and one ``ProjectContext``
+(``project.shapes``), and ``--facts-out`` reads the facts from it.
 
 Parsing is cached process-wide keyed by ``(abspath, mtime_ns, size)`` —
 repeated ``run_paths`` calls in one process (the test suite runs the
@@ -57,10 +59,11 @@ class Report:
     suppression_entries: List[Dict[str, object]] = field(default_factory=list)
     files_checked: int = 0
     rules_run: int = 0
-    # per-run parse-cache traffic: hits and misses
+    # per-run cache traffic: parse cache + shape summary cache hit/miss
     cache_stats: Dict[str, int] = field(default_factory=dict)
     # the ProjectContext the run was checked against (not serialized):
-    # what sync_sites reads the taint model from
+    # what sync_sites reads the taint model from and what --facts-out
+    # hands to shapes.collect_facts
     project: Optional[ProjectContext] = None
 
     @property
@@ -290,9 +293,15 @@ def run_paths(
     report.blocking.sort(
         key=lambda f: (f.path, f.line, f.col, f.rule, f.message)
     )
+    # shape-summary cache traffic: at most one lookup per run (the lazy
+    # ProjectContext.shapes property records whether it hit)
+    built = project._shapes is not None
+    hit = project.shape_summary_cache_hit
     report.cache_stats = {
         "parse_hits": parse_hits,
         "parse_misses": parse_misses,
+        "summary_hits": 1 if (built and hit) else 0,
+        "summary_misses": 1 if (built and not hit) else 0,
     }
     report.project = project
     return report

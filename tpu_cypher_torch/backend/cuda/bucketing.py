@@ -100,15 +100,16 @@ def round_size(n: int) -> int:
 def exact_size(n: int) -> int:
     """``round_size`` without the lattice, for a materialize that sizes
     its lanes exactly in every mode (``wcoj.MultiwayIntersectOp``): the
-    same records, with padded == true."""
+    same sums, with padded == true; the span keeps its pair apart from
+    the lattice's (``exact_rows_pairs``)."""
     n = int(n)
-    return _note_rows(n, n) if n > 0 else 0
+    return _note_rows(n, n, exact=True) if n > 0 else 0
 
 
-def _note_rows(n: int, out: int) -> int:
+def _note_rows(n: int, out: int, exact: bool = False) -> int:
     _ROWS_TRUE.inc(n)
     _ROWS_PADDED.inc(out)
-    _obs_trace.note_rows(n, out)
+    _obs_trace.note_rows(n, out, exact=exact)
     return out
 
 

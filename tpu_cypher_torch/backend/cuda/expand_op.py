@@ -445,6 +445,7 @@ class _FusedExpandBase(RelationalOperator):
             return taken[0], taken[1], tuple(taken[2:]), n2
         n2 = int(J.mask_sum(keep))
         if n2 != n_out:
+            # tpulint: allow[pad-invariant] reason=bucketing-off branch only (the enabled branch above routes through _mask_to_idx_bucketed); exact size is the contract here
             idx = J.mask_nonzero(keep, size=n2)
             taken = J.tree_take((row, orig) + tuple(extras), idx)
             row, orig, extras = taken[0], taken[1], tuple(taken[2:])
@@ -1101,6 +1102,7 @@ class CsrExpandIntoOp(_FusedExpandBase):
         q, q_ok = J.into_probe(s_pos, t_pos, ok, gi.num_nodes, drop_loops=drop_loops)
         lo, counts, total_dev = intersect_range_count(keys, q, q_ok)
         del q, q_ok
+        # tpulint: allow[pad-invariant] reason=the close's rows are sized exactly in every bucket mode (bucketing.exact_size, as the WCOJ materialize): the lanes are the answer's rows and their pairs stamp the span
         row, orig, _ = J.into_materialize_counted(
             eo, lo, counts, total_dev, size=bucketing.exact_size(total_dev)
         )
@@ -1557,6 +1559,7 @@ class CsrVarExpandOp(_FusedExpandBase):
             else:
                 k = int(k_dev)
                 if k:
+                    # tpulint: allow[pad-invariant] reason=exact emission gather: pad lanes would enter the levels' concat as live rows; the walk's hop is the bucketed materialize (round_size below)
                     idx = J.mask_nonzero(keep, size=k)
                     # zero-length walks carry empty relationship lists
                     walked = (_empty_i64().reshape(k, 0),) if rel_list else ()
@@ -1589,6 +1592,7 @@ class CsrVarExpandOp(_FusedExpandBase):
                     if k:
                         # exact emission gather: pad lanes would enter the
                         # levels' concat as live rows
+                        # tpulint: allow[pad-invariant] reason=exact emission gather: pad lanes would enter the levels' concat as live rows; the hop above is the bucketed materialize
                         idx = J.mask_nonzero(keep, size=k)
                         walked = (
                             (torch.stack(prev_edges[nforbid:], 1)[idx],) if rel_list else ()

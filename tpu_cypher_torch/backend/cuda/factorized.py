@@ -103,12 +103,14 @@ def decode_lanes(W, w, lo: int, hi: int):
     i0, i1, s0, s1 = torch.cat([ends, W[ends] - w[ends]]).tolist()
     off = lo - s0
     # both end lanes weigh more than 0, so they are the first and the last
+    # tpulint: allow[pad-invariant] reason=a decode chunk's lanes of weight above 0 are its frontier: chunks are sized exactly, no pad lanes (module docstring)
     lanes = torch.nonzero(w[i0:i1 + 1]).squeeze(1)
     deg = w[lanes + i0]
     deg[-1] = hi - s1
     deg[0] -= off
     nlanes = int(lanes.shape[0])
     itype = torch.int32 if n <= _INT32_MAX else torch.int64
+    # tpulint: allow[pad-invariant] reason=the decode's chunk is sized exactly on the expand_rows gate (no pad lanes to mask, module docstring); decompress_chunk_rows bounds it
     row, inner, _, _ = expand_materialize_counted(
         torch.zeros(nlanes, dtype=itype, device=dev),
         torch.arange(n, dtype=itype, device=dev), None,

@@ -112,6 +112,7 @@ def hash_build(keys, size: int = 0):
     dev, nvalid = keys.device, int(keys.shape[0])
     first = torch.ones(nvalid, dtype=torch.bool, device=dev)
     first[1:] = keys[1:] != keys[:-1]
+    # tpulint: allow[pad-invariant] reason=the plain build's key run starts: their count sizes a hash table that rounds up pow2 (table_size)
     fpos = torch.nonzero(first, as_tuple=True)[0]
     nu = int(fpos.shape[0])
     cnt = torch.diff(fpos, append=torch.tensor([nvalid], dtype=torch.int64, device=dev))
@@ -185,6 +186,7 @@ def table_invariants(table, bound: int, keys) -> list:
     def occupied(t):
         """(slots, keys, first positions, runs) of the occupied slots, in
         key order."""
+        # tpulint: allow[pad-invariant] reason=occupied slots of a built table, read by the invariant checker only, never on the query path
         slots = torch.nonzero(t[:, 3] != 0, as_tuple=True)[0]
         k = t.contiguous().view(torch.int64)[:, 0][slots]
         order = torch.argsort(k, stable=True)

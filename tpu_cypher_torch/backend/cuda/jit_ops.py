@@ -138,6 +138,7 @@ def concat_pair(a, b):
 def mask_nonzero(mask: torch.Tensor, size: int) -> torch.Tensor:
     """``jnp.nonzero(mask, size=size)[0]``: the True positions, cut or
     zero-padded to ``size`` lanes."""
+    # tpulint: allow[pad-invariant] reason=the sized compaction primitive itself: it cuts or zero-pads the exact positions to the caller's size
     idx = torch.nonzero(mask, as_tuple=True)[0]
     m = int(idx.shape[0])
     if m >= size:
@@ -150,6 +151,7 @@ def mask_to_idx(mask) -> Tuple[Any, int]:
     from ...runtime.faults import fault_point
 
     fault_point("compact")
+    # tpulint: allow[pad-invariant] reason=the exact-compact primitive itself; bucketed callers go through column.mask_to_idx_bucketed
     idx = torch.nonzero(mask, as_tuple=True)[0]
     return idx, int(idx.shape[0])
 
@@ -734,6 +736,7 @@ def varlen_emit(nbr, iso, row_map):
     missing), surviving-row mask, surviving count."""
     far = row_map[nbr]
     keep = iso & (far >= 0)
+    # tpulint: allow[pad-mask-discipline] reason=iso is all ones only on an unbucketed walk (nvalid None), where round_size is the identity and no lane is padded; a bucketed walk's iso starts from the gate's live mask
     return far, keep, torch.sum(keep, dtype=torch.int64)
 
 

@@ -63,6 +63,7 @@ def segment_lanes(rp, pos, deg, nchild: int) -> Tuple[torch.Tensor, torch.Tensor
         return z, z
     itype = torch.int32 if nchild <= _INT32_MAX else torch.int64
     ci = torch.arange(nchild, dtype=itype, device=dev)
+    # tpulint: allow[pad-invariant] reason=the explode's lanes are the list elements themselves, one output row each: sized exactly
     row, nbr, _, _ = expand_materialize_counted(
         rp.to(itype), ci, None, pos, deg.to(torch.int64), total,
         size=total, with_orig=False,
@@ -100,6 +101,7 @@ def collect(seg, col: Column, k: int) -> Column:
     in row order (a stable sort of the group ids), the lengths from a count
     per group."""
     keep = col.valid_mask()
+    # tpulint: allow[pad-invariant] reason=collect keeps the valid rows as list elements: the answer's values, compacted exactly
     rows = torch.nonzero(keep).squeeze(1)
     g = seg[rows]
     order = torch.sort(g, stable=True).indices

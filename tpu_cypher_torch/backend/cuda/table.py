@@ -729,6 +729,7 @@ class CudaTable(Table):
             if agg.expr is None:  # count(*): every row counts
                 counts = (
                     torch.tensor([n], dtype=torch.int64, device=dev) if seg_j is None
+                    # tpulint: allow[pad-invariant] reason=count(*) per group: one output row per group, k is the answer's group count
                     else torch.bincount(seg_j, minlength=k)
                 )
                 out_cols[out_col] = Column(I64, counts, None)
@@ -854,10 +855,12 @@ class CudaTable(Table):
         if c.kind == MIX and any(p.kind == LST for p in c.parts):
             raise TpuUnsupportedExpr("UNWIND of a column of lists mixed with other values")
         if c.kind == LST:
+            # tpulint: allow[pad-invariant] reason=UNWIND emits one row per list element: the answer's rows, compacted exactly
             pos = torch.nonzero(c.valid_mask() & (c.lengths() > 0)).squeeze(1)
             row, child_pos = LS.segment_lanes(c.starts(), pos, c.lengths()[pos], len(c.child))
             rows, value = pos[row], c.child.take(child_pos)
         else:
+            # tpulint: allow[pad-invariant] reason=UNWIND of a scalar column emits its valid rows: the answer's rows, compacted exactly
             rows = torch.nonzero(c.valid_mask()).squeeze(1)
             value = c.take(rows)
         out = t._take(rows)
@@ -961,6 +964,7 @@ def _percentile(name: str, agg, seg_j, col: Column, k: int, parameters) -> Colum
                           torch.zeros(k, dtype=torch.bool, device=valid.device))
         from ..local.eval import aggregate_values
 
+        # tpulint: allow[pad-invariant] reason=the first valid value, read once to check the percentile argument on the host: not a lane extent
         first = col.take(torch.nonzero(valid)[:1].squeeze(1)).to_values()
         aggregate_values(name, first, False, [p])
         raise TpuUnsupportedExpr("percentile fraction out of range")

@@ -105,6 +105,7 @@ def _lanes(col: Column) -> torch.Tensor:
             raise _unsupported("a key of temporal values of mixed kinds (ROADMAP.md §3)")
         valid = col.valid_mask()  # a null row's (part, row) points anywhere
         for j, part in enumerate(col.parts):
+            # tpulint: allow[pad-invariant] reason=exact compaction of one value kind's rows for the order keys: value columns carry no pad lanes
             sel = torch.nonzero(valid & (tags == j)).squeeze(1)
             if j in map_ranks:
                 lanes = torch.zeros((len(part), _LANES), dtype=torch.int64, device=dev)
@@ -159,6 +160,7 @@ def rank(col: Column) -> Column:
         return Column(I64, torch.zeros(0, dtype=torch.int64, device=dev), col.valid)
     valid = col.valid_mask()
     out = torch.zeros(n, dtype=torch.int64, device=dev)
+    # tpulint: allow[pad-invariant] reason=exact compaction of the valid rows to rank: value columns carry no pad lanes
     rows = torch.nonzero(valid).squeeze(1)
     if int(rows.shape[0]):
         lanes = _lanes(col)[rows]
@@ -276,6 +278,7 @@ def _maps_rank(parts: List[Column]) -> List[torch.Tensor]:
         present.append(torch.cat([_present(p, k) for p in parts]))
     pres = torch.stack(present, 1)  # (m, keys)
     vals = torch.stack(values, 1)
+    # tpulint: allow[pad-invariant] reason=the (row, key) pairs of present map keys are the values ranked: an exact compaction
     row, key = torch.nonzero(pres, as_tuple=True)  # row-major: key order per row
     _, er = torch.unique(torch.stack([key, vals[row, key]], 1), dim=0, return_inverse=True)
     r = _seq_rank(pres.sum(1), row, er + 1)
@@ -334,6 +337,7 @@ def equal(l: Column, r: Column) -> Column:
         data, known = falses.clone(), falses.clone()
         for i, p in enumerate(L.parts):
             for j, q in enumerate(R.parts):
+                # tpulint: allow[pad-invariant] reason=exact compaction of one kind pair's rows for equality: value columns carry no pad lanes
                 sel = torch.nonzero(valid & (lt == i) & (rt == j)).squeeze(1)
                 if int(sel.shape[0]) == 0:
                     continue
@@ -371,6 +375,7 @@ def _list_equal(l: Column, r: Column, valid) -> Column:
     same = valid & (la == lb)
     data = same.clone()
     known = valid.clone()
+    # tpulint: allow[pad-invariant] reason=exact compaction of the non-empty equal-length list rows compared element by element
     rows = torch.nonzero(same & (la > 0)).squeeze(1)
     if int(rows.shape[0]):
         parent, pos_l = segment_lanes(l.starts(), rows, la[rows], len(l.child))

@@ -367,6 +367,7 @@ class MultiwayIntersectOp(_FusedExpandBase):
             # lanes: row + cand (16B) and live (1B), no orig, plus one 8B
             # count per probe
             bucketing.admit(n_a, 17 + 8 * (len(lists) - 1), "intersect")
+            # tpulint: allow[pad-invariant] reason=WCOJ lanes are sized exactly in every bucket mode (bucketing.exact_size): each lane is a probe the range count answers, and a pad lane would be one more probe
             row, cand, _, live = expand_materialize_counted(
                 lst.rp, lst.ci, lst.eo, lst.pos, deg_a, n_a,
                 size=bucketing.exact_size(n_a), with_orig=False,
@@ -411,6 +412,7 @@ class MultiwayIntersectOp(_FusedExpandBase):
         bucketing.admit(total, 24 + 16 * len(closes), "intersect")
         if total == 0:  # nothing to probe: no gate call
             return self._materialize_empty(gi, ctx)
+        # tpulint: allow[pad-invariant] reason=WCOJ lanes are sized exactly in every bucket mode (bucketing.exact_size): the materialize's lanes are its output rows
         row, cand, orig_p, live = expand_materialize_counted(
             pivot.rp, pivot.ci, pivot.eo, pivot.pos, deg, total,
             size=bucketing.exact_size(total),
@@ -457,6 +459,7 @@ class MultiwayIntersectOp(_FusedExpandBase):
             keep = self._wcoj_pair_keep(gi, ctx, in_row, orig_p2, orig_cs)
             n2 = int(J.mask_sum(keep))
             if n2 != n_out:
+                # tpulint: allow[pad-invariant] reason=exact compact of the uniqueness-filtered close rows: callers take every returned row as live
                 idx = J.mask_nonzero(keep, size=n2)
                 in_row, cand2, orig_p2 = J.tree_take((in_row, cand2, orig_p2), idx)
                 orig_cs = {r: o[idx] for r, o in orig_cs.items()}

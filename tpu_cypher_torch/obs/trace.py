@@ -87,6 +87,7 @@ class Span:
         shards: int = 1,
         local_true: Optional[int] = None,
         local_padded: Optional[int] = None,
+        exact: bool = False,
     ) -> None:
         """Accumulate a padded-vs-true row count from the bucket lattice.
 
@@ -96,12 +97,18 @@ class Span:
         actually produced, per rounding, not just in aggregate. Under a mesh the lattice rounds per shard: the span
         additionally records the shard count and the per-shard
         ``(local true extent, local padded)`` pairs, the sharded analog
-        of the same static-vs-runtime agreement gate."""
+        of the same static-vs-runtime agreement gate. ``exact``: a
+        materialize that sizes its lanes exactly in every bucket mode
+        (``bucketing.exact_size``); it adds to the sums, and its pairs go
+        to ``exact_rows_pairs``, so ``rows_pairs`` holds the lattice's
+        roundings only."""
         self.attrs["rows_true"] = self.attrs.get("rows_true", 0) + int(true_rows)
         self.attrs["rows_padded"] = (
             self.attrs.get("rows_padded", 0) + int(padded_rows)
         )
-        pairs = self.attrs.setdefault("rows_pairs", [])
+        pairs = self.attrs.setdefault(
+            "exact_rows_pairs" if exact else "rows_pairs", []
+        )
         if len(pairs) < self.ROWS_PAIRS_CAP:
             pairs.append([int(true_rows), int(padded_rows)])
         if shards > 1 and local_true is not None and local_padded is not None:
@@ -223,14 +230,17 @@ def note_rows(
     shards: int = 1,
     local_true: Optional[int] = None,
     local_padded: Optional[int] = None,
+    exact: bool = False,
 ) -> None:
     """Record a bucket-lattice materialize on the innermost open span
-    (plus the per-shard extent pair while a mesh is active)."""
+    (plus the per-shard extent pair while a mesh is active); ``exact``
+    marks a materialize sized exactly in every mode."""
     sp = _SPAN.get()
     if sp is not None:
         sp.add_rows(
             true_rows, padded_rows,
             shards=shards, local_true=local_true, local_padded=local_padded,
+            exact=exact,
         )
 
 

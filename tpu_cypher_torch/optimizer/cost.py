@@ -1,8 +1,8 @@
 """Padded-lattice cost model: one estimator behind every routing choice.
 
 Costs are computed in **padded** rows, not true rows: every operator's
-device work is a function of its bucketed shapes (``bucketing.predict_padded``
-is the lattice's rounding, the one ``round_size`` applies at run time),
+device work is a function of its bucketed shapes (``analysis.shapes.predict_padded``
+is the lattice's rounding, pinned equal to the one ``round_size`` applies at run time),
 so composing ``round_size`` over candidate plans prices exactly the rows
 the device will be asked to hold — and makes two plans with the same
 bucket sequence provably the same cost.
@@ -70,10 +70,13 @@ def padded_rows(n) -> int:
     pure shape-facts predictor (pinned equal to ``bucketing.round_size``
     by the agreement test) rather than ``round_size`` itself, because the
     runtime function stamps every call's true/padded pair on the enclosing
-    trace span — estimator what-ifs must not pollute measured profiles."""
+    trace span — estimator what-ifs must not pollute measured profiles.
+    ``tests/test_torch_shapes.py`` pins it, ``bucketing.predict_padded``
+    and ``round_size`` equal in every mode."""
+    from ..analysis.shapes import predict_padded
     from ..backend.cuda import bucketing
 
-    return int(bucketing.predict_padded(max(int(n), 0), bucketing.mode()))
+    return int(predict_padded(max(int(n), 0), bucketing.mode()))
 
 
 def _mesh_size() -> int:
