@@ -8,8 +8,9 @@ the baseline alike on shared synthetic sources. (ii) The two retargeted
 rules (``host-sync`` over the torch taint model, ``obs-emission`` over the
 port's raw launches) fire on ``tests/torch_lint_fixtures/*/bad`` and stay
 silent on ``*/clean``, which mirror the reference's cases one for one
-(the shape pack's five rules are ``tests/test_torch_shapes.py``'s).
-(iii) The port lints clean with all twelve rules and an empty committed
+(the shape pack's five rules are ``tests/test_torch_shapes.py``'s); so
+does the port's own ``sync-span``, which has no counterpart there.
+(iii) The port lints clean with all thirteen rules and an empty committed
 baseline, and the kernels ``obs-emission`` collects equal
 ``dispatch.registry()``. (iv) The CLI's exit codes, in five subprocess
 calls, ``--facts-out`` among them. (v) The fault sites the port's
@@ -50,7 +51,9 @@ SHAPE_PACK = {
     "recompile-hazard", "pad-invariant", "shape-stability", "pad-mask-discipline",
     "bucket-cardinality",
 }
-PORT_RULES = set(SHARED) | {"host-sync", "obs-emission"} | SHAPE_PACK
+# the port's own rules, after the reference's twelve
+PORT_ONLY = ["sync-span"]
+PORT_RULES = set(SHARED) | {"host-sync", "obs-emission"} | SHAPE_PACK | set(PORT_ONLY)
 
 
 @pytest.fixture(scope="module")
@@ -87,9 +90,9 @@ def test_registry_shape():
     from tpu_cypher.analysis.rules import ALL_RULES as REF_RULES
 
     ids = [r.id for r in ALL_RULES]
-    assert len(ids) == len(set(ids)) == 12
+    assert len(ids) == len(set(ids)) == 13
     assert set(ids) == PORT_RULES == set(RULES_BY_ID)
-    assert ids == [r.id for r in REF_RULES]  # the reference's order
+    assert ids == [r.id for r in REF_RULES] + PORT_ONLY  # the reference's order, then the port's
     for r in ALL_RULES:
         assert r.id and r.title and r.rationale, r
 
@@ -245,6 +248,26 @@ def test_host_sync_torch_kinds():
     ]), report.render_text()
 
 
+@pytest.mark.parametrize("which,want", [
+    ("bad", [
+        (9, "int(<device value>)"),         # no span at all
+        (19, "int(<device value>)"),        # the span is the caller's
+        (25, ".item()"),                    # a nested function's read
+        (31, "bool(<device value>)"),       # another context manager
+        (37, ".cpu()"),                     # after the span closed
+        (42, "torch.cuda.synchronize()"),   # a plain span, not a sync span
+    ]),
+    ("clean", []),
+])
+def test_sync_span_flags_syncs_outside_a_sync_span(which, want):
+    """spans.py: a sync must sit lexically inside ``with sync(..)`` in its
+    own function, however the file imports ``obs.trace.sync``."""
+    report = _fixture("sync-span", which)
+    got = sorted((f.line, f.message.split(" forces")[0]) for f in report.blocking)
+    assert got == want, report.render_text()
+    assert report.files_checked == 1
+
+
 def test_host_metadata_is_not_a_sync():
     """Allocator statistics, tensor metadata, CPU tensors and an
     isinstance-narrowed numpy array never flag (metadata.py is clean)."""
@@ -336,7 +359,7 @@ def test_committed_baseline_is_empty():
 
 def test_port_lints_clean(engine):
     assert engine.files_checked > 120, "port sweep looks truncated"
-    assert engine.rules_run == 12
+    assert engine.rules_run == 13
     assert engine.clean, engine.render_text()
     assert not engine.baselined
     for f in engine.suppressed:
@@ -429,7 +452,7 @@ def test_cli_port_wide_exits_0_json(tmp_path):
     proc = _cli("--format", "json", "--facts-out", str(facts_out))
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     payload = json.loads(proc.stdout)
-    assert payload["clean"] is True and payload["rules_run"] == 12
+    assert payload["clean"] is True and payload["rules_run"] == 13
     assert payload["findings"] == [] and payload["baselined"] == []
     sup = payload["suppressions"]
     assert sup["schema_version"] == 1 and sup["entries"]
@@ -454,7 +477,7 @@ def test_cli_list_rules():
     proc = _cli("--list-rules")
     assert proc.returncode == 0
     lines = proc.stdout.strip().splitlines()
-    assert len(lines) == 12 and {ln.split()[0] for ln in lines} == PORT_RULES
+    assert len(lines) == 13 and {ln.split()[0] for ln in lines} == PORT_RULES
 
 
 def test_cli_unknown_rule_exits_2():

@@ -1,14 +1,15 @@
-"""The rule registry: twelve engine-grounded invariants, one shared pass.
+"""The rule registry: thirteen engine-grounded invariants, one shared pass.
 
 The port's counterpart of ``tpu_cypher/analysis/rules/__init__.py``, with
-the same rule ids in the same order. Adding a rule = subclass
+the same rule ids in the same order, then the port's own ``sync-span``
+(every device sync inside a timed ``obs.trace.sync`` span). Adding a rule = subclass
 ``core.Rule``, give it a kebab-case ``id``, and list an instance here;
 every rule ships a known-bad and a known-clean fixture
 (``tests/test_torch_analysis.py``, ``tests/test_torch_shapes.py``).
 
 Five rules are per-file (``recompile-hazard``, ``pad-invariant``,
 ``env-var-registry``, ``exception-hygiene``, ``obs-emission``);
-``host-sync`` and the concurrency pack (``async-blocking``,
+``host-sync``, ``sync-span`` and the concurrency pack (``async-blocking``,
 ``contextvar-discipline``, ``shared-state-race``) consume the
 interprocedural substrate (``callgraph.py`` / ``dataflow.py``) the
 ``ProjectContext`` builds lazily on first use; the shape pack
@@ -35,6 +36,7 @@ from .pad_mask import PadMaskRule
 from .recompile import RecompileHazardRule
 from .shape_stability import ShapeStabilityRule
 from .shared_state_race import SharedStateRaceRule
+from .sync_span import SyncSpanRule
 
 ALL_RULES: List[Rule] = [
     HostSyncRule(),
@@ -49,6 +51,7 @@ ALL_RULES: List[Rule] = [
     ShapeStabilityRule(),
     PadMaskRule(),
     BucketCardinalityRule(),
+    SyncSpanRule(),
 ]
 
 RULES_BY_ID: Dict[str, Rule] = {r.id: r for r in ALL_RULES}

@@ -67,6 +67,7 @@ import torch
 from ...api import types as T
 from ...api.types import CypherType
 from ...api.values import CypherMap, Duration, Node, Path, Relationship
+from ...obs.trace import sync as host_sync
 from . import device as _device
 
 # column kinds
@@ -98,17 +99,23 @@ INTEGRAL_KINDS = (I64, BOOL, STR) + TEMPORAL_KINDS
 _NULL_CODE = np.int32(-1)
 
 
-def to_host(arr) -> np.ndarray:
-    """Device tensor -> host numpy array (identity for numpy input)."""
+def to_host(arr, site: str = "to_host") -> np.ndarray:
+    """Device tensor -> host numpy array (identity for numpy input); the
+    copy is timed as ``sync:<site>``."""
     if isinstance(arr, np.ndarray):
         return arr
-    # tpulint: allow[host-sync] reason=the port's device-to-host copy helper: the sync is its purpose, and the session's attempt boundary types a fault it raises
-    return arr.detach().cpu().numpy()
+    with host_sync(site):
+        # tpulint: allow[host-sync] reason=the port's device-to-host copy helper: the sync is its purpose, and the session's attempt boundary types a fault it raises
+        return arr.detach().cpu().numpy()
 
 
 def to_device(host_arr) -> torch.Tensor:
-    """Host numpy array -> tensor on the backend's device (one copy)."""
-    return torch.from_numpy(np.ascontiguousarray(host_arr)).to(_device.get())
+    """Host numpy array -> tensor on the backend's device (one copy: from
+    pageable host memory it waits for the device's queue, so it is timed
+    as ``sync:to_device``)."""
+    src = torch.from_numpy(np.ascontiguousarray(host_arr))
+    with host_sync("to_device"):
+        return src.to(_device.get())
 
 
 def _obj_array(vals) -> np.ndarray:
@@ -397,16 +404,16 @@ class Column:
         if self._host_fetch is None:
             data = (
                 self._np_cache if self._np_cache is not None
-                else to_host(self.data)
+                else to_host(self.data, "decode")
             )
             if self.valid is None:
                 valid = None
             elif self._np_valid is not None:
                 valid = self._np_valid
             else:
-                valid = to_host(self.valid)
+                valid = to_host(self.valid, "decode")
             iflag = (
-                to_host(self.int_flag) if self.int_flag is not None else None
+                to_host(self.int_flag, "decode") if self.int_flag is not None else None
             )
             self._host_fetch = (data, valid, iflag)
         return self._host_fetch
@@ -616,16 +623,21 @@ class Column:
         if self.kind != I64:
             return False
         if self._beyond_f64 is None:
-            big = self.valid_mask() & (torch.abs(self.data) > 2**53)
-            # tpulint: allow[host-sync] reason=one cached scalar probe per column at compare time; runs inside the session's per-attempt fault boundary
-            self._beyond_f64 = bool(torch.any(big))
+            big = torch.any(self.valid_mask() & (torch.abs(self.data) > 2**53))
+            with host_sync("probe"):
+                # tpulint: allow[host-sync] reason=one cached scalar probe per column at compare time; runs inside the session's per-attempt fault boundary
+                self._beyond_f64 = bool(big)
         return self._beyond_f64
 
     def is_all_null(self) -> bool:
         if self.kind == OBJ:
             return all(v is None for v in self.data)
-        # tpulint: allow[host-sync] reason=one scalar nullness probe at decode/compare time; runs inside the session's per-attempt fault boundary
-        return self.valid is not None and not bool(torch.any(self.valid))
+        if self.valid is None:
+            return False
+        anyv = torch.any(self.valid)
+        with host_sync("probe"):
+            # tpulint: allow[host-sync] reason=one scalar nullness probe at decode/compare time; runs inside the session's per-attempt fault boundary
+            return not bool(anyv)
 
     def null_like(self, n: int) -> "Column":
         """n all-null rows with this column's kind and vocab."""
@@ -976,7 +988,9 @@ def mask_to_idx_bucketed(mask) -> Tuple[Any, int]:
     from .jit_ops import mask_nonzero, mask_sum
 
     fault_point("compact")
-    count = int(mask_sum(mask))
+    total = mask_sum(mask)
+    with host_sync("compact"):
+        count = int(total)
     return mask_nonzero(mask, size=round_size(count)), count
 
 

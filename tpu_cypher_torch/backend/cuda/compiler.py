@@ -85,6 +85,7 @@ import torch
 
 from ...api.values import Duration, to_cypher_string
 from ...ir import expr as E
+from ...obs.trace import sync as host_sync
 from ...runtime.faults import fault_point
 from . import device as _device
 from . import lists as LS
@@ -1000,7 +1001,11 @@ class CudaEvaluator:
         # row order
         j = pos - lst.starts()[parent]
         order = torch.sort(j, stable=True).indices
-        counts = to_host(torch.bincount(j, minlength=1)).tolist() if len(j) else []
+        counts = []
+        if len(j):
+            with host_sync("expr"):
+                hist = torch.bincount(j, minlength=1)
+            counts = to_host(hist, "expr").tolist()
         acc, lo = init, 0
         for cnt in counts:
             lanes = order[lo:lo + cnt]
@@ -1056,8 +1061,9 @@ class CudaEvaluator:
             p = self._predicate_on(self._bind(parent, expr.var, vals), expr.where)
             kept = p.data & p.valid_mask()
             lens = LS.segment_sum(kept, parent, self.n)
-            # tpulint: allow[pad-invariant] reason=exact compaction of the list elements a comprehension's WHERE keeps: the kept elements are the answer's values
-            keep = torch.nonzero(kept).squeeze(1)
+            with host_sync("expr"):
+                # tpulint: allow[pad-invariant] reason=exact compaction of the list elements a comprehension's WHERE keeps: the kept elements are the answer's values
+                keep = torch.nonzero(kept).squeeze(1)
             parent, vals = parent[keep], vals.take(keep)
         if expr.projection is not None:  # over the kept elements only
             vals = self._bind(parent, expr.var, vals).eval(expr.projection)
@@ -1163,7 +1169,8 @@ class CudaEvaluator:
         span = (b.data - a.data) if step > 0 else (a.data - b.data)
         lens = torch.where(valid & (span >= 0), span // abs(step) + 1, torch.zeros_like(span))
         fault_point("expr")  # the element total read below
-        total = int(lens.sum())
+        with host_sync("expr"):
+            total = int(lens.sum())
         dev = lens.device
         # tpulint: allow[pad-invariant] reason=range() elements are the answer's list values: the child is sized by their exact total
         parent = torch.repeat_interleave(
@@ -1189,12 +1196,14 @@ class CudaEvaluator:
         and one gather maps the rows onto a new sorted vocab."""
         l, r = self._as_str(l), self._as_str(r)
         valid = l.valid_mask() & r.valid_mask()
-        # tpulint: allow[pad-invariant] reason=exact compaction of the valid string pairs to concatenate over the vocab: value columns carry no pad lanes
-        rows = torch.nonzero(valid).squeeze(1)
+        with host_sync("expr"):
+            # tpulint: allow[pad-invariant] reason=exact compaction of the valid string pairs to concatenate over the vocab: value columns carry no pad lanes
+            rows = torch.nonzero(valid).squeeze(1)
         pairs = torch.stack([l.data[rows].to(torch.int64), r.data[rows].to(torch.int64)], 1)
-        uniq, inv = torch.unique(pairs, dim=0, return_inverse=True)
+        with host_sync("expr"):
+            uniq, inv = torch.unique(pairs, dim=0, return_inverse=True)
         lv, rv = l.vocab or [], r.vocab or []
-        outs = [lv[a] + rv[b] for a, b in to_host(uniq).tolist()]
+        outs = [lv[a] + rv[b] for a, b in to_host(uniq, "expr").tolist()]
         codes = torch.full((self.n,), -1, dtype=torch.int64, device=l.data.device)
         codes[rows] = inv
         return _lut_apply(codes, None if l.valid is None and r.valid is None else valid, outs)
@@ -1236,8 +1245,9 @@ class CudaEvaluator:
             mask = torch.ones(self.n, dtype=torch.bool, device=_device.get())
             for c in cols:
                 mask = mask & c.valid_mask()
-        # tpulint: allow[pad-invariant] reason=the first row to raise the oracle's error from: a one-row read, not a lane extent
-        first = torch.nonzero(mask)[:1].squeeze(1)
+        with host_sync("expr"):
+            # tpulint: allow[pad-invariant] reason=the first row to raise the oracle's error from: a one-row read, not a lane extent
+            first = torch.nonzero(mask)[:1].squeeze(1)
         if int(first.shape[0]) == 0:
             return constant_column(None, self.n)
         _oracle(build)(*(c.take(first).to_values()[0] for c in cols))
@@ -1330,10 +1340,12 @@ class CudaEvaluator:
         fault_point("expr")  # the range-check counts read below
         if t.kind == DATE:
             timed = vm & (torch.remainder(dmic, TP.US_PER_DAY) != 0)
-            nbad, ntimed, nvalid = (int(x) for x in torch.stack(
-                [bad.sum(), timed.sum(), vm.sum()]).tolist())
+            with host_sync("expr"):
+                nbad, ntimed, nvalid = (int(x) for x in torch.stack(
+                    [bad.sum(), timed.sum(), vm.sum()]).tolist())
         else:
-            nbad = int(bad.sum())
+            with host_sync("expr"):
+                nbad = int(bad.sum())
         if nbad:
             self._oracle_raise(type(expr), operands, bad)
         if t.kind == DATE:
@@ -1375,7 +1387,10 @@ class CudaEvaluator:
         if first is not None:
             bad = inner.valid_mask() & (first < 1)
             fault_point("expr")  # the range check read below
-            if bool(torch.any(bad)):
+            bad_any = torch.any(bad)
+            with host_sync("expr"):
+                any_bad = bool(bad_any)
+            if any_bad:
                 self._oracle_raise(lambda v: E.FunctionCall(name, (E.Lit(unit), v)), [inner], bad)
         if name == "date.truncate":
             return Column(DATE, TP.fdiv(out, TP.US_PER_DAY).to(torch.int32), inner.valid)
@@ -1510,8 +1525,13 @@ class CudaEvaluator:
         d = x.data
         bad = x.valid_mask() & ~((d >= -(2.0**63)) & (d < 2.0**63))
         fault_point("expr")  # the range check read below
-        if bool(torch.any(bad)):
-            lookup("tointeger").fn(float(d[bad][0]))
+        bad_any = torch.any(bad)
+        with host_sync("expr"):
+            any_bad = bool(bad_any)
+        if any_bad:
+            with host_sync("expr_raise"):
+                first_bad = float(d[bad][0])
+            lookup("tointeger").fn(first_bad)
             raise TpuUnsupportedExpr("toInteger() beyond int64")
         return Column(I64, d.to(torch.int64), x.valid)
 
@@ -1615,13 +1635,16 @@ class CudaEvaluator:
             if c.valid is not None:
                 valid = c.valid if valid is None else valid & c.valid
         key = keys[0] if len(keys) == 1 else torch.stack(keys, 1)
-        # tpulint: allow[pad-invariant] reason=exact compaction of the valid rows a per-tuple host function maps: value columns carry no pad lanes
-        rows = None if valid is None else torch.nonzero(valid).squeeze(1)
+        with host_sync("expr"):
+            # tpulint: allow[pad-invariant] reason=exact compaction of the valid rows a per-tuple host function maps: value columns carry no pad lanes
+            rows = None if valid is None else torch.nonzero(valid).squeeze(1)
         sel = key if rows is None else key[rows]
         if sel.dim() == 1:
-            uniq, inv = torch.unique(sel, return_inverse=True)
+            with host_sync("expr"):
+                uniq, inv = torch.unique(sel, return_inverse=True)
         else:
-            uniq, inv = torch.unique(sel, dim=0, return_inverse=True)
+            with host_sync("expr"):
+                uniq, inv = torch.unique(sel, dim=0, return_inverse=True)
         src = torch.arange(int(sel.shape[0]), dtype=torch.int64, device=sel.device)
         if rows is not None:
             src = rows
@@ -1643,7 +1666,7 @@ def _fmod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     kernel returns NaN where the quotient overflows in some versions."""
     if a.device.type == "cpu":
         with np.errstate(invalid="ignore"):
-            # tpulint: allow[host-sync] reason=the CPU branch: a and b live in host memory, no device read
+            # tpulint: allow[host-sync, sync-span] reason=the CPU branch: a and b live in host memory, no device read
             return torch.from_numpy(np.fmod(a.numpy(), b.numpy()))
     return torch.fmod(a, b)
 
@@ -1722,8 +1745,9 @@ def _flag_lists(flags: Dict[str, torch.Tensor], valid, n: int, dev) -> Column:
     mat = torch.stack([flags[k] for k in names], 1)
     if valid is not None:
         mat = mat & valid[:, None]
-    # tpulint: allow[pad-invariant] reason=the (row, flag) pairs are the list values themselves: an exact compaction
-    rows_cols = torch.nonzero(mat)
+    with host_sync("expr"):
+        # tpulint: allow[pad-invariant] reason=the (row, flag) pairs are the list values themselves: an exact compaction
+        rows_cols = torch.nonzero(mat)
     child = Column(STR, rows_cols[:, 1].to(torch.int32), None, names)
     return LS.list_column(mat.sum(1), child, valid)
 

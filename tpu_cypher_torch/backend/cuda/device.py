@@ -25,6 +25,8 @@ from typing import Dict, Optional, Union
 
 import torch
 
+from ...obs.trace import sync as host_sync
+
 _DEVICE: Optional[torch.device] = None
 _GENERATORS: Dict[torch.device, torch.Generator] = {}
 
@@ -86,5 +88,6 @@ def fence() -> None:
     to wait for on the CPU."""
     d = _DEVICE
     if d is not None and d.type == "cuda":
-        # tpulint: allow[host-sync] reason=the fence is the contract: a lazily built structure is published to other streams only after its work is done
-        torch.cuda.current_stream(d).synchronize()
+        with host_sync("fence"):
+            # tpulint: allow[host-sync] reason=the fence is the contract: a lazily built structure is published to other streams only after its work is done
+            torch.cuda.current_stream(d).synchronize()

@@ -80,6 +80,7 @@ from ...obs.metrics import CounterView
 from ...parallel.mesh import current_mesh
 from ...relational.header import RecordHeader
 from ...relational.ops import RelationalOperator
+from ...obs.trace import sync as host_sync
 from ...runtime.faults import fault_point
 from . import bucketing
 from . import device as _device
@@ -267,7 +268,8 @@ def _fused_chain_walk(
         rp, ci, eo = gi.csr(hop.types_key, hop.backwards, ctx)
         mask = gi.label_mask(hop.far_labels, ctx)
         deg, t_dev = J.expand_degrees_total(rp, pos, present)
-        total = int(t_dev)
+        with host_sync("expand"):
+            total = int(t_dev)
         if total == 0:  # before the gate: it takes no empty frontier
             return 0
         # bucketed: the materialize size rounds up to the lattice and the
@@ -443,7 +445,9 @@ class _FusedExpandBase(RelationalOperator):
             idx, n2 = _mask_to_idx_bucketed(keep)
             taken = J.tree_take((row, orig) + tuple(extras), idx)
             return taken[0], taken[1], tuple(taken[2:]), n2
-        n2 = int(J.mask_sum(keep))
+        kept = J.mask_sum(keep)
+        with host_sync("compact"):
+            n2 = int(kept)
         if n2 != n_out:
             # tpulint: allow[pad-invariant] reason=bucketing-off branch only (the enabled branch above routes through _mask_to_idx_bucketed); exact size is the contract here
             idx = J.mask_nonzero(keep, size=n2)
@@ -653,7 +657,8 @@ class CsrExpandOp(_FusedExpandBase):
         rp, ci, eo = gi.csr(self.types_key, reverse, ctx)
         fault_point("expand")  # the emission total read below
         deg, t_dev = J.expand_degrees_total(rp, pos, present)
-        total = int(t_dev)
+        with host_sync("expand"):
+            total = int(t_dev)
         # pre-flight: (row, nbr, orig) int64 lanes + every gathered output
         # column (8B data + 1B mask), padded on the bucket lattice
         bucketing.admit(
@@ -677,7 +682,7 @@ class CsrExpandOp(_FusedExpandBase):
             if bucketed:
                 idx, total = _mask_to_idx_bucketed(keep)
             else:
-                idx, total = J.mask_to_idx(keep)
+                idx, total = J.mask_to_idx(keep, site="expand")
             row, nbr, orig = J.tree_take((row, nbr, orig), idx)
         return row, nbr, orig, total
 
@@ -732,7 +737,9 @@ class CsrExpandOp(_FusedExpandBase):
             carry, mask_pairs, _ = spec
 
             def final(lanes, akey, mask, prevs, midx):
-                return int(J.chain_count_final_unique(lanes, mask, prevs, mask_idx=midx))
+                count = J.chain_count_final_unique(lanes, mask, prevs, mask_idx=midx)
+                with host_sync("expand_count"):
+                    return int(count)
 
             return _fused_chain_walk(
                 gi, ctx, hops, id_col, final, carry, mask_pairs
@@ -743,7 +750,9 @@ class CsrExpandOp(_FusedExpandBase):
 
             pos, present = gi.compact_of(id_col, ctx)
             rp, _, _ = gi.csr(self.types_key, self.backwards, ctx)
-            return int(csr_frontier_degree_sum(rp, pos, present))
+            count = csr_frontier_degree_sum(rp, pos, present)
+            with host_sync("expand_count"):
+                return int(count)
         mesh = current_mesh()
         if mesh is not None and mesh.size > 1:
             # the mesh form: each hop's SpMV runs per shard over contiguous
@@ -836,10 +845,13 @@ class CsrExpandOp(_FusedExpandBase):
             def final(lanes, akey, mask, prevs, midx):
                 kw = dict(use_a=use_a, use_c=use_c, num_nodes=gi.num_nodes)
                 if midx:
-                    return int(J.distinct_pairs_count_final_unique(
+                    count = J.distinct_pairs_count_final_unique(
                         lanes, akey, mask, prevs, mask_idx=midx, **kw
-                    ))
-                return int(J.distinct_pairs_count_final(lanes, akey, mask, **kw))
+                    )
+                else:
+                    count = J.distinct_pairs_count_final(lanes, akey, mask, **kw)
+                with host_sync("expand_count"):
+                    return int(count)
 
             return _fused_chain_walk(
                 gi, ctx, hops, id_col, final, carry, mask_pairs
@@ -867,7 +879,9 @@ class CsrExpandOp(_FusedExpandBase):
         m_c = _pad_mask(gi.label_mask(final_hop.far_labels, ctx), npad)
         fault_point("expand")  # the dense-tier count sync below
         MXU_TIER_COUNTS.inc("dense")
-        return int(J.mxu_distinct_pairs(a1, a2, pres, m_b, m_c, block=J.MM_ROWS))
+        count = J.mxu_distinct_pairs(a1, a2, pres, m_b, m_c, block=J.MM_ROWS)
+        with host_sync("expand_count"):
+            return int(count)
 
     def _mxu_distinct_pairs_tiled(self, gi, ctx, hops, id_col):
         """count(DISTINCT a, c) on the TILED tier: row blocks densified
@@ -913,7 +927,8 @@ class CsrExpandOp(_FusedExpandBase):
             return None
         fault_point("expand")  # the run-total read below
         lo, cnt, t_dev = J.csr_run_bounds(rp, pos, present, in_t.size)
-        total = int(t_dev)
+        with host_sync("expand"):
+            total = int(t_dev)
         if not prefer_factorized(total, 24 + 9 * max(len(self.header.expressions), 1)):
             return None
         rel_cols, rel_header = gi.rel_scan(self.types_key, ctx)
@@ -1013,7 +1028,7 @@ class CsrExpandOp(_FusedExpandBase):
                 idx, n_out = _mask_to_idx_bucketed(keep)
                 changed = n_out != n_live or int(idx.shape[0]) != int(row.shape[0])
             else:
-                idx, n_out = J.mask_to_idx(keep)
+                idx, n_out = J.mask_to_idx(keep, site="expand")
                 changed = n_out != int(row.shape[0])
             if changed:
                 if swapped is not None:
@@ -1189,10 +1204,12 @@ class CsrExpandIntoOp(_FusedExpandBase):
                         num_nodes=n, mask_idx=midx,
                     )
                     _, counts, _ = intersect_range_count(keys, probe, ok)
-                    return int(J.into_close_count_unique(
+                    count = J.into_close_count_unique(
                         counts, probe, ok, orig, prevs_r, kbo,
                         sub_idx=sub_idx, sub_cur=sub_cur,
-                    ))
+                    )
+                    with host_sync("expand_count"):
+                        return int(count)
 
                 return _fused_chain_walk(
                     gi, ctx, hops, id_col, final_u, carry, mask_pairs,
@@ -1207,8 +1224,10 @@ class CsrExpandIntoOp(_FusedExpandBase):
                 total = 0
                 while queries:  # each probe freed before the next is counted
                     q, ok = queries.pop(0)
-                    total += int(intersect_range_count(keys, q, ok)[2])
-                    del q, ok
+                    count = intersect_range_count(keys, q, ok)[2]
+                    with host_sync("expand_count"):
+                        total += int(count)
+                    del q, ok, count
                 return total
 
             return _fused_chain_walk(gi, ctx, hops, id_col, final)
@@ -1242,7 +1261,9 @@ class CsrExpandIntoOp(_FusedExpandBase):
         m_c = _pad_mask(gi.label_mask(final_hop.far_labels, ctx), npad)
         fault_point("expand")  # the dense-tier count sync below
         MXU_TIER_COUNTS.inc("dense")
-        return int(J.mxu_close_count(a1, a2, cm, mult, m_b, m_c, block=J.MM_ROWS))
+        count = J.mxu_close_count(a1, a2, cm, mult, m_b, m_c, block=J.MM_ROWS)
+        with host_sync("expand_count"):
+            return int(count)
 
     def _mxu_close_count_tiled(self, gi, ctx, hops, id_col, src_is_base):
         """Triangle/cycle close count on the TILED tier (see
@@ -1352,7 +1373,8 @@ class CsrOptionalExpandOp(_FusedExpandBase):
         nrows = in_t.size if int(pos.shape[0]) != in_t.size else None
         deg, counts, t_dev = J.optional_expand_degrees(rp, pos, present, nrows=nrows)
         fault_point("expand")  # the lane totals read below
-        total, matched_total = torch.stack((t_dev, torch.sum(deg))).tolist()
+        with host_sync("expand"):
+            total, matched_total = torch.stack((t_dev, torch.sum(deg))).tolist()
         bucketing.exact_size(total)  # the lanes on the trace span and counters
         row, nbr, orig, matched = _optional_lanes(
             rp, ci, eo, pos, deg, counts, total, matched_total
@@ -1555,9 +1577,11 @@ class CsrVarExpandOp(_FusedExpandBase):
             # far labels) — the identity frontier before the walk's levels
             row00, far, keep, k_dev = J.varlen_zero(pos, present, row_map)
             if count_only:
-                total_count += int(k_dev)
+                with host_sync("var_expand_emit"):
+                    total_count += int(k_dev)
             else:
-                k = int(k_dev)
+                with host_sync("var_expand_emit"):
+                    k = int(k_dev)
                 if k:
                     # tpulint: allow[pad-invariant] reason=exact emission gather: pad lanes would enter the levels' concat as live rows; the walk's hop is the bucketed materialize (round_size below)
                     idx = J.mask_nonzero(keep, size=k)
@@ -1568,7 +1592,8 @@ class CsrVarExpandOp(_FusedExpandBase):
         for level in range(1, self._resolved_upper(ci) + 1):
             fault_point("var_expand")
             deg, t_dev = J.expand_degrees_total(rp, pos, present)
-            total = int(t_dev)
+            with host_sync("var_expand"):
+                total = int(t_dev)
             if total == 0:  # before the gate: it takes no empty frontier
                 break
             # pre-flight: each hop lane carries (row0, nbr, orig) plus one
@@ -1586,9 +1611,11 @@ class CsrVarExpandOp(_FusedExpandBase):
             if level >= self.lower:
                 far, keep, k_dev = J.varlen_emit(nbr, iso, row_map)
                 if count_only:
-                    total_count += int(k_dev)
+                    with host_sync("var_expand_emit"):
+                        total_count += int(k_dev)
                 else:
-                    k = int(k_dev)
+                    with host_sync("var_expand_emit"):
+                        k = int(k_dev)
                     if k:
                         # exact emission gather: pad lanes would enter the
                         # levels' concat as live rows

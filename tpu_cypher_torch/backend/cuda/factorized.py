@@ -50,6 +50,7 @@ from ...api.table import Table
 from ...api.types import CypherType
 from ...ir import expr as E
 from ...obs import trace as _obs_trace
+from ...obs.trace import sync as host_sync
 from ...runtime.faults import fault_point
 from . import bucketing
 from . import jit_ops as J
@@ -100,11 +101,13 @@ def decode_lanes(W, w, lo: int, hi: int):
     ends = torch.searchsorted(
         W, torch.tensor([lo, hi - 1], dtype=torch.int64, device=dev), right=True
     )
-    i0, i1, s0, s1 = torch.cat([ends, W[ends] - w[ends]]).tolist()
+    with host_sync("expand"):
+        i0, i1, s0, s1 = torch.cat([ends, W[ends] - w[ends]]).tolist()
     off = lo - s0
     # both end lanes weigh more than 0, so they are the first and the last
-    # tpulint: allow[pad-invariant] reason=a decode chunk's lanes of weight above 0 are its frontier: chunks are sized exactly, no pad lanes (module docstring)
-    lanes = torch.nonzero(w[i0:i1 + 1]).squeeze(1)
+    with host_sync("expand"):
+        # tpulint: allow[pad-invariant] reason=a decode chunk's lanes of weight above 0 are its frontier: chunks are sized exactly, no pad lanes (module docstring)
+        lanes = torch.nonzero(w[i0:i1 + 1]).squeeze(1)
     deg = w[lanes + i0]
     deg[-1] = hi - s1
     deg[0] -= off
@@ -169,7 +172,8 @@ class FactorizedTable(Table):
         )
         if nrows is None:
             fault_point("expand")  # the flat-total read below
-            self._nrows = int(tot)
+            with host_sync("expand"):
+                self._nrows = int(tot)
         else:
             self._nrows = int(nrows)
         self._flat_cache: Optional[CudaTable] = None
@@ -348,8 +352,9 @@ class FactorizedTable(Table):
     def cache(self) -> "FactorizedTable":
         self._prefix.cache()
         if self._w.is_cuda:
-            # tpulint: allow[host-sync] reason=the wait is what cache() promises its caller; it cannot be avoided
-            torch.cuda.synchronize(self._w.device)
+            with host_sync("cache"):
+                # tpulint: allow[host-sync] reason=the wait is what cache() promises its caller; it cannot be avoided
+                torch.cuda.synchronize(self._w.device)
         return self
 
     # -- prefix-domain execution -------------------------------------------
@@ -588,7 +593,9 @@ class FactorizedTable(Table):
             elif col.kind == F64:
                 # Cypher sum over no values is the INTEGER 0
                 empty = wcnt == 0
-                iflag = empty if bool(torch.any(empty)) else None
+                any_empty = torch.any(empty)
+                with host_sync("agg"):
+                    iflag = empty if bool(any_empty) else None
                 out_cols[out_col] = Column(
                     F64, torch.where(empty, torch.zeros_like(wsum), wsum), None, int_flag=iflag
                 )

@@ -61,6 +61,7 @@ import torch
 from ...api import types as T
 from ...ir import expr as E
 from ...obs import trace as _obs_trace
+from ...obs.trace import sync as host_sync
 from ...parallel import mesh as PM
 from . import device as _device
 from .column import Column, TpuBackendError, to_device
@@ -84,8 +85,9 @@ def _host_logical(col: Column, size: int) -> np.ndarray:
     host mirror when present, else one device fetch."""
     if col._np_cache is not None:
         return np.asarray(col._np_cache[:size], dtype=np.int64)
-    # tpulint: allow[host-sync] reason=one fetch per index build, cached per graph: the ids' host mirror, not on the per-query path
-    return col.data[:size].to(torch.int64).cpu().numpy()
+    with host_sync("index"):
+        # tpulint: allow[host-sync] reason=one fetch per index build, cached per graph: the ids' host mirror, not on the per-query path
+        return col.data[:size].to(torch.int64).cpu().numpy()
 
 
 def rekey_element_expr(e: E.Expr, canon: E.Var) -> Optional[E.Expr]:
@@ -545,14 +547,18 @@ class GraphIndex:
             if len(a) == 0:
                 return dense.view(npad, npad), 0, 0
             rows = to_device(a)
-            cells, counts = torch.unique(rows * npad + to_device(b), return_counts=True)
-            # tpulint: allow[host-sync] reason=one read per dense-tier build, cached per (graph, types, orientation): the bf16 exactness gate
-            max_entry = int(counts.max())
+            cols = to_device(b)
+            with host_sync("index"):
+                cells, counts = torch.unique(rows * npad + cols, return_counts=True)
+            with host_sync("index"):
+                # tpulint: allow[host-sync] reason=one read per dense-tier build, cached per (graph, types, orientation): the bf16 exactness gate
+                max_entry = int(counts.max())
             if max_entry > BF16_EXACT_MAX:
                 return None
             dense[cells] = counts.to(torch.bfloat16)
-            # tpulint: allow[host-sync] reason=one read per dense-tier build, cached per (graph, types, orientation): the bf16 exactness gate
-            max_row_sum = int(torch.bincount(rows, minlength=n).max())
+            with host_sync("index"):
+                # tpulint: allow[host-sync] reason=one read per dense-tier build, cached per (graph, types, orientation): the bf16 exactness gate
+                max_row_sum = int(torch.bincount(rows, minlength=n).max())
             return dense.view(npad, npad), max_entry, max_row_sum
 
     def dense_tiles(
@@ -646,7 +652,8 @@ class DenseTiles:
                             device=self._device)
         if hi > lo:
             cells = (self._rows[lo:hi] - i * self.block) * self.npad + self._cols[lo:hi]
-            cells, counts = torch.unique(cells, return_counts=True)
+            with host_sync("index"):
+                cells, counts = torch.unique(cells, return_counts=True)
             dense[cells] = counts.to(torch.bfloat16)
         out = dense.view(self.block, self.npad)
         if self._cache is not None:

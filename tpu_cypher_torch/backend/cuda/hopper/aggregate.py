@@ -158,19 +158,17 @@ def _launch(data, valid, seg_j, name: str, kind: str, k: int):
     out_valid = torch.empty(k, dtype=torch.bool, device=dev) if plan.op >= OPS["min"] else None
     lib = _lib()
     stream = _build.stream(dev)
-    _build.check(
-        lib.segment_reduce_launch(
+    scratch = _build.scratch_ptr("segment_agg", dev, lib.segment_reduce_scratch_bytes, stream)
+    with dispatch.device_timed(dev, stream):
+        rc = lib.segment_reduce_launch(
             data.data_ptr() if plan.vtype else None, plan.vtype,
             valid.data_ptr() if valid is not None else None,
             seg_j.data_ptr() if seg_j is not None else None,
             STYPES[seg_j.dtype] if seg_j is not None else 0, n, k, plan.op,
             plan.ident, plan.fill, out.data_ptr(),
-            out_valid.data_ptr() if out_valid is not None else None,
-            _build.scratch_ptr("segment_agg", dev, lib.segment_reduce_scratch_bytes, stream),
-            stream,
-        ),
-        "segment_agg",
-    )
+            out_valid.data_ptr() if out_valid is not None else None, scratch, stream,
+        )
+    _build.check(rc, "segment_agg")
     return out, out_valid, None, None
 
 

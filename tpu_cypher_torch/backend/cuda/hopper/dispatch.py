@@ -19,7 +19,11 @@ tensors the caller hands it:
 
 There is no ``off`` or ``interpret`` mode. ``use_counts()`` reads the
 counters, which the obs registry serves as
-``tpu_cypher_kernel_launch_total{kernel, tier}``.
+``tpu_cypher_kernel_launch_total{kernel, tier}``. On the ``kernel`` tier
+of a traced query each wrapper's ctypes launch runs inside
+``device_timed(dev, stream)``, which keeps a pair of CUDA timing events
+on the ``kernel:<name>`` span (``Span.device_seconds``); the other tiers
+record none.
 """
 
 from __future__ import annotations
@@ -99,6 +103,47 @@ def _current(device: torch.device):
     if torch.cuda.is_available():
         return torch.cuda.device(device)
     return contextlib.nullcontext()
+
+
+# torch stream objects by (device index, raw handle), for the timing events:
+# ``torch.cuda.current_stream()`` builds a new one at each call, which cost
+# more host time than the two event records of a timed launch
+_STREAMS: Dict[Tuple[Optional[int], int], Any] = {}
+
+
+class device_timed:
+    """``with device_timed(dev, stream):`` around ONE ctypes launch of a
+    kernel wrapper on ``dev``'s raw CUDA stream handle ``stream``: a pair
+    of CUDA timing events on that stream, kept on the enclosing
+    ``kernel:<name>`` span. Only the launch is inside the pair: the
+    wrapper's allocations, its torch ops before and after (a contiguous
+    copy, a total's reduction) and the host's marshalling of a later
+    launch are not, so the device seconds are the kernels' own. Nothing
+    is recorded outside a traced ``kernel``-tier call, or before CUDA is
+    initialized (the CPU tests' stand-in wrappers)."""
+
+    __slots__ = ("_dev", "_raw", "_span", "_events", "_stream")
+
+    def __init__(self, dev: torch.device, stream: int):
+        self._dev, self._raw = dev, stream
+        self._span = None
+
+    def __enter__(self) -> None:
+        sp = _obs_trace.current_span()
+        if isinstance(sp, _obs_trace.Span) and sp.kind == "kernel" and torch.cuda.is_initialized():
+            key = (self._dev.index, self._raw)
+            st = _STREAMS.get(key)
+            if st is None:
+                st = _STREAMS[key] = torch.cuda.current_stream(self._dev)
+            self._span, self._stream = sp, st
+            self._events = _obs_trace.device_events(st.device_index)
+            self._events[0].record(st)
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if self._span is not None and exc_type is None:
+            self._events[1].record(self._stream)
+            self._span.add_events(self._events)
+        return False
 
 
 def launch(

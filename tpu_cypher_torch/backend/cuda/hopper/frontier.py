@@ -87,15 +87,14 @@ def _launch(rp, pos, present):
     out = torch.empty((), dtype=torch.int64, device=dev)
     lib = _lib()
     stream = _build.stream(dev)
-    _build.check(
-        lib.frontier_deg_sum_launch(
+    scratch = _build.scratch_ptr("frontier_deg_sum", dev, lib.frontier_deg_sum_scratch_bytes,
+                                 stream)
+    with dispatch.device_timed(dev, stream):
+        rc = lib.frontier_deg_sum_launch(
             rp.data_ptr(), rp.shape[0], pos.data_ptr(), present.data_ptr(), frontier,
-            _build.scratch_ptr("frontier_deg_sum", dev, lib.frontier_deg_sum_scratch_bytes,
-                               stream),
-            out.data_ptr(), stream,
-        ),
-        "frontier_deg_sum",
-    )
+            scratch, out.data_ptr(), stream,
+        )
+    _build.check(rc, "frontier_deg_sum")
     return out
 
 

@@ -125,14 +125,13 @@ def _launch(keys, q, qvalid, bits=None):
         return lo, counts
     start = torch.empty((1 << bits) + 1, dtype=torch.int32, device=dev)
     records = torch.empty((1 << bits, 4), dtype=torch.int32, device=dev)
-    _build.check(
-        _lib().range_count_launch(
+    lib, stream = _lib(), _build.stream(dev)
+    with dispatch.device_timed(dev, stream):
+        rc = lib.range_count_launch(
             keys.data_ptr(), nk, bits, start.data_ptr(), records.data_ptr(), q.data_ptr(),
-            qvalid.data_ptr(), lo.data_ptr(), counts.data_ptr(), nq,
-            _build.stream(dev),
-        ),
-        "intersect",
-    )
+            qvalid.data_ptr(), lo.data_ptr(), counts.data_ptr(), nq, stream,
+        )
+    _build.check(rc, "intersect")
     return lo, counts
 
 

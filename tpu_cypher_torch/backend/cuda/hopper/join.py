@@ -56,6 +56,7 @@ import functools
 
 import torch
 
+from ....obs.trace import sync as host_sync
 from .. import jit_ops as J
 from ..bucketing import round_up_pow2
 from . import _build, dispatch
@@ -112,8 +113,9 @@ def hash_build(keys, size: int = 0):
     dev, nvalid = keys.device, int(keys.shape[0])
     first = torch.ones(nvalid, dtype=torch.bool, device=dev)
     first[1:] = keys[1:] != keys[:-1]
-    # tpulint: allow[pad-invariant] reason=the plain build's key run starts: their count sizes a hash table that rounds up pow2 (table_size)
-    fpos = torch.nonzero(first, as_tuple=True)[0]
+    with host_sync("join"):
+        # tpulint: allow[pad-invariant] reason=the plain build's key run starts: their count sizes a hash table that rounds up pow2 (table_size)
+        fpos = torch.nonzero(first, as_tuple=True)[0]
     nu = int(fpos.shape[0])
     cnt = torch.diff(fpos, append=torch.tensor([nvalid], dtype=torch.int64, device=dev))
     ukeys = keys[fpos]
@@ -140,8 +142,11 @@ def hash_build(keys, size: int = 0):
         table[slot, 3] = cnt32
         live &= ~win
         off += 1
-        # tpulint: allow[host-sync] reason=the build kernel's plain version (CPU tensors, or a check of the kernel): the kernel tier syncs nothing
-        if not bool(live.any()):
+        left = live.any()
+        with host_sync("join"):
+            # tpulint: allow[host-sync] reason=the build kernel's plain version (CPU tensors, or a check of the kernel): the kernel tier syncs nothing
+            done = not bool(left)
+        if done:
             break
     # the last round placed the last keys; no key needs more offset
     return table[:size], max(off - 1, 0)
@@ -186,8 +191,9 @@ def table_invariants(table, bound: int, keys) -> list:
     def occupied(t):
         """(slots, keys, first positions, runs) of the occupied slots, in
         key order."""
-        # tpulint: allow[pad-invariant] reason=occupied slots of a built table, read by the invariant checker only, never on the query path
-        slots = torch.nonzero(t[:, 3] != 0, as_tuple=True)[0]
+        with host_sync("join_check"):
+            # tpulint: allow[pad-invariant] reason=occupied slots of a built table, read by the invariant checker only, never on the query path
+            slots = torch.nonzero(t[:, 3] != 0, as_tuple=True)[0]
         k = t.contiguous().view(torch.int64)[:, 0][slots]
         order = torch.argsort(k, stable=True)
         return slots[order], k[order], t[slots[order], 2], t[slots[order], 3]
@@ -214,8 +220,10 @@ def table_invariants(table, bound: int, keys) -> list:
         problems.append(f"a key sits at offset {worst}, past the bound {bound}")
     elif worst != bound:
         problems.append(f"the bound {bound} is not the largest offset {worst}")
-    # tpulint: allow[host-sync] reason=a check of the build kernel's table (tests, chip_smoke.py), never on the kernel tier
-    if bool((gaps > 0).any()):
+    with host_sync("join_check"):
+        # tpulint: allow[host-sync] reason=a check of the build kernel's table (tests, chip_smoke.py), never on the kernel tier
+        any_gap = bool((gaps > 0).any())
+    if any_gap:
         problems.append("an empty slot lies on a key's path before the key")
     return problems
 
@@ -276,13 +284,13 @@ def _build_launch(rd, r_order, nvalid: int, size: int, is_f64: bool):
     keys, code = _key_operand(rd, is_f64)
     order = r_order.contiguous()
     table = torch.empty(size + 1, 4, dtype=torch.int32, device=rd.device)
-    _build.check(
-        _lib().hash_build_launch(
+    lib, stream = _lib(), _build.stream(rd.device)
+    with dispatch.device_timed(rd.device, stream):
+        rc = lib.hash_build_launch(
             keys.data_ptr(), code, order.data_ptr(), nvalid, (size - 1).bit_length(),
-            table.data_ptr(), _build.stream(rd.device),
-        ),
-        "join_probe (hash build)",
-    )
+            table.data_ptr(), stream,
+        )
+    _build.check(rc, "join_probe (hash build)")
     return table
 
 
@@ -323,16 +331,14 @@ def _probe_launch(table, ld, lvalids, is_f64: bool):
         return lo, counts, total.zero_()
     lib = _lib()
     stream = _build.stream(dev)
-    _build.check(
-        lib.hash_probe_launch(
+    scratch = _build.scratch_ptr("join_probe", dev, lib.hash_probe_scratch_bytes, stream)
+    with dispatch.device_timed(dev, stream):
+        rc = lib.hash_probe_launch(
             table.data_ptr(), (size - 1).bit_length(), q.data_ptr(), code,
             *(m.data_ptr() if m is not None else None for m in masks),
-            nq, lo.data_ptr(), counts.data_ptr(), total.data_ptr(),
-            _build.scratch_ptr("join_probe", dev, lib.hash_probe_scratch_bytes, stream),
-            stream,
-        ),
-        "join_probe",
-    )
+            nq, lo.data_ptr(), counts.data_ptr(), total.data_ptr(), scratch, stream,
+        )
+    _build.check(rc, "join_probe")
     return lo, counts, total
 
 

@@ -23,6 +23,8 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from ...obs.trace import sync as host_sync
+
 I64 = "i64"
 F64 = "f64"
 BOOL = "bool"
@@ -56,7 +58,8 @@ def _repeat_padded(x: torch.Tensor, counts: torch.Tensor, total: int) -> torch.T
     ``total`` are dropped, and a shortfall repeats ``x``'s LAST value (even
     when its own count is 0) — ``torch.repeat_interleave`` has no such
     argument, so the tail is written explicitly."""
-    out = torch.repeat_interleave(x, counts)
+    with host_sync("expand"):
+        out = torch.repeat_interleave(x, counts)
     m = int(out.shape[0])
     if m >= total:
         return out[:total]
@@ -138,21 +141,24 @@ def concat_pair(a, b):
 def mask_nonzero(mask: torch.Tensor, size: int) -> torch.Tensor:
     """``jnp.nonzero(mask, size=size)[0]``: the True positions, cut or
     zero-padded to ``size`` lanes."""
-    # tpulint: allow[pad-invariant] reason=the sized compaction primitive itself: it cuts or zero-pads the exact positions to the caller's size
-    idx = torch.nonzero(mask, as_tuple=True)[0]
+    with host_sync("compact"):
+        # tpulint: allow[pad-invariant] reason=the sized compaction primitive itself: it cuts or zero-pads the exact positions to the caller's size
+        idx = torch.nonzero(mask, as_tuple=True)[0]
     m = int(idx.shape[0])
     if m >= size:
         return idx[:size]
     return torch.cat([idx, torch.zeros(size - m, dtype=idx.dtype, device=idx.device)])
 
 
-def mask_to_idx(mask) -> Tuple[Any, int]:
-    """Boolean device mask -> (index tensor, count); one scalar sync."""
+def mask_to_idx(mask, site: str = "compact") -> Tuple[Any, int]:
+    """Boolean device mask -> (index tensor, count); one scalar sync, timed
+    as ``sync:<site>`` (the caller's fault site where it names one)."""
     from ...runtime.faults import fault_point
 
     fault_point("compact")
-    # tpulint: allow[pad-invariant] reason=the exact-compact primitive itself; bucketed callers go through column.mask_to_idx_bucketed
-    idx = torch.nonzero(mask, as_tuple=True)[0]
+    with host_sync(site):
+        # tpulint: allow[pad-invariant] reason=the exact-compact primitive itself; bucketed callers go through column.mask_to_idx_bucketed
+        idx = torch.nonzero(mask, as_tuple=True)[0]
     return idx, int(idx.shape[0])
 
 
@@ -970,7 +976,8 @@ def frontier_multiplicity(pos, present, n: int):
     """int64[n] count of frontier rows per compact node (absent rows spill
     into a dropped slot): the dense tier's row-weight vector."""
     slot = torch.where(present, pos, torch.full_like(pos, n))
-    return torch.bincount(slot, minlength=n + 1)[:n]
+    with host_sync("expand_mult"):
+        return torch.bincount(slot, minlength=n + 1)[:n]
 
 
 def _mm_operand(b):
@@ -1067,7 +1074,8 @@ def mxu_close_count_tiled(t1, t2, tc, mult, mask_b, mask_c) -> int:
     for i, p2 in _mxu_tiled_p2(t1, t2, mask_b):
         fault_point("mxu_tile")
         acc += _close_block_count(p2, tc.tile(i), mask_c, mult[i * block:(i + 1) * block])
-    return int(acc)
+    with host_sync("mxu_tile"):
+        return int(acc)
 
 
 def mxu_distinct_pairs_tiled(t1, t2, present, mask_b, mask_c) -> int:
@@ -1079,7 +1087,8 @@ def mxu_distinct_pairs_tiled(t1, t2, present, mask_b, mask_c) -> int:
     for i, p2 in _mxu_tiled_p2(t1, t2, mask_b):
         fault_point("mxu_tile")
         acc += _distinct_block_count(p2, mask_c, present[i * block:(i + 1) * block])
-    return int(acc)
+    with host_sync("mxu_tile"):
+        return int(acc)
 
 
 # ---------------------------------------------------------------------------
@@ -1094,7 +1103,7 @@ def _segment_reduce(vals, seg, k: int, op: str, identity):
     JAX reference resolves it (min -> -0.0, max -> 0.0) in any order."""
     if vals.dtype == torch.float64 and op in ("min", "max"):
         keys = f64_order_keys(vals)
-        # tpulint: allow[host-sync] reason=a CPU scalar: the identity's order key from a host tensor, no device read
+        # tpulint: allow[host-sync, sync-span] reason=a CPU scalar: the identity's order key from a host tensor, no device read
         ident = int(f64_order_keys(torch.tensor([float(identity)], dtype=torch.float64))[0])
         out = torch.full((k,), ident, dtype=torch.int64, device=vals.device)
         out = out.scatter_reduce(
@@ -1117,7 +1126,7 @@ def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     (one ulp off on about 1% of inputs with its AVX-512 path), so a CPU
     tensor takes numpy's."""
     if x.device.type == "cpu":
-        # tpulint: allow[host-sync] reason=the CPU branch: x lives in host memory, no device read
+        # tpulint: allow[host-sync, sync-span] reason=the CPU branch: x lives in host memory, no device read
         return torch.from_numpy(np.sqrt(x.numpy()))
     return torch.sqrt(x)
 

@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...obs.trace import sync as host_sync
 from ...runtime.faults import fault_point
 from .column import (
     LST,
@@ -56,7 +57,8 @@ def segment_lanes(rp, pos, deg, nchild: int) -> Tuple[torch.Tensor, torch.Tensor
     from .hopper import expand_materialize_counted
 
     fault_point("expr")  # the lane total read below
-    total = int(deg.sum()) if int(deg.shape[0]) else 0
+    with host_sync("expr"):
+        total = int(deg.sum()) if int(deg.shape[0]) else 0
     dev = deg.device
     if total == 0:  # before the gate: it takes no empty frontier
         z = torch.zeros(0, dtype=torch.int64, device=dev)
@@ -101,11 +103,13 @@ def collect(seg, col: Column, k: int) -> Column:
     in row order (a stable sort of the group ids), the lengths from a count
     per group."""
     keep = col.valid_mask()
-    # tpulint: allow[pad-invariant] reason=collect keeps the valid rows as list elements: the answer's values, compacted exactly
-    rows = torch.nonzero(keep).squeeze(1)
+    with host_sync("expr"):
+        # tpulint: allow[pad-invariant] reason=collect keeps the valid rows as list elements: the answer's values, compacted exactly
+        rows = torch.nonzero(keep).squeeze(1)
     g = seg[rows]
     order = torch.sort(g, stable=True).indices
-    return list_column(torch.bincount(g, minlength=k), col.take(rows[order]))
+    with host_sync("expr"):
+        return list_column(torch.bincount(g, minlength=k), col.take(rows[order]))
 
 
 def list_rank(col: Column) -> Column:
@@ -148,7 +152,12 @@ def concat_rows(a: Column, b: Column, valid: Optional[torch.Tensor]) -> Column:
     out_lens = la + lb
     out_start = torch.cumsum(out_lens, 0) - out_lens
     fault_point("expr")  # the element total read below
-    pos = torch.empty(int(out_lens.sum()) if n else 0, dtype=torch.int64, device=dev)
+    size = 0
+    if n:
+        total = out_lens.sum()
+        with host_sync("expr"):
+            size = int(total)
+    pos = torch.empty(size, dtype=torch.int64, device=dev)
     for lens, side, shift, lead in ((la, a, 0, None), (lb, b, len(a.child), la)):
         r, p = segment_lanes(side.starts(), rows, lens, len(side.child))
         j = torch.arange(int(r.shape[0]), dtype=torch.int64, device=dev) - (

@@ -32,6 +32,7 @@ import torch
 from ...api import types as T
 from ...api.table import Table
 from ...api.types import CypherType
+from ...obs.trace import sync as host_sync
 from ...runtime.faults import fault_point
 from . import bucketing
 from . import device as _device
@@ -232,8 +233,9 @@ class CudaTable(Table):
         """Wait for every device column of this table to be computed."""
         for col in self._cols.values():
             if col.kind != OBJ and col.data.is_cuda:
-                # tpulint: allow[host-sync] reason=the wait is what cache() promises its caller; it cannot be avoided
-                torch.cuda.synchronize(col.data.device)
+                with host_sync("cache"):
+                    # tpulint: allow[host-sync] reason=the wait is what cache() promises its caller; it cannot be avoided
+                    torch.cuda.synchronize(col.data.device)
                 break
         return self
 
@@ -255,7 +257,7 @@ class CudaTable(Table):
         c = CudaEvaluator(t, header, parameters).eval(expr)
         if not c.flat:
             raise TpuUnsupportedExpr(f"filter predicate of kind {c.kind}")
-        idx, _ = J.mask_to_idx(J.and_valid_mask(c.data, c.valid))
+        idx, _ = J.mask_to_idx(J.and_valid_mask(c.data, c.valid), site="filter")
         return t._take(idx)
 
     # -- join --------------------------------------------------------------
@@ -329,7 +331,8 @@ class CudaTable(Table):
             if lc.kind != rc.kind:
                 return None
             if lc.kind == DUR:
-                _, rank = torch.unique(torch.cat([lc.data, rc.data]), dim=0, return_inverse=True)
+                with host_sync("join"):
+                    _, rank = torch.unique(torch.cat([lc.data, rc.data]), dim=0, return_inverse=True)
                 return (Column(I64, rank[:len(lc)], lc.valid),
                         Column(I64, rank[len(lc):], rc.valid))
             return (Column(I64, lc.data.to(torch.int64), lc.valid),
@@ -377,11 +380,14 @@ class CudaTable(Table):
         rd_s, r_order, nvalid_dev = J.join_build(
             rk.data, rvalids, is_f64=is_f64, is_bool=is_bool
         )
+        with host_sync("join_build"):
+            nvalid = int(nvalid_dev)
         r_idx_valid, lo, counts, total_dev = join_probe(
-            rd_s, r_order, lk.data, lvalids, int(nvalid_dev),
+            rd_s, r_order, lk.data, lvalids, nvalid,
             is_f64=is_f64, is_bool=is_bool,
         )
-        total = int(total_dev)
+        with host_sync("join"):
+            total = int(total_dev)
         bucketing.admit(total, join_row_bytes, "join")
         left_rows, right_rows = J.join_materialize(r_idx_valid, lo, counts, total)
         if len(join_cols) > 1 and total:
@@ -392,13 +398,15 @@ class CudaTable(Table):
         left_matched = right_matched = None
         matched_right = right_rows
         if kind in ("left_outer", "full_outer"):
-            miss_idx, nmiss = J.mask_to_idx(J.unmatched_mask(left_rows, self._nrows))
+            miss_idx, nmiss = J.mask_to_idx(
+                J.unmatched_mask(left_rows, self._nrows), site="join_outer"
+            )
             left_rows, right_rows, right_matched = J.outer_pad_left(
                 left_rows, right_rows, miss_idx, nmiss=nmiss, nmatched=nmatched
             )
         if kind == "full_outer":
             rmiss_idx, rnmiss = J.mask_to_idx(
-                J.unmatched_mask(matched_right, other._nrows)
+                J.unmatched_mask(matched_right, other._nrows), site="join_outer"
             )
             left_rows, right_rows, left_matched, right_matched = J.outer_pad_right(
                 left_rows, right_rows, right_matched, rmiss_idx,
@@ -423,7 +431,7 @@ class CudaTable(Table):
         keep = J.extra_keys_keep(
             l_datas, l_valids, r_datas, r_valids, left_rows, right_rows, kinds
         )
-        idx, _ = J.mask_to_idx(keep)
+        idx, _ = J.mask_to_idx(keep, site="join_keys")
         return J.tree_take((left_rows, right_rows), idx)
 
     def _join_empty_result(self, other: "CudaTable", kind) -> "CudaTable":
@@ -647,9 +655,11 @@ class CudaTable(Table):
         kinds = tuple(c.kind for c in keys)
         pack = self._equiv_pack(datas, valids, kinds, (), min_keys=1)
         if pack is not None:
-            return int(J.distinct_count_packed(datas, valids, (), kinds, pack))
-        _, _, cnt = J.equivalence_sort(datas, valids, (), kinds, pack=None)
-        return int(cnt)
+            cnt = J.distinct_count_packed(datas, valids, (), kinds, pack)
+        else:
+            _, _, cnt = J.equivalence_sort(datas, valids, (), kinds, pack=None)
+        with host_sync("agg"):
+            return int(cnt)
 
     def distinct(self, cols: Optional[Sequence[str]] = None) -> "CudaTable":
         """The first row of each Cypher-equivalence class, in row order.
@@ -668,7 +678,9 @@ class CudaTable(Table):
             return self
         order, flags, cnt = self._first_occurrence_index(on)
         fault_point("compact")  # the distinct row count read below
-        return self._take(J.first_occurrence_rows(order, flags, k=int(cnt)))
+        with host_sync("compact"):
+            k = int(cnt)
+        return self._take(J.first_occurrence_rows(order, flags, k=k))
 
     # -- grouped aggregation ------------------------------------------------
 
@@ -717,7 +729,8 @@ class CudaTable(Table):
             return self._empty_group(by, aggregations, header, parameters)
         if by:
             order, flags, cnt = self._first_occurrence_index(by)
-            k = int(cnt)
+            with host_sync("agg"):
+                k = int(cnt)
             seg_j, first_rows = J.group_index(order, flags, k=k)
             for c, key in self.select(by)._take(first_rows)._cols.items():
                 out_cols[c] = key
@@ -727,11 +740,12 @@ class CudaTable(Table):
         for out_col, agg in aggregations:
             name = agg.name.lower()
             if agg.expr is None:  # count(*): every row counts
-                counts = (
-                    torch.tensor([n], dtype=torch.int64, device=dev) if seg_j is None
-                    # tpulint: allow[pad-invariant] reason=count(*) per group: one output row per group, k is the answer's group count
-                    else torch.bincount(seg_j, minlength=k)
-                )
+                if seg_j is None:
+                    counts = torch.tensor([n], dtype=torch.int64, device=dev)
+                else:
+                    with host_sync("agg_count"):
+                        # tpulint: allow[pad-invariant] reason=count(*) per group: one output row per group, k is the answer's group count
+                        counts = torch.bincount(seg_j, minlength=k)
                 out_cols[out_col] = Column(I64, counts, None)
                 continue
             # count reads an element's identity, every other aggregate a value
@@ -795,7 +809,9 @@ class CudaTable(Table):
         tmp = CudaTable({"__v": col}, int(seg_j.shape[0]))
         order, flags, cnt = tmp._first_occurrence_index(["__v"], extra_keys=[seg_j])
         fault_point("agg")  # the distinct pair count read below
-        rows = J.first_occurrence_rows(order, flags, k=int(cnt))
+        with host_sync("agg"):
+            k = int(cnt)
+        rows = J.first_occurrence_rows(order, flags, k=k)
         return seg_j[rows], col.take(rows)
 
     def _segment_agg(self, name: str, seg_j, col: Column, k: int) -> Column:
@@ -833,8 +849,11 @@ class CudaTable(Table):
         )
         if name == "count":
             return Column(I64, out_data, None)
-        if out_iflag is not None and not bool(iflag_any):
-            out_iflag = None  # canonical metadata: no integer rows at all
+        if out_iflag is not None:
+            with host_sync("agg"):
+                any_int = bool(iflag_any)
+            if not any_int:
+                out_iflag = None  # canonical metadata: no integer rows at all
         out_kind = F64 if name in ("avg", "stdev", "stdevp") else kind
         return Column(out_kind, out_data, out_valid, col.vocab, int_flag=out_iflag)
 
@@ -855,13 +874,17 @@ class CudaTable(Table):
         if c.kind == MIX and any(p.kind == LST for p in c.parts):
             raise TpuUnsupportedExpr("UNWIND of a column of lists mixed with other values")
         if c.kind == LST:
-            # tpulint: allow[pad-invariant] reason=UNWIND emits one row per list element: the answer's rows, compacted exactly
-            pos = torch.nonzero(c.valid_mask() & (c.lengths() > 0)).squeeze(1)
+            keep = c.valid_mask() & (c.lengths() > 0)
+            with host_sync("explode"):
+                # tpulint: allow[pad-invariant] reason=UNWIND emits one row per list element: the answer's rows, compacted exactly
+                pos = torch.nonzero(keep).squeeze(1)
             row, child_pos = LS.segment_lanes(c.starts(), pos, c.lengths()[pos], len(c.child))
             rows, value = pos[row], c.child.take(child_pos)
         else:
-            # tpulint: allow[pad-invariant] reason=UNWIND of a scalar column emits its valid rows: the answer's rows, compacted exactly
-            rows = torch.nonzero(c.valid_mask()).squeeze(1)
+            keep = c.valid_mask()
+            with host_sync("explode"):
+                # tpulint: allow[pad-invariant] reason=UNWIND of a scalar column emits its valid rows: the answer's rows, compacted exactly
+                rows = torch.nonzero(keep).squeeze(1)
             value = c.take(rows)
         out = t._take(rows)
         out._cols[col] = value
@@ -926,7 +949,9 @@ def _duration_agg(name: str, seg_j, col: Column, k: int) -> Column:
     refuse, ROADMAP.md §3)."""
     out, cnt = J.segment_duration_agg(col.data, col.valid, seg_j, k, name)
     fault_point("agg")  # the empty-group count read below
-    nempty = int(torch.sum(cnt == 0))
+    empty = torch.sum(cnt == 0)
+    with host_sync("agg"):
+        nempty = int(empty)
     if nempty == 0:
         return Column(DUR, out, None)
     if name != "sum":
@@ -957,15 +982,20 @@ def _percentile(name: str, agg, seg_j, col: Column, k: int, parameters) -> Colum
         # the oracle raises its error on the first group that holds a value
         # (one device read), and answers null where none does
         valid = col.valid_mask()
-        if not bool(torch.any(valid)):
+        anyv = torch.any(valid)
+        with host_sync("agg"):
+            any_valid = bool(anyv)
+        if not any_valid:
             return Column(F64 if name == "percentilecont" else I64,
                           torch.zeros(k, dtype=torch.float64 if name == "percentilecont"
                                       else torch.int64, device=valid.device),
                           torch.zeros(k, dtype=torch.bool, device=valid.device))
         from ..local.eval import aggregate_values
 
-        # tpulint: allow[pad-invariant] reason=the first valid value, read once to check the percentile argument on the host: not a lane extent
-        first = col.take(torch.nonzero(valid)[:1].squeeze(1)).to_values()
+        with host_sync("agg_first"):
+            # tpulint: allow[pad-invariant] reason=the first valid value, read once to check the percentile argument on the host: not a lane extent
+            first_row = torch.nonzero(valid)[:1].squeeze(1)
+        first = col.take(first_row).to_values()
         aggregate_values(name, first, False, [p])
         raise TpuUnsupportedExpr("percentile fraction out of range")
     p = float(p)
@@ -974,8 +1004,12 @@ def _percentile(name: str, agg, seg_j, col: Column, k: int, parameters) -> Colum
     disc_kinds = (I64, F64, STR) + TEMPORAL_KINDS
     if kind not in disc_kinds or (name == "percentilecont" and kind not in (I64, F64)):
         raise TpuUnsupportedExpr(f"{name} over {kind}")
-    if kind == F64 and bool(J.any_nan_valid(col.data, col.valid)):
-        raise TpuUnsupportedExpr("percentile over NaN values")
+    if kind == F64:
+        nan = J.any_nan_valid(col.data, col.valid)
+        with host_sync("agg"):
+            any_nan = bool(nan)
+        if any_nan:
+            raise TpuUnsupportedExpr("percentile over NaN values")
     out, out_valid, order, pos = J.segment_percentile(
         col.data, col.valid, seg_j, p, name=name, k=k
     )

@@ -31,6 +31,7 @@ from typing import List, Tuple
 
 import torch
 
+from ...obs.trace import sync as host_sync
 from ...runtime.faults import fault_point
 from .column import (
     BOOL,
@@ -105,8 +106,9 @@ def _lanes(col: Column) -> torch.Tensor:
             raise _unsupported("a key of temporal values of mixed kinds (ROADMAP.md §3)")
         valid = col.valid_mask()  # a null row's (part, row) points anywhere
         for j, part in enumerate(col.parts):
-            # tpulint: allow[pad-invariant] reason=exact compaction of one value kind's rows for the order keys: value columns carry no pad lanes
-            sel = torch.nonzero(valid & (tags == j)).squeeze(1)
+            with host_sync("expr"):
+                # tpulint: allow[pad-invariant] reason=exact compaction of one value kind's rows for the order keys: value columns carry no pad lanes
+                sel = torch.nonzero(valid & (tags == j)).squeeze(1)
             if j in map_ranks:
                 lanes = torch.zeros((len(part), _LANES), dtype=torch.int64, device=dev)
                 lanes[:, 0] = _MAP_CLASS
@@ -160,11 +162,13 @@ def rank(col: Column) -> Column:
         return Column(I64, torch.zeros(0, dtype=torch.int64, device=dev), col.valid)
     valid = col.valid_mask()
     out = torch.zeros(n, dtype=torch.int64, device=dev)
-    # tpulint: allow[pad-invariant] reason=exact compaction of the valid rows to rank: value columns carry no pad lanes
-    rows = torch.nonzero(valid).squeeze(1)
+    with host_sync("expr"):
+        # tpulint: allow[pad-invariant] reason=exact compaction of the valid rows to rank: value columns carry no pad lanes
+        rows = torch.nonzero(valid).squeeze(1)
     if int(rows.shape[0]):
         lanes = _lanes(col)[rows]
-        _, inv = torch.unique(lanes, dim=0, return_inverse=True)
+        with host_sync("expr"):
+            _, inv = torch.unique(lanes, dim=0, return_inverse=True)
         out[rows] = inv
     return Column(I64, out, col.valid)
 
@@ -194,7 +198,8 @@ def _seq_rank(lens: torch.Tensor, parent: torch.Tensor, er: torch.Tensor) -> tor
     m = int(lens.shape[0])
     dev = lens.device
     fault_point("expr")  # the longest sequence read below
-    width = int(lens.max()) if m else 0
+    with host_sync("expr"):
+        width = int(lens.max()) if m else 0
     if width == 0:
         return torch.zeros(m, dtype=torch.int64, device=dev)
     first = torch.cumsum(lens, 0) - lens
@@ -205,11 +210,13 @@ def _seq_rank(lens: torch.Tensor, parent: torch.Tensor, er: torch.Tensor) -> tor
     step = 1
     while step < width:
         after = torch.where(left > step, r[torch.clamp(lane + step, max=total - 1)], 0)
-        _, r = torch.unique(r * (total + 1) + after, return_inverse=True)
+        with host_sync("expr"):
+            _, r = torch.unique(r * (total + 1) + after, return_inverse=True)
         r = r + 1
         step *= 2
     head = torch.where(lens > 0, r[torch.clamp(first, max=total - 1)], 0)
-    _, dense = torch.unique(head, return_inverse=True)
+    with host_sync("expr"):
+        _, dense = torch.unique(head, return_inverse=True)
     return dense.to(torch.int64)
 
 
@@ -233,7 +240,8 @@ def _list_rank(col: Column) -> torch.Tensor:
     if n == 0:
         return torch.zeros(0, dtype=torch.int64, device=dev)
     data = torch.where(col.valid_mask()[:, None], col.data, torch.zeros_like(col.data))
-    pairs, inv = torch.unique(data, dim=0, return_inverse=True)
+    with host_sync("expr"):
+        pairs, inv = torch.unique(data, dim=0, return_inverse=True)
     lens = pairs[:, 1]
     parent, pos = segment_lanes(pairs[:, 0], torch.arange(len(pairs), device=dev), lens,
                                 len(col.child))
@@ -278,9 +286,11 @@ def _maps_rank(parts: List[Column]) -> List[torch.Tensor]:
         present.append(torch.cat([_present(p, k) for p in parts]))
     pres = torch.stack(present, 1)  # (m, keys)
     vals = torch.stack(values, 1)
-    # tpulint: allow[pad-invariant] reason=the (row, key) pairs of present map keys are the values ranked: an exact compaction
-    row, key = torch.nonzero(pres, as_tuple=True)  # row-major: key order per row
-    _, er = torch.unique(torch.stack([key, vals[row, key]], 1), dim=0, return_inverse=True)
+    with host_sync("expr"):
+        # tpulint: allow[pad-invariant] reason=the (row, key) pairs of present map keys are the values ranked: an exact compaction
+        row, key = torch.nonzero(pres, as_tuple=True)  # row-major: key order per row
+    with host_sync("expr"):
+        _, er = torch.unique(torch.stack([key, vals[row, key]], 1), dim=0, return_inverse=True)
     r = _seq_rank(pres.sum(1), row, er + 1)
     out, lo = [], 0
     for s in sizes:
@@ -337,8 +347,9 @@ def equal(l: Column, r: Column) -> Column:
         data, known = falses.clone(), falses.clone()
         for i, p in enumerate(L.parts):
             for j, q in enumerate(R.parts):
-                # tpulint: allow[pad-invariant] reason=exact compaction of one kind pair's rows for equality: value columns carry no pad lanes
-                sel = torch.nonzero(valid & (lt == i) & (rt == j)).squeeze(1)
+                with host_sync("expr"):
+                    # tpulint: allow[pad-invariant] reason=exact compaction of one kind pair's rows for equality: value columns carry no pad lanes
+                    sel = torch.nonzero(valid & (lt == i) & (rt == j)).squeeze(1)
                 if int(sel.shape[0]) == 0:
                     continue
                 e = equal(p.take(lr[sel]), q.take(rr[sel]))
@@ -375,8 +386,9 @@ def _list_equal(l: Column, r: Column, valid) -> Column:
     same = valid & (la == lb)
     data = same.clone()
     known = valid.clone()
-    # tpulint: allow[pad-invariant] reason=exact compaction of the non-empty equal-length list rows compared element by element
-    rows = torch.nonzero(same & (la > 0)).squeeze(1)
+    with host_sync("expr"):
+        # tpulint: allow[pad-invariant] reason=exact compaction of the non-empty equal-length list rows compared element by element
+        rows = torch.nonzero(same & (la > 0)).squeeze(1)
     if int(rows.shape[0]):
         parent, pos_l = segment_lanes(l.starts(), rows, la[rows], len(l.child))
         pos_r = r.starts()[rows][parent] + (pos_l - l.starts()[rows][parent])
@@ -403,7 +415,10 @@ def _map_equal(l: Column, r: Column, valid) -> Column:
         pl, pr = _present(l, k), _present(r, k)
         unequal |= pl != pr
         both = pl & pr
-        if not bool(torch.any(both & valid)):
+        any_both = torch.any(both & valid)
+        with host_sync("expr"):
+            skip = not bool(any_both)
+        if skip:
             continue
         e = equal(l.field(k), r.field(k))
         ek = e.valid_mask()

@@ -75,6 +75,7 @@ from ...obs import trace as _obs_trace
 from ...obs.metrics import REGISTRY as _OBS_REGISTRY
 from ...obs.metrics import CounterView
 from ...relational.ops import RelationalOperator
+from ...obs.trace import sync as host_sync
 from ...runtime.faults import fault_point
 from ...utils import config as _config
 from . import bucketing
@@ -361,7 +362,8 @@ class MultiwayIntersectOp(_FusedExpandBase):
         total = 0
         for a, lst in enumerate(lists):
             deg_a, t_dev = _arm_degrees(degs[a], arm, a, valid)
-            n_a = int(t_dev)
+            with host_sync("expand"):
+                n_a = int(t_dev)
             if n_a == 0:
                 continue
             # lanes: row + cand (16B) and live (1B), no orig, plus one 8B
@@ -384,7 +386,9 @@ class MultiwayIntersectOp(_FusedExpandBase):
                 m = cnt if m is None else m * cnt
             if mask is not None:
                 m = _apply_label_mask(m, mask, cand)
-            total += int(torch.sum(m))
+            m_total = torch.sum(m)
+            with host_sync("expand_count"):
+                total += int(m_total)
         return total
 
     def _materialize(self, gi: GraphIndex, ctx, lists, valid):
@@ -408,7 +412,8 @@ class MultiwayIntersectOp(_FusedExpandBase):
         mask = gi.label_mask(self.pivot.far_labels, ctx)
         nexprs = max(len(self.header.expressions), 1)
         deg, t_dev = J.expand_degrees_total(pivot.rp, pivot.pos, valid)
-        total = int(t_dev)
+        with host_sync("expand"):
+            total = int(t_dev)
         bucketing.admit(total, 24 + 16 * len(closes), "intersect")
         if total == 0:  # nothing to probe: no gate call
             return self._materialize_empty(gi, ctx)
@@ -433,7 +438,8 @@ class MultiwayIntersectOp(_FusedExpandBase):
             fault_point("compact")
             cnts[0] = _zero_counts(cnts[0], self._wcoj_pair_keep(gi, ctx, row, orig_p, {}))
         w, W, tot = J.runs_weights(tuple(cnts), total)
-        n_out = int(tot)
+        with host_sync("expand_runs"):
+            n_out = int(tot)
         if (
             self.header.expressions
             and not pairs_on_close
@@ -457,7 +463,9 @@ class MultiwayIntersectOp(_FusedExpandBase):
         if self.enforced_pairs and pairs_on_close:
             fault_point("compact")
             keep = self._wcoj_pair_keep(gi, ctx, in_row, orig_p2, orig_cs)
-            n2 = int(J.mask_sum(keep))
+            kept = J.mask_sum(keep)
+            with host_sync("compact"):
+                n2 = int(kept)
             if n2 != n_out:
                 # tpulint: allow[pad-invariant] reason=exact compact of the uniqueness-filtered close rows: callers take every returned row as live
                 idx = J.mask_nonzero(keep, size=n2)

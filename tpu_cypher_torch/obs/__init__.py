@@ -6,8 +6,10 @@ The reference delegates engine observability to Spark UI /
 documented in ``docs/observability.md``:
 
 * ``obs.trace`` — context-local span trees per query (phases, relational
-  operators, Pallas kernel launches, bucket-lattice pad ratios, fault-site
-  sync points), surfaced as ``CypherResult.profile()``.
+  operators, kernel launches with their device time, bucket-lattice pad
+  ratios, the timed ``sync:<site>`` spans at the device syncs), surfaced
+  as ``CypherResult.profile()``, and as ``torch.profiler`` regions while
+  a profiler records.
 * ``obs.metrics`` — the process-global ``REGISTRY`` of counters / gauges /
   histograms with labeled series, context-local scoping, a cardinality
   cap, Prometheus text export (``CypherSession.metrics_text()``) and a

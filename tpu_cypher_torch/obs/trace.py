@@ -4,27 +4,35 @@ A ``QueryTrace`` is opened per query by ``relational/session.py`` and nested
 per pipeline phase (parse -> ir -> logical -> relational -> execute) and per
 relational operator (``relational/ops.py`` wraps every lazy ``table`` pull in
 an operator span). Inside operators, kernel dispatches
-(``backend/tpu/pallas/dispatch.py``) open kernel spans, the bucket lattice
-(``backend/tpu/bucketing.round_size``) annotates the enclosing span with
-padded-vs-true row counts, and every named fault site
-(``runtime/faults.fault_point``) — the engine's natural device sync points —
-stamps a site hit. The finished tree attaches to ``CypherResult`` as
-``result.profile()`` (rendered tree + JSON): the ``PROFILE``-style sibling
-of the ``EXPLAIN``-style ``result.plans``.
+(``backend/cuda/hopper/dispatch.launch``) open kernel spans, the bucket
+lattice (``backend/cuda/bucketing.round_size``) annotates the enclosing
+span with padded-vs-true row counts, and every device->host sync of the
+backend sits inside a ``sync`` span (``sync(site)``), which times the
+host's wait for the device plus the copy. The finished tree attaches to
+``CypherResult`` as ``result.profile()`` (rendered tree + JSON): the
+``PROFILE``-style sibling of the ``EXPLAIN``-style ``result.plans``.
+The traces of the last ``PROFILED`` queries opened while a
+``torch.profiler`` recorded stay reachable through ``profiled_traces()``,
+results dropped or not.
 
 Costs, by design:
 
-* spans record HOST wall time only (``perf_counter``) — never a device sync
-  (``block_until_ready``), so profiling adds ZERO device syncs and an
-  operator span measures dispatch time under JAX async dispatch (the
-  ``collect`` span at the end absorbs the drain, like Spark UI's stage
-  boundaries absorb action time);
+* spans record HOST wall time (``perf_counter``) and never sync the
+  device: an operator span measures the enqueue of asynchronous CUDA
+  work, and the ``sync:<site>`` spans inside it hold the waits. A
+  ``kernel`` span that launched on the card also carries a pair of CUDA
+  timing events around each of its ctypes launches
+  (``hopper/dispatch.device_timed``); ``Span.device_seconds`` reads them
+  only once the device has passed the last, so reading a profile never
+  waits, and a later launch takes the pair back for its own;
 * when no trace is active every instrumentation point is one contextvar
-  read returning a shared null span;
-* the device-trace backend rides ``utils/profiling.py``: with
-  ``TPU_CYPHER_PROFILE_DIR`` set, each span also opens a
-  ``jax.profiler.TraceAnnotation`` so the same tree shows up region-named
-  inside TensorBoard/Perfetto device traces.
+  read returning a shared null span (a ``sync`` span still counts its
+  site in ``tpu_cypher_host_sync_total``);
+* while a ``torch.profiler`` records, each span also opens a
+  ``record_function("tpu_cypher:<kind>:<name>")`` region, so the same tree,
+  sync waits included, shows up region-named on the device trace's own
+  clock. Profile with one's own ``torch.profiler.profile(...)``; nothing
+  here starts one.
 
 Context-locality: the active trace/span ride ``contextvars``, so
 interleaved queries (threads, asyncio, nested view execution) each grow
@@ -34,40 +42,78 @@ the execution guard.
 
 from __future__ import annotations
 
+import collections
 import contextvars
 import itertools
 import json
+import sys
+import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Deque, Dict, List, Optional, Tuple
 
-from ..utils.profiling import PROFILE_DIR
 from . import metrics as M
 
 SCHEMA_VERSION = 1
+
+HOST_SYNC = M.REGISTRY.counter(
+    "tpu_cypher_host_sync_total",
+    "device->host syncs, per sync site (obs.trace.sync)",
+    labels=("site",),
+)
 
 
 class Span:
     """One node of the tree: a named, timed region with attributes."""
 
     __slots__ = ("span_id", "name", "kind", "attrs", "t0", "seconds",
-                 "status", "children")
+                 "status", "children", "events", "_device_s")
 
     def __init__(self, span_id: int, name: str, kind: str,
                  attrs: Optional[Dict[str, Any]] = None):
         self.span_id = span_id
         self.name = name
-        self.kind = kind  # "query" | "phase" | "operator" | "kernel" | "span"
+        # "query" | "phase" | "operator" | "kernel" | "sync" | "span"
+        self.kind = kind
         self.attrs: Dict[str, Any] = dict(attrs or {})
         self.t0: Optional[float] = None
         self.seconds: float = 0.0
         self.status = "ok"
         self.children: List["Span"] = []
+        # [(start, end, device index)]: CUDA timing events around each
+        # launch of a kernel span, until ``device_events`` takes them back;
+        # ``_device_s`` keeps the seconds of the pairs taken back
+        self.events: Optional[List[Tuple[Any, Any, int]]] = None
+        self._device_s: Optional[float] = None
 
     @property
     def self_seconds(self) -> float:
         """Wall time minus child spans — the per-operator cost that sums
         (within tolerance) to the parent's total."""
         return max(self.seconds - sum(c.seconds for c in self.children), 0.0)
+
+    def add_events(self, events: Tuple[Any, Any, int]) -> None:
+        """Keep one launch's (start, end, device index) timing events."""
+        with _EVENTS_LOCK:
+            if self.events is None:
+                self.events = []
+                _EVENT_HOLDERS.append(self)
+            self.events.append(events)
+
+    @property
+    def device_seconds(self) -> Optional[float]:
+        """Device seconds between the span's CUDA timing events, summed over
+        its launches (a kernel span on the ``kernel`` tier), or None: no
+        events were recorded, or the device has not yet passed the last
+        one. Never waits, and gives nothing back: ``device_events`` takes
+        the pairs back once the device has passed them, and keeps their
+        seconds here."""
+        with _EVENTS_LOCK:
+            ev = self.events
+            if not ev:
+                return self._device_s
+            if not ev[-1][1].query():  # one stream: the last is the latest
+                return None
+            return (self._device_s or 0.0) + _elapsed_s(ev)
 
     def note(self, key: str, value: Any) -> None:
         self.attrs[key] = value
@@ -126,6 +172,9 @@ class Span:
             "self_seconds": round(self.self_seconds, 6),
             "status": self.status,
         }
+        if self.events is not None or self._device_s is not None:
+            dev = self.device_seconds
+            out["device_ms"] = None if dev is None else round(dev * 1e3, 6)
         if self.attrs:
             out["attrs"] = dict(self.attrs)
         if self.children:
@@ -152,6 +201,21 @@ class _NullSpan:
 NULL_SPAN = _NullSpan()
 
 
+# the traces of the last PROFILED queries opened while a torch profiler
+# recorded, oldest first: where nothing profiles, no query's spans outlive
+# its result
+PROFILED = 4096
+_PROFILED: Deque["QueryTrace"] = collections.deque(maxlen=PROFILED)
+
+
+def profiled_traces() -> List["QueryTrace"]:
+    """The traces of the last ``PROFILED`` queries opened while a
+    ``torch.profiler`` recorded, oldest first, whether or not anyone kept
+    their results: the span trees of a profiled window, read once it has
+    closed, beside the device trace."""
+    return list(_PROFILED)
+
+
 class QueryTrace:
     """The span tree for ONE query: a root plus per-phase children. The
     root's duration is the SUM of its phase durations (a lazy result may
@@ -164,6 +228,8 @@ class QueryTrace:
         # deepest span open when the current execution attempt failed —
         # reset per ladder attempt, read into ``execution_log`` entries
         self.failed_span_id: Optional[int] = None
+        if _profiler_enabled():
+            _PROFILED.append(self)
 
     # -- aggregate views ---------------------------------------------------
 
@@ -244,13 +310,50 @@ def note_rows(
         )
 
 
-def note_site(site: str) -> None:
-    """Stamp a fault-site hit (a device sync point) on the innermost open
-    span: ``attrs["sites"]`` maps site name -> hit count."""
-    sp = _SPAN.get()
-    if sp is not None:
-        sites = sp.attrs.setdefault("sites", {})
-        sites[site] = sites.get(site, 0) + 1
+# CUDA timing events: the free (start, end) pairs per device index, and the
+# kernel spans holding pairs, oldest first. A span is held from its first
+# pair until the device has passed its last one and a launch needs a pair:
+# then its pairs go back to the pool, and the span keeps their seconds. So
+# the holders never outnumber the pairs, and on one stream a new pair is
+# made only while every other one is in flight.
+_EVENTS_LOCK = threading.Lock()
+_EVENT_POOL: Dict[int, List[Tuple[Any, Any]]] = {}
+_EVENT_HOLDERS: Deque[Span] = collections.deque()
+
+
+def _elapsed_s(events: List[Tuple[Any, Any, int]]) -> float:
+    return sum(start.elapsed_time(end) for start, end, _ in events) / 1e3
+
+
+def device_events(index: int) -> Tuple[Any, Any, int]:
+    """A pair of CUDA timing events for device ``index``, as
+    ``Span.add_events`` takes them: from its pool, refilled from the oldest
+    spans' pairs the device has passed, and new ones when none is free."""
+    with _EVENTS_LOCK:
+        pool = _EVENT_POOL.setdefault(index, [])
+        while not pool and _EVENT_HOLDERS:
+            oldest = _EVENT_HOLDERS[0]
+            ev = oldest.events
+            if not ev[-1][1].query():
+                break  # still in flight: the younger ones are too
+            oldest._device_s = (oldest._device_s or 0.0) + _elapsed_s(ev)
+            oldest.events = None
+            _EVENT_HOLDERS.popleft()
+            for start, end, i in ev:
+                _EVENT_POOL.setdefault(i, []).append((start, end))
+        if pool:
+            start, end = pool.pop()
+            return start, end, index
+    import torch
+
+    return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True), index
+
+
+def _profiler_enabled() -> bool:
+    """True while a ``torch.profiler`` records (none can before torch is
+    imported)."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch._C._autograd._profiler_enabled()
 
 
 class activate:
@@ -298,9 +401,8 @@ class span:
         sp = Span(next(tr._ids), self._name, self._kind, self._attrs)
         parent.children.append(sp)
         self._tok = _SPAN.set(sp)
-        if PROFILE_DIR.get():
-            # device-trace backend: the same region, named inside the
-            # torch.profiler timeline (utils/profiling.py)
+        if _profiler_enabled():
+            # the same region, named on the profiler's own timeline
             try:
                 import torch
 
@@ -337,22 +439,48 @@ class span:
         return False
 
 
+class sync(span):
+    """``with sync(site):`` around ONE blocking device->host call
+    (``int(t)``, ``.item()``, ``.tolist()``, a host copy, ``nonzero``,
+    boolean indexing, ``unique``, a stream sync, ...): a child span of kind
+    ``"sync"`` named ``sync:<site>``, whose seconds are the host's wait
+    for the device plus the copy, and one count of
+    ``tpu_cypher_host_sync_total{site}``. ``site`` is the fault site of the
+    code around it, with a suffix where one function syncs more than once.
+    It opens no device sync of its own."""
+
+    __slots__ = ("_site",)
+
+    def __init__(self, site: str):
+        span.__init__(self, "sync:" + site, "sync")
+        self._site = site
+
+    def __enter__(self):
+        HOST_SYNC.inc(site=self._site)
+        return span.__enter__(self)
+
+
 # ---------------------------------------------------------------------------
 # rendering
 # ---------------------------------------------------------------------------
-
-_SKIP_ATTRS = ("sites",)  # rendered separately
 
 
 def _attr_str(sp: Span) -> str:
     parts = [
         f"{k}={v}" for k, v in sp.attrs.items()
-        if k not in _SKIP_ATTRS and not isinstance(v, (dict, list))
+        if not isinstance(v, (dict, list))
     ]
-    sites = sp.attrs.get("sites")
-    if sites:
-        parts.append("sites=" + "+".join(f"{k}:{v}" for k, v in sorted(sites.items())))
     return f"  [{', '.join(parts)}]" if parts else ""
+
+
+def _time_str(sp: Span) -> str:
+    """A span's host time; a kernel span with timing events says that the
+    host time is the enqueue, and gives the device's beside it."""
+    if sp.events is None and sp._device_s is None:
+        return f"{sp.seconds * 1000:.2f} ms"
+    dev = sp.device_seconds
+    dev_part = "pending" if dev is None else f"{dev * 1000:.3f} ms"
+    return f"{sp.seconds * 1000:.2f} ms enqueue, device {dev_part}"
 
 
 def render(trace: QueryTrace) -> str:
@@ -369,7 +497,7 @@ def render(trace: QueryTrace) -> str:
             f" (self {sp.self_seconds * 1000:.2f} ms)" if sp.children else ""
         )
         lines.append(
-            f"{prefix}{branch}{sp.name} {sp.seconds * 1000:.2f} ms"
+            f"{prefix}{branch}{sp.name} {_time_str(sp)}"
             f"{self_part}{mark}{_attr_str(sp)}"
         )
         child_prefix = prefix + ("   " if last else "|  ")

@@ -37,6 +37,7 @@ from typing import Callable, ClassVar, Dict, List, NamedTuple, Optional, Sequenc
 import numpy as np
 import torch
 
+from ..obs.trace import sync as host_sync
 from ..utils import config as _config
 
 # engine-level row axis: the sharded tiers slice table rows and CSR edge
@@ -265,8 +266,9 @@ def fence(mesh: Mesh) -> None:
     mesh's own shards (slices copied there are published after it)."""
     for dev in {mesh.devices[i] for i in mesh.local_shards()}:
         if dev.type == "cuda":
-            # tpulint: allow[host-sync] reason=the fence is the contract: slices copied to a shard are published only after its work is done
-            torch.cuda.current_stream(dev).synchronize()
+            with host_sync("fence"):
+                # tpulint: allow[host-sync] reason=the fence is the contract: slices copied to a shard are published only after its work is done
+                torch.cuda.current_stream(dev).synchronize()
 
 
 _COMBINE: Dict[str, Callable] = {

@@ -35,6 +35,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..obs.trace import sync as host_sync
 from ..runtime.faults import fault_point
 from .mesh import Mesh, make_row_mesh, use_mesh
 
@@ -176,8 +177,9 @@ def all_reduce(t: torch.Tensor, op: str) -> torch.Tensor:
         t = t.clone()
         dist.all_reduce(t, red, group=_STATE["group"])
         return t
-    # tpulint: allow[host-sync] reason=gloo reduces host tensors; a fault point here could raise on one rank and leave the others waiting in the collective
-    host = t.cpu().clone()
+    with host_sync("shuffle"):
+        # tpulint: allow[host-sync] reason=gloo reduces host tensors; a fault point here could raise on one rank and leave the others waiting in the collective
+        host = t.cpu().clone()
     if host.dtype == torch.bool:  # gloo reduces no bools
         host = host.to(torch.uint8)
         dist.all_reduce(host, red)
@@ -195,7 +197,8 @@ def collect_on_host0(arr) -> Optional[np.ndarray]:
         return None
     if isinstance(arr, torch.Tensor):
         fault_point("shuffle")  # the collect's host copy
-        return arr.detach().cpu().numpy()
+        with host_sync("shuffle"):
+            return arr.detach().cpu().numpy()
     return np.asarray(arr)
 
 

@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..obs.trace import sync as host_sync
 from ..runtime.faults import fault_point
 from .mesh import mesh_size
 
@@ -76,10 +77,14 @@ def _join_pairs(l_key, l_valid, r_key, r_valid) -> Tuple[torch.Tensor, torch.Ten
     rvalids = () if r_valid is None else (r_valid,)
     rd_s, r_order, nvalid = J.join_build(r_key, rvalids, is_f64=False, is_bool=False)
     fault_point("shuffle")  # the build and pair counts read below
+    with host_sync("shuffle_build"):
+        build_rows = int(nvalid)
     r_idx, lo, counts, total = join_probe(
-        rd_s, r_order, l_key, lvalids, int(nvalid), is_f64=False, is_bool=False
+        rd_s, r_order, l_key, lvalids, build_rows, is_f64=False, is_bool=False
     )
-    return J.join_materialize(r_idx, lo, counts, int(total))
+    with host_sync("shuffle"):
+        pairs = int(total)
+    return J.join_materialize(r_idx, lo, counts, pairs)
 
 
 def broadcast_join(l_key, l_valid, r_key, r_valid) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
@@ -112,9 +117,15 @@ def sharded_distinct_count(keys, valid=None) -> Optional[int]:
     without a mesh of more than one shard."""
     if mesh_size() <= 1:
         return None
-    k = keys.to(torch.int64) if valid is None else keys[valid].to(torch.int64)
+    if valid is None:
+        k = keys.to(torch.int64)
+    else:
+        with host_sync("shuffle_keys"):
+            k = keys[valid].to(torch.int64)
     if int(k.shape[0]) == 0:
         return 0
     s = torch.sort(k).values
     fault_point("shuffle")  # the count read below
-    return int(torch.sum(s[1:] != s[:-1], dtype=torch.int64)) + 1
+    steps = torch.sum(s[1:] != s[:-1], dtype=torch.int64)
+    with host_sync("shuffle"):
+        return int(steps) + 1

@@ -286,14 +286,9 @@ class CypherResult:
     def _materialize_attempt(self, plan) -> RelationalCypherRecords:
         """Execute ``plan`` once."""
         from ..backend.cuda import bucketing
-        from ..utils.profiling import PROFILE_DIR, profile_trace
 
         compiles_before = bucketing.compile_snapshot()
-        with profile_trace():  # no-op unless profiling
-            table = plan.table  # pulls the whole physical plan
-            if PROFILE_DIR.get():
-                # async launches would escape the trace: block on device work
-                table = table.cache()
+        table = plan.table  # pulls the whole physical plan
         if self.compile_stats is None:
             self.compile_stats = bucketing.compile_delta(compiles_before)
         return RelationalCypherRecords(plan.header, table, self._returns)

@@ -65,15 +65,14 @@ import threading
 from typing import Dict, List, Optional, Tuple
 
 from ..errors import QueryTimeout
-from ..obs import trace as _obs_trace
 from ..obs.metrics import REGISTRY as _REGISTRY
 from ..utils.config import FAULTS as _FAULTS
 
 ENV = _FAULTS.name
 
 # per-site invocation counts, served by the unified obs registry — sites
-# are exactly the engine's device sync points, so this series doubles as
-# dispatch-boundary telemetry (docs/observability.md). The occurrence-
+# sit at the engine's device sync points, whose waits the ``sync:<site>``
+# spans time (``obs.trace.sync``, docs/observability.md). The occurrence-
 # window logic below keys off the same counter (inc-and-get is atomic),
 # which is why ``set_spec``/``reset_counters`` reset it: a fresh spec
 # means a fresh deterministic schedule.
@@ -252,15 +251,13 @@ def _active_spec() -> Dict[str, List[Tuple[str, int, int]]]:
 
 def fault_point(site: str) -> None:
     """Named fault site. Counts the invocation in the unified registry,
-    stamps the site on the enclosing trace span (sites are exactly the
-    device sync points between dispatches), checks the active query
-    deadline (``runtime.guard``), and raises when an active spec's
-    occurrence window covers this invocation."""
+    checks the active query deadline (``runtime.guard``), and raises when
+    an active spec's occurrence window covers this invocation. The device
+    syncs after it are timed by their own ``obs.trace.sync`` spans."""
     from . import guard as G
 
     G.check_deadline(site)
     n = int(FAULT_SITE_HITS.inc(site=site))
-    _obs_trace.note_site(site)
     sched = _CTX_SCHEDULE.get()
     if sched is not None:
         # a context-local schedule shadows the global spec entirely and

@@ -48,8 +48,8 @@ LADDER_ACTIVATIONS = _REGISTRY.counter(
 
 class ExecutionGuard:
     """State for ONE query execution attempt. Per-site
-    tracing rides the obs span tree (``obs.trace.note_site``), not the
-    guard."""
+    tracing rides the obs span tree (``obs.trace.sync`` spans at the
+    device syncs), not the guard."""
 
     __slots__ = ("deadline_at", "rung")
 

@@ -496,16 +496,10 @@ COMPACT_MIN_BUCKET = declare(
     "across write batches",
 )
 
-# observability (obs/metrics.py, utils/profiling.py, obs/trace.py)
+# observability (obs/metrics.py)
 METRICS_FILE = declare(
     "TPU_CYPHER_METRICS_FILE",
     "",
     str,
     help="JSON-lines per-query event sink; empty = disabled",
-)
-PROFILE_DIR = declare(
-    "TPU_CYPHER_PROFILE_DIR",
-    "",
-    str,
-    help="jax.profiler trace directory; also annotates spans",
 )
